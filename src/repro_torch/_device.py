@@ -1,0 +1,80 @@
+"""Device selection and the capability probe.
+
+Entry points that make their own tensors take ``device=None``, which
+means the card: ``default_device()`` returns CUDA and raises when there
+is none.  The CPU is used only when a caller asks for it explicitly
+(``device="cpu"``), as the CPU test-suite does — nothing in the port
+falls back to the CPU on its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[None, str, torch.device]
+
+
+def default_device() -> torch.device:
+    """The CUDA device the port runs on; raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device and none is available; pass "
+            "device='cpu' explicitly to run the plain PyTorch versions")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve(device: DeviceLike) -> torch.device:
+    """Normalise a device argument (``None`` -> the card, ``"cuda"`` ->
+    the current CUDA device with its index)."""
+    if device is None:
+        return default_device()
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' requested but CUDA is not "
+                               "available")
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def find_nvcc() -> Optional[str]:
+    """``nvcc`` on PATH, under ``$CUDA_HOME/bin`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root:
+            cand = os.path.join(root, "bin", "nvcc")
+            if os.path.isfile(cand) and os.access(cand, os.X_OK):
+                return cand
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Capabilities:
+    cuda: bool
+    device_name: Optional[str]
+    compute_capability: Optional[tuple]
+    hopper: bool
+    nvcc: Optional[str]
+
+    @property
+    def can_build_kernels(self) -> bool:
+        return self.hopper and self.nvcc is not None
+
+
+def capabilities() -> Capabilities:
+    """What this process can run: CUDA, an sm_90 card, ``nvcc``."""
+    cuda = torch.cuda.is_available()
+    name = cap = None
+    if cuda:
+        name = torch.cuda.get_device_name(0)
+        cap = tuple(torch.cuda.get_device_capability(0))
+    return Capabilities(cuda=cuda, device_name=name, compute_capability=cap,
+                        hopper=cap == (9, 0), nvcc=find_nvcc())

@@ -1,0 +1,245 @@
+"""Compile-once plan registries and the fixed-latency contract.
+
+Port of ``repro.core.static_registry``.  ``StaticPlanRegistry`` holds
+named static plans and whole ``PlanProgram`` schedules, pins their tile
+schedules (immune to LRU churn) and seals program constants;
+``observe`` records an observed block's signature — crossbar passes,
+program launches, and the schedule / program fingerprints it declares —
+on first execution per (op, payload shapes, backend) and raises
+``FixedLatencyError`` when a later call differs.  Payload values never
+enter the signature.
+
+Waiting for later slices: the drift-monitor feed (``obs``),
+``audit_constant_time`` and the host-sync audit, and ``execute``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import hashlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+from repro_torch.core import crossbar as xb
+from repro_torch.core import integrity as _integrity
+from repro_torch.core import plan_program as pp
+from repro_torch.core import telemetry
+
+
+class FixedLatencyError(AssertionError):
+    """A fixed-latency operation changed schedule/pass-count across calls."""
+
+
+def schedule_fingerprint(plan: xb.PermutePlan, *, block_o: int = 128,
+                         block_n: int = 128) -> tuple:
+    """Value-level identity of a plan's compiled schedule (geometry,
+    selects, occupied-tile count) — a pinned-cache hit when steady."""
+    if plan.semiring.is_gf2k:
+        raise NotImplementedError(
+            f"semiring {plan.semiring.name!r}: the GF(2^k) bit lift "
+            "comes with the AES/GCM slice of the port")
+    compiled = xb.compile_plan(plan, block_o=block_o, block_n=block_n,
+                               pin=True)
+    return (plan.mode, plan.n_in, plan.n_out, plan.k, plan.semiring.name,
+            compiled.n_o_tiles, compiled.n_n_tiles, compiled.num_active)
+
+
+def program_step_fingerprint(program: pp.PlanProgram, step) -> tuple:
+    """PERMUTE steps carry their plan's schedule fingerprint; the others
+    their opcode, wiring and constant slot."""
+    if step.op == "permute":
+        return (step.op, step.dst, step.a,
+                schedule_fingerprint(program.plans[step.plan]))
+    if step.const >= 0:
+        return (step.op, step.dst, step.a, step.const)
+    return (step.op, step.dst, step.a, step.b)
+
+
+class StaticPlanRegistry:
+    """Named static plans, compiled once, executed under a latency contract."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._plans: Dict[str, xb.PermutePlan] = {}
+        self._programs: Dict[str, pp.PlanProgram] = {}
+        self._observed: Dict[tuple, tuple] = {}
+        self._quarantined: Dict[str, int] = {}
+
+    # -- registration -------------------------------------------------------
+
+    def register(self, key: str, plan: xb.PermutePlan, *,
+                 precompile: bool = True) -> xb.PermutePlan:
+        """Register a static plan (double registration is an error);
+        ``precompile`` pins its tile schedule at once."""
+        if key in self._plans:
+            raise ValueError(
+                f"plan {key!r} already registered in {self.name!r}; "
+                "static plans are immutable — use a new key")
+        self._plans[key] = plan
+        if precompile:
+            xb.compile_plan(plan, pin=True)
+        return plan
+
+    def get_or_register(self, key: str,
+                        builder: Callable[[], xb.PermutePlan], *,
+                        precompile: bool = True) -> xb.PermutePlan:
+        """Idempotent registration: build only if ``key`` is absent."""
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self.register(key, builder(), precompile=precompile)
+        return plan
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._plans
+
+    def __getitem__(self, key: str) -> xb.PermutePlan:
+        try:
+            return self._plans[key]
+        except KeyError:
+            raise KeyError(
+                f"no plan {key!r} in static registry {self.name!r} "
+                f"(registered: {sorted(self._plans)})") from None
+
+    def batch_variant(self, key: str, b: int) -> Tuple[xb.PermutePlan, str]:
+        """The width-``b`` block-diagonal variant of a registered plan,
+        registered lazily under ``"<key>_x<b>"``; returns (plan, key)."""
+        base = self[key]
+        if b == 1:
+            return base, key
+        from repro_torch.core import plan_algebra as pa
+        variant_key = f"{key}_x{b}"
+        return self.get_or_register(
+            variant_key, lambda: pa.batch(base, b)), variant_key
+
+    def compiled(self, key: str) -> xb.CompiledPlan:
+        """The pinned schedule of a registered plan (re-pins after clears)."""
+        return xb.compile_plan(self[key], pin=True)
+
+    def fingerprint(self, key: str) -> tuple:
+        return schedule_fingerprint(self[key])
+
+    # -- whole-program registration ----------------------------------------
+
+    def register_program(self, key: str, program: pp.PlanProgram, *,
+                         precompile: bool = True) -> pp.PlanProgram:
+        """Register a static program: its constants are sealed and every
+        plan's tile schedule pinned."""
+        if key in self._programs:
+            raise ValueError(
+                f"program {key!r} already registered in {self.name!r}; "
+                "static programs are immutable — use a new key")
+        self._programs[key] = program
+        _integrity.CONST_GUARD.seal((self.name, key), (program.consts,))
+        if precompile:
+            for plan in program.plans:
+                xb.compile_plan(plan, pin=True)
+        return program
+
+    def get_or_register_program(self, key: str, builder: Callable, *,
+                                precompile: bool = True) -> pp.PlanProgram:
+        program = self._programs.get(key)
+        if program is None:
+            program = self.register_program(key, builder(),
+                                            precompile=precompile)
+        else:
+            self._verify_program(key, program)
+        return program
+
+    def program(self, key: str) -> pp.PlanProgram:
+        try:
+            program = self._programs[key]
+        except KeyError:
+            raise KeyError(
+                f"no program {key!r} in static registry {self.name!r} "
+                f"(registered: {sorted(self._programs)})") from None
+        self._verify_program(key, program)
+        return program
+
+    def _verify_program(self, key: str, program: pp.PlanProgram) -> None:
+        """Sampled consts-digest check on lookup; a mismatch evicts."""
+        _integrity.CONST_GUARD.verify(
+            (self.name, key), lambda: (program.consts,),
+            evict=lambda: self._evict_program(key))
+
+    def _evict_program(self, key: str) -> None:
+        program = self._programs.pop(key, None)
+        if program is not None:
+            for plan in program.plans:
+                xb.unpin_plan(plan)
+
+    def program_fingerprint(self, key: str) -> tuple:
+        """Per-step fingerprints in step order, plus trip count, constant
+        stride and a digest of the constants table."""
+        program = self.program(key)
+        consts_digest = (None if program.consts is None else
+                         hashlib.sha256(
+                             program.consts.tobytes()).hexdigest()[:16])
+        return (program.n, program.n_regs, program.rounds,
+                program.const_stride, len(program.steps), consts_digest,
+                tuple(program_step_fingerprint(program, s)
+                      for s in program.steps))
+
+    # -- quarantine ---------------------------------------------------------
+
+    def quarantine(self, key: str) -> int:
+        """Evict an entry and its batch variants, unpin their schedules
+        and forget every recorded signature; returns how many times
+        ``key`` has been quarantined."""
+        evicted: list = []
+        for k in list(self._plans):
+            if k == key or k.startswith(key + "_x"):
+                evicted.append(self._plans.pop(k))
+        for k in list(self._programs):
+            if k == key or k.startswith(key + "_x"):
+                evicted.extend(self._programs.pop(k).plans)
+                _integrity.CONST_GUARD.drop((self.name, k))
+        for plan in evicted:
+            xb.unpin_plan(plan)
+        self._observed.clear()
+        self._quarantined[key] = self._quarantined.get(key, 0) + 1
+        return self._quarantined[key]
+
+    # -- fixed-latency contract --------------------------------------------
+
+    def reset_observations(self) -> None:
+        """Forget recorded signatures and quarantine history; keep plans."""
+        self._observed.clear()
+        self._quarantined.clear()
+
+    @contextlib.contextmanager
+    def observe(self, name: Any, *, shapes: Sequence = (),
+                backend: Optional[str] = None,
+                plan_keys: Sequence[str] = (),
+                program_keys: Sequence[str] = (),
+                expect_apply_calls: Optional[int] = None,
+                expect_program_launches: Optional[int] = None):
+        """Assert the wrapped block's schedule signature is call-invariant
+        for this (name, shapes, backend), and optionally its exact pass
+        and program-launch counts."""
+        with telemetry.delta() as d:
+            yield
+        delta = d()
+        calls = delta["apply_calls"]
+        if expect_apply_calls is not None and calls != expect_apply_calls:
+            raise FixedLatencyError(
+                f"{self.name}:{name}: expected {expect_apply_calls} "
+                f"crossbar passes, executed {calls}")
+        launches = delta["program_launches"]
+        if (expect_program_launches is not None
+                and launches != expect_program_launches):
+            raise FixedLatencyError(
+                f"{self.name}:{name}: expected {expect_program_launches} "
+                f"program launches, executed {launches}")
+        sig = (calls, tuple(self.fingerprint(k) for k in plan_keys))
+        if program_keys or expect_program_launches is not None:
+            sig = sig + (launches,
+                         tuple(self.program_fingerprint(k)
+                               for k in program_keys))
+        key = (name, tuple(shapes), backend)
+        prev = self._observed.get(key)
+        if prev is None:
+            self._observed[key] = sig
+        elif prev != sig:
+            raise FixedLatencyError(
+                f"{self.name}:{name} violated the fixed-latency contract "
+                f"for shapes={tuple(shapes)} backend={backend!r}: first "
+                f"call signature {prev} != this call {sig}")

@@ -1,0 +1,178 @@
+"""Plan-level wrappers around the crossbar kernels.
+
+Port of ``repro/kernels/ops.py`` for the two crossbar kernels:
+
+* control rows are padded to whole kernel tiles with DROP (padding is
+  inert: a DROP select matches nothing), payload rows and columns are
+  not padded — the kernels mask their ragged edges;
+* integer and bool payloads ride the float32 datapath, which holds
+  integers exactly only below 2^24: larger magnitudes are refused;
+* the plan's semiring picks the accumulate mode (REAL sums, GF2 folds
+  mod 2 at emission);
+* a CUDA payload launches the CUDA kernel or raises
+  ``KernelLaunchError``; a CPU payload runs the kernel's plain version
+  (``kernels/ref.py``).  Nothing falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.crossbar_permute import (
+    DEFAULT_BLOCK_O, KernelLaunchError, crossbar_permute_cuda,
+    crossbar_permute_sparse_cuda)
+
+DROP = -1
+
+_F32_EXACT_INT_BOUND = 1 << 24
+
+__all__ = ["KernelLaunchError", "crossbar_permute", "crossbar_permute_sparse"]
+
+
+@contextlib.contextmanager
+def _surface_kernel_errors(kernel: str, plan):
+    """Re-raise a build, load or launch failure with the plan's geometry.
+
+    Input-validation errors (``ValueError`` from the wrappers' checks)
+    are not kernel failures and pass through untouched.
+    """
+    try:
+        yield
+    except (KernelLaunchError, OSError) as e:
+        raise KernelLaunchError(
+            f"{kernel} failed for plan (mode={plan.mode}, "
+            f"{plan.n_in}->{plan.n_out}, k={plan.idx.shape[-1]}, "
+            f"semiring={plan.semiring.name}): {type(e).__name__}: {e}"
+        ) from e
+
+
+def _is_int(x) -> bool:
+    return not (x.dtype.is_floating_point or x.dtype.is_complex)
+
+
+def _as_f32_payload(x):
+    """Integer/bool payloads -> float32, refusing |x| >= 2^24."""
+    if not _is_int(x):
+        return x
+    if x.dtype != torch.bool and x.element_size() > 2 and x.numel():
+        hi, lo = int(x.max()), int(x.min())
+        if hi >= _F32_EXACT_INT_BOUND or -lo >= _F32_EXACT_INT_BOUND:
+            raise ValueError(
+                f"integer payload magnitude {max(hi, -lo)} >= 2^24: the "
+                "crossbar kernels route integers through float32, which is "
+                "only exact below 2^24. Split the payload or use the "
+                "'einsum' backend (integer accumulation).")
+    return x.to(torch.float32)
+
+
+def _pad_rows(t, mult, value):
+    pad = (-t.shape[0]) % mult
+    if pad == 0:
+        return t.contiguous()
+    return torch.nn.functional.pad(t, (0, 0, 0, pad), value=value)
+
+
+def _semiring_fold(plan) -> bool:
+    """REAL accumulates natively; GF2 folds the exact sum mod 2."""
+    sr = plan.semiring
+    if sr.mod2_fold:
+        return True
+    if sr.name == "real":
+        return False
+    raise ValueError(
+        f"semiring {sr.name!r} has no direct kernel path; execute via "
+        "core.crossbar.apply_plan")
+
+
+def _payload_dtype(x):
+    return x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
+        else torch.float32
+
+
+def dense_operands(plan, x, *, merge=None, block_o=DEFAULT_BLOCK_O):
+    """The dense kernel's operands for a plan: (idx, x, kwargs).
+
+    Gather control is DROP-padded to whole output tiles; the scatter
+    kernel streams control in bounded chunks and needs no padding.
+    """
+    mode = plan.mode
+    xf = _as_f32_payload(x).to(_payload_dtype(x)).contiguous()
+    ctrl_block = block_o if mode == "gather" else 1
+    idxp = _pad_rows(plan.idx, ctrl_block, DROP)
+    wp = (None if plan.weights is None else
+          _pad_rows(plan.weights.to(torch.float32), ctrl_block, 0.0))
+    mp = None if merge is None else merge.to(xf.dtype).contiguous()
+    return idxp, xf, dict(mode=mode, n_out=plan.n_out, weights=wp, merge=mp,
+                          fold_mod2=_semiring_fold(plan))
+
+
+def crossbar_permute(plan, x, *, merge=None, block_o=DEFAULT_BLOCK_O):
+    """Execute a PermutePlan through the dense crossbar kernel.
+
+    x: (n_in, D).  Returns (n_out, D) in x's dtype.
+    """
+    idxp, xf, kw = dense_operands(plan, x, merge=merge, block_o=block_o)
+    if xf.is_cuda:
+        with _surface_kernel_errors("dense crossbar kernel", plan):
+            out = crossbar_permute_cuda(idxp, xf, block_o=block_o, **kw)
+    else:
+        out = ref.crossbar_dense(idxp, xf, **kw)
+    return out.to(x.dtype)
+
+
+def _empty_out(shape, dtype, device):
+    """Output buffer of the tile-skipping kernel (rows of unvisited tiles
+    keep whatever it holds)."""
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def crossbar_permute_sparse(plan, x, *, compiled=None, block_o=128,
+                            block_n=128):
+    """Execute a PermutePlan through the tile-skipping crossbar kernel.
+
+    Rows of output tiles the plan never touches are left unwritten —
+    ``core.crossbar.apply_plan`` overlays merge/zero from the plan's
+    coverage.  ``compiled`` may carry a CompiledPlan of this very plan
+    and blocking; anything else is recompiled (a cache hit when the plan
+    ran before).
+    """
+    args, kw = sparse_operands(plan, x, compiled=compiled, block_o=block_o,
+                               block_n=block_n)
+    out = kw["out"]
+    if args[2].shape[0] == 0:          # no active pair: nothing to visit
+        out.zero_()
+    elif out.is_cuda:
+        with _surface_kernel_errors("sparse crossbar kernel", plan):
+            crossbar_permute_sparse_cuda(*args, **kw)
+    else:
+        ref.crossbar_sparse(*args, **kw)
+    return out.to(x.dtype)
+
+
+def sparse_operands(plan, x, *, compiled=None, block_o=128, block_n=128):
+    """The tile-skipping kernel's operands for a plan: ((run_o, run_ptr,
+    pair_n, idx, x), kwargs), with a fresh output buffer in kwargs."""
+    from repro_torch.core import crossbar as xb  # import cycle at load
+
+    mode = plan.mode
+    xf = _as_f32_payload(x).to(_payload_dtype(x)).contiguous()
+    # A schedule from a different plan (or blocking) would silently skip
+    # tiles this plan occupies — only trust one built from this very idx.
+    if (compiled is None or compiled.block_o != block_o
+            or compiled.block_n != block_n
+            or compiled.plan.idx is not plan.idx):
+        compiled = xb.compile_plan(plan, block_o=block_o, block_n=block_n)
+    ctrl_block = block_o if mode == "gather" else block_n
+    idxp = _pad_rows(plan.idx, ctrl_block, DROP)
+    wp = (None if plan.weights is None else
+          _pad_rows(plan.weights.to(torch.float32), ctrl_block, 0.0))
+    run_o, run_ptr = compiled.runs
+    pair_n = compiled.pair_n[:compiled.num_active].contiguous()
+    out = _empty_out((plan.n_out, xf.shape[1]), xf.dtype, xf.device)
+    return ((run_o, run_ptr, pair_n, idxp, xf),
+            dict(mode=mode, n_out=plan.n_out, out=out, weights=wp,
+                 fold_mod2=_semiring_fold(plan), block_o=block_o,
+                 block_n=block_n))

@@ -1,0 +1,191 @@
+"""Plain PyTorch versions of the three CUDA kernels.
+
+Each function computes what its kernel computes, on the same operands,
+with the same arithmetic: the crossbar in float32 with rounded
+multiply-then-add in the kernel's summation order (bf16 payloads against
+bf16-rounded weights), merge by coverage and the GF(2) parity fold; the
+sparse crossbar over the same schedule, leaving unvisited output tiles
+unwritten; the plan-program VM as a Python loop over rounds and steps in
+wrapping 32-bit arithmetic.  The kernel wrappers use them for CPU
+tensors; the tests and ``chip_smoke.py`` hold the kernels against them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+GATHER, SCATTER = "gather", "scatter"
+_MASK32 = 0xFFFFFFFF
+
+
+def _weights_as_compute(weights, x):
+    """Float32 weights as the payload's compute dtype sees them."""
+    if x.dtype == torch.bfloat16:
+        return weights.to(torch.bfloat16).to(torch.float32)
+    return weights.to(torch.float32)
+
+
+def _fold2(r):
+    return r - 2.0 * torch.floor(r * 0.5)
+
+
+def _contributions(idx, x, weights, mode, n_out, keep=None):
+    """(acc, hits): float32 sums in the kernel's order, and hit counts."""
+    n_in, d = x.shape
+    k = idx.shape[1]
+    xf = x.to(torch.float32)
+    w = None if weights is None else _weights_as_compute(weights, x)
+    if mode == GATHER:
+        idx = idx[:n_out]
+        valid = (idx >= 0) & (idx < n_in)
+        hits = valid.sum(dim=1)
+        if keep is not None:
+            valid = valid & keep
+        acc = torch.zeros((n_out, d), dtype=torch.float32, device=x.device)
+        for j in range(k):
+            vals = xf[idx[:, j].clamp(0, max(n_in - 1, 0))]
+            if w is not None:
+                vals = w[:n_out, j:j + 1] * vals
+            acc = acc + torch.where(valid[:, j:j + 1], vals,
+                                    torch.zeros_like(vals))
+        return acc, hits
+    idx = idx[:n_in]
+    valid = (idx >= 0) & (idx < n_out)
+    if keep is not None:
+        valid = valid & keep
+    dest = torch.where(valid, idx, torch.zeros_like(idx)).reshape(-1).long()
+    contrib = xf[:, None, :].expand(n_in, k, d)
+    if w is not None:
+        contrib = w[:n_in, :, None] * contrib
+    contrib = torch.where(valid[:, :, None], contrib,
+                          torch.zeros_like(contrib)).reshape(n_in * k, d)
+    # (input row, select) order, the order the kernel's owner thread adds.
+    acc = torch.zeros((n_out, d), dtype=torch.float32, device=x.device)
+    acc.index_add_(0, dest, contrib)
+    hits = torch.zeros((n_out,), dtype=torch.int64, device=x.device)
+    hits.index_add_(0, dest, valid.reshape(-1).long())
+    return acc, hits
+
+
+def crossbar_dense(idx, x, *, mode, n_out, weights=None, merge=None,
+                   fold_mod2=False):
+    """Plain dense crossbar: ``out = P @ x`` with merge and GF(2) fold.
+
+    Same operands as ``crossbar_permute_cuda``; control rows past the
+    plan (DROP padding) are ignored.
+    """
+    acc, hits = _contributions(idx, x, weights, mode, n_out)
+    if fold_mod2:
+        acc = _fold2(acc)
+    if merge is not None:
+        acc = torch.where(hits[:, None] > 0, acc, merge.to(torch.float32))
+    return acc.to(x.dtype)
+
+
+def schedule_runs(pair_o):
+    """CSR form of an o-major schedule: (run_o, run_ptr) int32."""
+    run_o, counts = torch.unique_consecutive(pair_o, return_counts=True)
+    run_ptr = torch.zeros(run_o.shape[0] + 1, dtype=torch.int32,
+                          device=pair_o.device)
+    run_ptr[1:] = torch.cumsum(counts, 0)
+    return run_o.to(torch.int32), run_ptr
+
+
+def crossbar_sparse(run_o, run_ptr, pair_n, idx, x, *, mode, n_out, out,
+                    weights=None, fold_mod2=False, block_o=128, block_n=128):
+    """Plain tile-skipping crossbar over the same schedule.
+
+    A select contributes only through an active (o_tile, n_tile) pair;
+    rows of output tiles in the schedule are written into ``out``, the
+    rest of ``out`` is left as it was.
+    """
+    n_in = x.shape[0]
+    n_o_tiles = -(-n_out // block_o)
+    n_n_tiles = max(1, -(-n_in // block_n))
+    counts = (run_ptr[1:] - run_ptr[:-1]).long()
+    pair_o = torch.repeat_interleave(run_o.long(), counts)
+    occ = torch.zeros((n_o_tiles, n_n_tiles), dtype=torch.bool,
+                      device=x.device)
+    occ[pair_o, pair_n.long()] = True
+    if mode == GATHER:
+        idx = idx[:n_out]
+        o_t = (torch.arange(n_out, device=x.device) // block_o)[:, None]
+        n_t = idx.clamp(0, max(n_in - 1, 0)) // block_n
+    else:
+        idx = idx[:n_in]
+        o_t = idx.clamp(0, max(n_out - 1, 0)) // block_o
+        n_t = (torch.arange(n_in, device=x.device) // block_n)[:, None]
+    keep = occ[o_t.expand_as(idx).long(), n_t.expand_as(idx).long()]
+    acc, _ = _contributions(idx, x, weights, mode, n_out, keep=keep)
+    if fold_mod2:
+        acc = _fold2(acc)
+    rows = torch.repeat_interleave(
+        occ.any(dim=1), block_o)[:n_out]
+    out[rows] = acc[rows].to(out.dtype)
+    return out
+
+
+def _to_u32(t):
+    """int32/uint32 tensor -> int64 holding the uint32 value."""
+    if t.dtype == torch.uint32:
+        t = t.view(torch.int32)
+    return t.to(torch.int64) & _MASK32
+
+
+def _from_u32(v, dtype):
+    bits = (((v + (1 << 31)) & _MASK32) - (1 << 31)).to(torch.int32)
+    return bits.view(torch.uint32) if dtype == torch.uint32 else bits
+
+
+def plan_program_vm(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
+                    consts, *, n_regs, rounds=1, const_stride=0):
+    """Plain VM: the megakernel's operands, a Python loop over rounds and
+    steps, wrapping 32-bit arithmetic on int64 carriers."""
+    from repro_torch.kernels.plan_program_kernel import OPCODES
+
+    n = state.shape[0]
+    regs = [_to_u32(state)] + [torch.zeros_like(_to_u32(state))
+                               for _ in range(n_regs - 1)]
+    rows = steps.tolist()
+    koff_l, kcnt_l, folds_l, woff_l = (t.tolist() for t in
+                                       (koff, kcnt, folds, woff))
+    tbl = plan_tbl.to(torch.int64)
+    wts = None if w_flat is None else _to_u32(w_flat)
+    cst = _to_u32(consts)
+    for rnd in range(rounds):
+        for code, dst, a, b, p, c in rows:
+            op = OPCODES[code]
+            av = regs[a]
+            if op == "permute":
+                acc_add = torch.zeros_like(av)
+                acc_xor = torch.zeros_like(av)
+                for j in range(kcnt_l[p]):
+                    src = tbl[koff_l[p] + j]
+                    valid = ((src >= 0) & (src < n))[:, None]
+                    g = av[src.clamp(0, n - 1)]
+                    if woff_l[p] >= 0:
+                        g = (g * wts[woff_l[p] + j][:, None]) & _MASK32
+                    g = torch.where(valid, g, torch.zeros_like(g))
+                    acc_add = (acc_add + g) & _MASK32
+                    acc_xor = acc_xor ^ (g & 1)
+                val = acc_xor if folds_l[p] else acc_add
+            elif op == "xor":
+                val = av ^ regs[b]
+            elif op == "and":
+                val = av & regs[b]
+            elif op == "andn":
+                val = (av ^ _MASK32) & regs[b]
+            elif op == "add":
+                val = (av + regs[b]) & _MASK32
+            else:
+                k = cst[c + rnd * const_stride][:, None]
+                if op == "rotlv":
+                    left = torch.where(k < 32, (av << k.clamp(max=32)) &
+                                       _MASK32, torch.zeros_like(av))
+                    val = left | (av >> ((32 - k) & 31))
+                elif op == "xor_const":
+                    val = av ^ k
+                else:  # eq_const
+                    val = (av == k).to(torch.int64)
+            regs[dst] = val
+    return _from_u32(regs[0], state.dtype)

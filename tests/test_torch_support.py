@@ -1,0 +1,109 @@
+"""Shared harness of the PyTorch-port tests, and a test of it.
+
+The port's tests feed the same numpy inputs, made from a seed, to the
+JAX reference (``repro``) and to the port (``repro_torch``) on the CPU.
+
+Nothing here imports JAX at module level, so the card-only tests can
+import the helpers on a machine without it.
+
+* ``jax_ref`` — the reference calls ``jax.core.trace_state_clean``,
+  which jax 0.9 moved to ``jax._src.core``.  The fixture aliases it back
+  through ``monkeypatch`` for the duration of the test only, so the JAX
+  suite's own tests in the same worker see the module unchanged.
+* ``reset_torch_state`` — autouse in every file that imports it: zero
+  the port's counters and caches between tests.
+* ``assert_bitexact`` / ``assert_close`` — the exactness rule: integer,
+  GF(2), unweighted gathers and unique-destination scatters are
+  bit-exact; weighted float32 REAL sums and colliding scatters agree to
+  ``rtol=1e-5, atol=1e-6``; bf16 payloads (against bf16-rounded weights)
+  to ``rtol=1e-2``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.fixture
+def jax_ref(monkeypatch):
+    """Make the JAX reference runnable on this jax for one test, and
+    leave the reference's crypto registry as the test found it (its
+    plans outlive a test, and the JAX suite shares the worker)."""
+    import jax
+    from jax._src import core as jax_core
+    from repro.crypto.registry import REGISTRY
+    monkeypatch.setattr(jax.core, "trace_state_clean",
+                        jax_core.trace_state_clean, raising=False)
+    tables = (REGISTRY._plans, REGISTRY._programs, REGISTRY._observed,
+              REGISTRY._quarantined)
+    saved = [dict(t) for t in tables]
+    yield
+    for table, before in zip(tables, saved):
+        table.clear()
+        table.update(before)
+
+
+@pytest.fixture(autouse=True)
+def reset_torch_state():
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import registry
+    telemetry.reset()
+    registry.reset_observations()
+    yield
+
+
+def to_numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        if t.dtype == torch.uint32:
+            return t.view(torch.int32).numpy().view(np.uint32)
+        return t.numpy()
+    arr = np.asarray(a)
+    if str(arr.dtype) == "bfloat16":
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def assert_bitexact(got, want) -> None:
+    g, w = to_numpy(got), to_numpy(want)
+    assert g.shape == w.shape, f"shape {g.shape} != {w.shape}"
+    assert np.array_equal(g, w), (
+        f"not bit-exact: {np.count_nonzero(g != w)} of {g.size} differ")
+
+
+def assert_close(got, want, tol=None) -> None:
+    g = to_numpy(got).astype(np.float64)
+    w = to_numpy(want).astype(np.float64)
+    assert g.shape == w.shape, f"shape {g.shape} != {w.shape}"
+    np.testing.assert_allclose(g, w, **(tol or F32_TOL))
+
+
+def test_jax_ref_alias_makes_reference_runnable(jax_ref):
+    import jax
+    import jax.numpy as jnp
+    from repro.core import crossbar as jxb
+    assert jax.core.trace_state_clean()
+    plan = jxb.gather_plan(jnp.asarray([2, 0, 1], jnp.int32), 3)
+    compiled = jxb.compile_plan(plan, block_o=2, block_n=2)
+    assert compiled.is_static and compiled.num_active == 3
+
+
+def test_exactness_helpers_enforce_the_rule():
+    x = np.arange(6, dtype=np.int32).reshape(2, 3)
+    assert_bitexact(torch.as_tensor(x), x)
+    y = x.copy()
+    y[1, 2] += 1
+    with pytest.raises(AssertionError):
+        assert_bitexact(torch.as_tensor(y), x)
+    f = np.linspace(1.0, 2.0, 8, dtype=np.float32)
+    assert_close(torch.as_tensor(f * (1 + 5e-7)), f)
+    with pytest.raises(AssertionError):
+        assert_close(torch.as_tensor(f * (1 + 1e-3)), f)
+    assert_close(torch.as_tensor(f).to(torch.bfloat16), f, BF16_TOL)
+    u = torch.as_tensor(np.array([1, -1], np.int32)).view(torch.uint32)
+    assert_bitexact(u, np.array([1, 2**32 - 1], np.uint32))
