@@ -1,17 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels of ``src/repro_torch/kernels/csrc`` with
-nvcc (into ``build/repro_torch_kernels/``), holds each kernel against its
-plain PyTorch version at the main path's shapes, then drives the main
-path through the entry points a user calls — batched SHA3-256 of 1024
-one-KiB messages on the plan-program megakernel, Keccak-f[1600] on the
-dense and tile-skipping crossbars, the RVV ops, the fixed-latency
-contract — with every launch counter set to 0 just before and read just
-after.  Then it times each kernel, its plain version and, where one
-exists, a single PyTorch call computing the same function.
+Builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
+nvcc (into ``build/repro_torch_kernels/``) and holds each kernel against
+its plain PyTorch version at its path's shapes.  Then it drives each
+path through the entry points a user calls, with every launch counter
+set to 0 just before and read just after:
+
+* SHA-3: batched SHA3-256 of 1024 one-KiB messages on the plan-program
+  megakernel, Keccak-f[1600] on the dense and tile-skipping crossbars,
+  the RVV ops, the fixed-latency contract;
+* the fused vcompress through ``kernels.ops.fused_vcompress``;
+* Phi-3.5-MoE at its published width, cut to 4 of 32 layers, on seeded
+  random weights: per layer, every crossbar backend from the reference
+  backend's layer input (dispatch bit-exact, combine, layer outputs and
+  logits within the bf16 tolerance), then the counted prompt forward
+  (2 x 2048 tokens) on the tile-skipping and the dense crossbar, and
+  ``ServingEngine.generate`` answering 8 requests greedy and sampled.
+
+Then it times each kernel (device time by CUDA-graph replay, and the
+eager call), its plain version and, where one exists, a single PyTorch
+call computing the same function, and the kernels' share of the prompt
+forward and of decoding.
 
 Any failed check raises and the run exits non-zero.  The second-to-last
 line is the ``kernels`` JSON object; the last line is the contract line
@@ -38,6 +50,13 @@ FP32_NON_TENSOR_OPS_PER_S = 67e12
 TOL_F32 = dict(rtol=1e-5, atol=1e-6)     # weighted REAL, colliding scatter
 TOL_BF16 = dict(rtol=1e-2, atol=1e-2)    # bf16 payload, bf16-rounded weights
 
+# Phi-3.5-MoE at its published width.  Depth is the one cut: 32 layers
+# of float32 weights are ~168 GB, over the card's 80 GB; 4 are ~22 GB.
+MOE_LAYERS = 4
+MOE_BATCH, MOE_SEQ = 2, 2048                  # prompt forward
+SERVE_SLOTS, SERVE_NEW, SERVE_MAX_SEQ = 8, 16, 256
+KERNEL_OF = {"sparse": "crossbar_sparse", "kernel": "crossbar_dense"}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -48,6 +67,417 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def time_ms(fn, iters):
+    """Mean ms of one call: CUDA events around ``iters`` calls, after
+    two warm-up calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device ms of one call: ``iters`` calls captured in one CUDA
+    graph and replayed between two CUDA events, so the host's launch path
+    (Python, allocation, ctypes) is not in the time — ``time_ms`` of a
+    kernel that runs for microseconds measures that path instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    graph.replay()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def timed(fn, iters):
+    """(device ms by graph replay, ms of eager calls by CUDA events)."""
+    return graph_ms(fn, iters), time_ms(fn, iters)
+
+
+def bound(nbytes, ops_):
+    """The least time for the work: the larger of bytes over the memory
+    rate and operations over the float32 rate, in ms."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops_ / FP32_NON_TENSOR_OPS_PER_S * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def host_s(fn):
+    """Seconds of ``fn()`` on the host clock, ending in a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, out
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def tree_leaves(tree):
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def close(name, got, want, tol):
+    """A model-level check (not a kernel against its plain version)."""
+    import torch
+    got32, want32 = got.float(), want.float()
+    diff = float((got32 - want32).abs().max()) if got.numel() else 0.0
+    check(bool(torch.isfinite(got32).all()), f"{name}: not finite")
+    check(torch.allclose(got32, want32, **tol),
+          f"{name}: max |diff| {diff} outside {tol}")
+    log(f"  {name}: max |diff| {diff} ({tol})")
+
+
+def close_rows(name, got, want, rtol):
+    """Each row (a token's logit vector) within ``rtol`` in L2 norm.  A
+    float32 logit sums d_model bf16-rounded products, so one-ulp changes
+    of the hidden state add up over the row: the elementwise difference
+    is printed beside it, not bounded by the bf16 rtol."""
+    import torch
+    got32, want32 = got.float(), want.float()
+    check(bool(torch.isfinite(got32).all()), f"{name}: not finite")
+    rel = (torch.linalg.vector_norm(got32 - want32, dim=-1)
+           / torch.linalg.vector_norm(want32, dim=-1))
+    worst = float(rel.max())
+    same = float((got32.argmax(-1) == want32.argmax(-1)).float().mean())
+    check(worst <= rtol, f"{name}: row L2 relative error {worst} > {rtol}")
+    log(f"  {name}: worst row L2 relative error {worst:.3e} (<= {rtol}); "
+        f"max |diff| {float((got32 - want32).abs().max())}; argmax agrees on "
+        f"{same:.4f} of rows")
+
+
+def moe_phases(dev, rng, compare):
+    """Phi-3.5-MoE at full width and 4 layers on the card.
+
+    Per layer, from the reference backend's layer input: the moe_route
+    kernel against its plain version on the real routing ids; dispatch
+    on the tile-skipping and the dense crossbar bit-exact against the
+    reference backend; combine, the layer output and the logits within
+    the bf16 tolerance.  The same for one decode step.  Then the counted
+    paths: the prompt forward on each crossbar, and serving (greedy and
+    sampled), each with the launch counters set to 0 just before and read
+    just after; a greedy card-against-CPU check at reduced size; layer
+    0's dispatch and combine through each crossbar kernel against its
+    plain version (dispatch bit-exact, combine within ``TOL_F32``), at the
+    prompt and the decode shape, with their times; and the kernels' share
+    of the forward and of decoding.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import phi3_5_moe
+    from repro_torch.configs.base import reduced
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels import crossbar_permute as xbk
+    from repro_torch.kernels import moe_route as mrk
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as M
+    from repro_torch.models import params as MP
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeOptions, ServingEngine
+
+    backends = ("reference", "sparse", "kernel")
+    cfg = dataclasses.replace(phi3_5_moe.CONFIG, num_layers=MOE_LAYERS,
+                              dispatch_backend="sparse")
+    cfgs = {b: dataclasses.replace(cfg, dispatch_backend=b)
+            for b in backends}
+    e_, k_ = cfg.num_experts, cfg.num_experts_per_tok
+    secs, params = host_s(lambda: MP.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"phi3.5-moe, full width, {MOE_LAYERS} of {phi3_5_moe.CONFIG.num_layers}"
+        f" layers: {n_params / 1e9:.3f} B float32 parameters drawn on the "
+        f"card in {secs:.2f} s; {torch.cuda.memory_allocated() / 2**30:.1f} "
+        "GiB allocated")
+    dtype = L.dtype_of(cfg.compute_dtype)
+    cap = M.capacity_of(cfg, MOE_SEQ)
+    check(cap == 384, f"capacity {cap} != 384 at S={MOE_SEQ}")
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (MOE_BATCH, MOE_SEQ)), device=dev)
+
+    log(f"MoE layers ({MOE_BATCH} x {MOE_SEQ} tokens, E={e_}, C={cap}), "
+        "every backend from the reference backend's layer input")
+    h = L.embed_lookup(params["embed"], tokens, dtype)
+    for li, blk in enumerate(params["blocks"]):
+        x1 = h + A.attn_apply(blk["attn"],
+                              L.apply_norm(blk["ln1"], h, cfg.norm), cfg)
+        u = L.apply_norm(blk["ln2"], x1, cfg.norm)
+        routing = md.make_routing(
+            L.dense(blk["moe"]["router"], u, torch.bfloat16).float(),
+            num_experts=e_, k=k_, capacity=cap)
+        ids = routing.expert_ids.reshape(MOE_BATCH, -1)
+        want = ref.moe_route_transform(ids, num_experts=e_, capacity=cap)
+        for part, got, w in zip(("positions", "destinations"),
+                                (routing.positions, routing.dest), want):
+            compare("moe_route", f"layer {li} routing {part}",
+                    got.reshape(MOE_BATCH, -1), w)
+        bufs = {b: md.dispatch(u, routing, backend=b) for b in backends}
+        for b in ("sparse", "kernel"):
+            compare(KERNEL_OF[b], f"layer {li} dispatch {tuple(bufs[b].shape)}"
+                    f" {b} vs reference backend", bufs[b], bufs["reference"])
+        y = torch.as_tensor(rng.standard_normal(tuple(bufs["reference"].shape),
+                                                np.float32),
+                            device=dev).to(dtype)
+        outs = {b: md.combine(y, routing, backend=b) for b in backends}
+        for b in ("sparse", "kernel"):
+            close(f"layer {li} combine {b} vs reference backend", outs[b],
+                  outs["reference"], TOL_BF16)
+        layer = {b: M.block_apply(blk, h, cfgs[b])[0] for b in backends}
+        for b in ("sparse", "kernel"):
+            close(f"layer {li} output {b} vs reference backend", layer[b],
+                  layer["reference"], TOL_BF16)
+        if li == 0:
+            first = dict(u=u, routing=routing, y=y)
+            log(f"  layer 0: {float(md.dropped_fraction(routing).mean()):.4f}"
+                " of assignments over capacity")
+        h = layer["reference"]
+    heads = {b: T.lm_logits(params, L.apply_norm(params["final_norm"],
+                                                 layer[b], cfg.norm), cfg)
+             for b in backends}
+    for b in ("sparse", "kernel"):
+        close_rows(f"logits {tuple(heads[b].shape)} {b} vs reference backend",
+                   heads[b], heads["reference"], TOL_BF16["rtol"])
+    del heads, layer, bufs, outs, h, x1
+
+    log(f"decode step ({SERVE_SLOTS} slots x 1 token), every backend from "
+        "the reference backend's layer input")
+    tok1 = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1)),
+                           device=dev)
+    caches = {b: M.init_caches(cfg, SERVE_SLOTS, SERVE_MAX_SEQ,
+                               torch.float32, dev) for b in backends}
+    x = L.embed_lookup(params["embed"], tok1, dtype)
+    first_dec = L.apply_norm(params["blocks"][0]["ln2"], x, cfg.norm)
+    for li, blk in enumerate(params["blocks"]):
+        dec = {b: M.block_decode(blk, x, {n: c[li] for n, c in
+                                          caches[b].items()}, 0, cfgs[b])[0]
+               for b in backends}
+        for b in ("sparse", "kernel"):
+            close(f"decode layer {li} output {b} vs reference backend",
+                  dec[b], dec["reference"], TOL_BF16)
+        x = dec["reference"]
+    del caches
+
+    total = {}
+
+    def forward(c):
+        hid, _ = M.lm_hidden(params, tokens, c)
+        return T.lm_logits(params, hid, c)
+
+    fwd_s = {}
+    for b in ("sparse", "kernel"):
+        log(f"prompt forward on the {b} crossbar, counted (launch counters "
+            "from 0)")
+        reset_launch_counts()
+        secs, logits = host_s(lambda: forward(cfgs[b]))
+        counts = dict(launch_counts())
+        check(tuple(logits.shape) == (MOE_BATCH, MOE_SEQ, cfg.padded_vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"prompt forward ({b}): logits {tuple(logits.shape)} not finite"
+              " or misshapen")
+        for name in ("moe_route", KERNEL_OF[b]):
+            check(counts[name] > 0, f"{name} not launched on the {b} forward")
+        add_counts(total, counts)
+        fwd_s[b] = [secs]
+        for _ in range(2):
+            fwd_s[b].append(host_s(lambda: forward(cfgs[b]))[0])
+        log(f"  {MOE_BATCH} x {MOE_SEQ} tokens -> logits: "
+            f"{[round(t * 1e3, 2) for t in fwd_s[b]]} ms (host clock, the "
+            f"counted run first), launches {counts}")
+        if b == "sparse":
+            fwd_counts = counts
+        del logits
+
+    api = model_zoo.build(cfg, dev)
+    lens = rng.integers(16, 129, SERVE_SLOTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    steps = int(lens.max()) - 1 + SERVE_NEW
+    serve = {}
+    for name, opt in (
+            ("greedy", ServeOptions(batch_slots=SERVE_SLOTS,
+                                    max_new_tokens=SERVE_NEW)),
+            ("sampled", ServeOptions(batch_slots=SERVE_SLOTS,
+                                     max_new_tokens=SERVE_NEW,
+                                     temperature=1.0, top_k=8))):
+        log(f"serving {len(prompts)} requests ({name}), counted (launch "
+            "counters from 0)")
+        engine = ServingEngine(api, opt, max_seq=SERVE_MAX_SEQ)
+        reset_launch_counts()
+        secs, out = host_s(lambda: engine.generate(
+            params, prompts, generator=torch.Generator(
+                device=dev).manual_seed(1)))
+        counts = dict(launch_counts())
+        check(len(out) == len(prompts)
+              and all(len(o) == SERVE_NEW for o in out)
+              and all(0 <= t < cfg.padded_vocab for o in out for t in o),
+              f"serving ({name}) answered {[len(o) for o in out]}")
+        for kname in ("moe_route", "crossbar_sparse"):
+            check(counts[kname] > 0, f"{kname} not launched serving {name}")
+        add_counts(total, counts)
+        serve[name] = (secs, counts)
+        log(f"  prompt lengths {lens.tolist()}, {SERVE_NEW} new tokens each:"
+            f" {secs:.3f} s for {steps} decode steps ({secs / steps * 1e3:.2f}"
+            f" ms a step), {len(prompts) * SERVE_NEW / secs:.2f} generated "
+            f"tokens/s, launches {counts}")
+        log(f"  first request's tokens: {out[0]}")
+
+    log("greedy serving at reduced size: card against CPU (plain versions)")
+    rcfg = dataclasses.replace(reduced(phi3_5_moe.CONFIG),
+                               dispatch_backend="sparse")
+    cpu_params = MP.init_params(rcfg, torch.Generator().manual_seed(1),
+                                "cpu")
+    small = [rng.integers(0, rcfg.vocab_size, n).tolist()
+             for n in (5, 9, 3, 12)]
+    got = {}
+    for where, p in (("cpu", cpu_params),
+                     ("card", MP.to_device(cpu_params, dev))):
+        eng = ServingEngine(model_zoo.build(rcfg, "cpu" if where == "cpu"
+                                            else dev),
+                            ServeOptions(batch_slots=4, max_new_tokens=8),
+                            max_seq=32)
+        got[where] = eng.generate(p, small)
+    check(got["card"] == got["cpu"],
+          f"greedy tokens differ: card {got['card']} cpu {got['cpu']}")
+    log(f"  4 requests x 8 tokens identical: {got['card'][0]} ...")
+
+    log("MoE-shape kernels against their plain versions, and their times "
+        "(CUDA events, warm)")
+    ids_p = first["routing"].expert_ids.reshape(MOE_BATCH, -1).contiguous()
+    routing_d = md.make_routing(
+        L.dense(params["blocks"][0]["moe"]["router"], first_dec,
+                torch.bfloat16).float(),
+        num_experts=e_, k=k_, capacity=M.capacity_of(cfg, 1))
+    ids_d = routing_d.expert_ids.reshape(SERVE_SLOTS, -1).contiguous()
+    y_d = torch.as_tensor(rng.standard_normal(
+        (SERVE_SLOTS, e_, routing_d.capacity, cfg.d_model), np.float32),
+        device=dev).to(dtype)
+    t_route = {}
+    for shape, ids_, c in (("prompt", ids_p, cap),
+                           ("decode", ids_d, routing_d.capacity)):
+        t_route[shape], eager = timed(lambda: mrk.moe_route_cuda(
+            ids_, num_experts=e_, capacity=c), 200)
+        plain = time_ms(lambda: ref.moe_route_transform(
+            ids_, num_experts=e_, capacity=c), 20)
+        bms, _ = bound(ids_.numel() * 12, 2 * ids_.numel())
+        log(f"  moe_route {shape} {tuple(ids_.shape)}: {t_route[shape]:.4f}"
+            f" ms device [{eager:.4f} eager], plain {plain:.4f} ms, bound "
+            f"{bms:.6f} ms (bytes)")
+    t_xb = {}
+    for shape, rt, u_, y_ in (("prompt", first["routing"], first["u"],
+                               first["y"]),
+                              ("decode", routing_d, first_dec, y_d)):
+        for part, plan, xin in (
+                ("dispatch", md.dispatch_plan(rt), u_),
+                ("combine", md.combine_plan(rt), y_)):
+            x2 = xin.reshape(-1, cfg.d_model).contiguous()
+            # each kernel against its plain version on these operands
+            tol = None if part == "dispatch" else TOL_F32
+            args, kw = ops.sparse_operands(plan, x2)
+            kw["out"].fill_(-7.0)
+            kw_p = dict(kw, out=kw["out"].clone())
+            compare("crossbar_sparse", f"{part} {shape} {plan.n_in}->"
+                    f"{plan.n_out} kernel vs plain version",
+                    xbk.crossbar_permute_sparse_cuda(*args, **kw),
+                    ref.crossbar_sparse(*args, **kw_p), tol)
+            idxp, xf, kwd = ops.dense_operands(plan, x2)
+            compare("crossbar_dense", f"{part} {shape} {plan.n_in}->"
+                    f"{plan.n_out} kernel vs plain version",
+                    xbk.crossbar_permute_cuda(idxp, xf, **kwd),
+                    ref.crossbar_dense(idxp, xf, **kwd), tol)
+            sp, sp_e = timed(lambda: xbk.crossbar_permute_sparse_cuda(
+                *args, **kw), 10)
+            de, de_e = timed(lambda: xbk.crossbar_permute_cuda(idxp, xf,
+                                                               **kwd), 10)
+            es = x2.element_size()
+            nb = (x2.numel() * es + plan.n_out * cfg.d_model * es
+                  + plan.idx.numel() * 4
+                  + (0 if plan.weights is None else plan.weights.numel() * 4))
+            bms, by = bound(nb, 2 * plan.idx.numel() * cfg.d_model)
+            t_xb[(shape, part)] = sp
+            log(f"  {part} {shape} ({plan.mode}, {plan.n_in}->{plan.n_out}, "
+                f"k={plan.k}, D={cfg.d_model} bf16): sparse {sp:.4f} ms "
+                f"[{sp_e:.4f} eager], dense {de:.4f} ms [{de_e:.4f} eager], "
+                f"bound {bms:.5f} ms ({by})")
+
+    log("one layer's parts (host clock, each ending in a synchronise; "
+        "mean of 3 after a warm-up)")
+    blk0 = params["blocks"][0]
+    x_p = L.embed_lookup(params["embed"], tokens, dtype)
+    x_d = L.embed_lookup(params["embed"], tok1, dtype)
+    parts = {
+        "attention, prompt (2 x 2048)": lambda: A.attn_apply(
+            blk0["attn"], x_p, cfg),
+        "MoE layer, prompt (2 x 2048)": lambda: M.moe_mlp_apply(
+            blk0["moe"], first["u"], cfg),
+        "logits head, prompt (2 x 2048)": lambda: T.lm_logits(params, x_p,
+                                                              cfg),
+        "MoE layer, decode (8 x 1)": lambda: M.moe_mlp_apply(
+            blk0["moe"], first_dec, cfg),
+        "expert weight casts of one layer (3 x f32->bf16, 2 x bf16->f32), "
+        "as every MoE call makes them": lambda: [
+            blk0["moe"][n].to(dtype).float() if n != "wo" else
+            blk0["moe"][n].to(dtype) for n in ("wi", "wg", "wo")],
+        "decode logits head (8 x 1)": lambda: T.lm_logits(params, x_d, cfg),
+    }
+    for name, fn in parts.items():
+        host_s(fn)
+        log(f"  {name}: "
+            f"{sum(host_s(fn)[0] for _ in range(3)) / 3 * 1e3:.3f} ms")
+
+    fwd_ms = min(fwd_s["sparse"]) * 1e3
+    k_fwd = (fwd_counts["moe_route"] * t_route["prompt"]
+             + fwd_counts["crossbar_sparse"] / 2
+             * (t_xb[("prompt", "dispatch")] + t_xb[("prompt", "combine")]))
+    log(f"prompt forward ({MOE_BATCH} x {MOE_SEQ}, sparse): {fwd_ms:.2f} ms; "
+        f"kernels ~{k_fwd:.3f} ms of it ({100 * k_fwd / fwd_ms:.2f} %: "
+        "launches x each kernel's time at that shape)")
+    g_s, g_counts = serve["greedy"]
+    k_dec = (g_counts["moe_route"] * t_route["decode"]
+             + g_counts["crossbar_sparse"] / 2
+             * (t_xb[("decode", "dispatch")] + t_xb[("decode", "combine")]))
+    log(f"decode (greedy, {SERVE_SLOTS} slots): {len(prompts) * SERVE_NEW / g_s:.2f}"
+        f" generated tokens/s, {g_s / steps * 1e3:.2f} ms a step; kernels "
+        f"~{k_dec:.3f} ms of {g_s * 1e3:.1f} ms ({100 * k_dec / (g_s * 1e3):.2f}"
+        " %)")
+    return dict(launches=total, route_ids=ids_p, capacity=cap)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -56,6 +486,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch._device import no_tf32
     from repro_torch.core import crossbar as xb
     from repro_torch.core import permute as P
     from repro_torch.core import plan_algebra as pa
@@ -67,9 +498,9 @@ def main() -> int:
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels import crossbar_permute as xbk
     from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import fused_compress as fck
+    from repro_torch.kernels import moe_route as mrk
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
@@ -94,7 +525,8 @@ def main() -> int:
         return torch.as_tensor(rng.integers(0, 2, shape, dtype=np.int32),
                                device=dev)
 
-    err = {"crossbar_dense": 0.0, "crossbar_sparse": 0.0, "plan_program": 0.0}
+    err = {"crossbar_dense": 0.0, "crossbar_sparse": 0.0, "plan_program": 0.0,
+           "moe_route": 0.0, "fused_vcompress": 0.0}
 
     def compare(kernel, name, got, want, tol=None):
         got32, want32 = got.float(), want.float()
@@ -237,6 +669,36 @@ def main() -> int:
             pp.run_program(syn, su).view(torch.int32),
             chained.view(torch.int32))
 
+    # ------------------------------------------------ moe_route kernel ---
+    log("moe_route kernel vs plain version")
+    for g, t, e_, c in ((MOE_BATCH, MOE_SEQ, 16, 384),    # prompt forward
+                        (SERVE_SLOTS, 1, 16, 2),          # decode step
+                        (3, 1000, 7, 50)):                 # ragged chunks
+        ids = torch.as_tensor(rng.integers(-1, e_ + 2, (g, t * 2),
+                                           dtype=np.int32), device=dev)
+        got = mrk.moe_route_cuda(ids, num_experts=e_, capacity=c)
+        want = ref.moe_route_transform(ids, num_experts=e_, capacity=c)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("pos", "dest"), got, want):
+            compare("moe_route", f"({g}, {t}x2) ids in [-1, {e_ + 2}), "
+                    f"E={e_} C={c}: {part}", a, b)
+
+    # ------------------------------------------ fused vcompress kernel ---
+    log("fused vcompress kernel vs plain version")
+    for dt in (torch.bfloat16, torch.float32):
+        xc = torch.as_tensor(rng.standard_normal((2048, 4096), np.float32),
+                             device=dev).to(dt)
+        mc = torch.as_tensor(rng.random(2048) < 0.4, device=dev)
+        for tail in ("zero", "bijective"):
+            got = fck.fused_vcompress_cuda(mc, xc, tail=tail)
+            compare("fused_vcompress", f"(2048, 4096) {dt} tail={tail}",
+                    got, ref.fused_vcompress(mc, xc, tail=tail))
+    xo = torch.as_tensor(rng.standard_normal((5000, 7), np.float32),
+                         device=dev)
+    mo = torch.as_tensor(rng.random(5000) < 0.5, device=dev)
+    compare("fused_vcompress", "(5000, 7) f32, N over one TPU block",
+            fck.fused_vcompress_cuda(mo, xo), ref.fused_vcompress(mo, xo))
+
     # ------------------------------------------------ main path, counted ---
     log("main path (launch counters from 0)")
     msgs = [bytes(m) for m in rng.integers(0, 256, (1024, 1024),
@@ -302,38 +764,44 @@ def main() -> int:
     main_s = time.perf_counter() - t_main
     launches = dict(launch_counts())
     log(f"  main path: {main_s:.3f} s, launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("crossbar_dense", "crossbar_sparse", "plan_program"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the SHA-3 path")
+
+    # ------------------------------------------ fused vcompress, counted ---
+    log("fused vcompress path, its entry point (launch counters from 0)")
+    reset_launch_counts()
+    vc_x = torch.as_tensor(rng.standard_normal((2048, 4096), np.float32),
+                           device=dev).to(torch.bfloat16)
+    vc_mask = torch.as_tensor(rng.random(2048) < 0.5, device=dev)
+    for tail in ("zero", "bijective"):
+        got = ops.fused_vcompress(vc_mask, vc_x, tail=tail)
+        check(torch.equal(got, ref.fused_vcompress(vc_mask, vc_x, tail=tail)),
+              f"ops.fused_vcompress tail={tail} != plain version")
+    vc_counts = dict(launch_counts())
+    check(vc_counts["fused_vcompress"] == 2,
+          f"fused vcompress path launched {vc_counts['fused_vcompress']}")
+    log(f"  ops.fused_vcompress (2048, 4096) bf16, both tails: equal the "
+        f"plain version; launches {vc_counts}")
+    add_counts(launches, vc_counts)
+
+    moe = moe_phases(dev, rng, compare)
+    add_counts(launches, moe["launches"])
+    log(f"  launches over every counted path: {launches}")
 
     # ---------------------------------------------------------- timing ---
-    log("timing (CUDA events, warm, after warm-up)")
-
-    def time_ms(fn, iters):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(iters):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / iters
-
-    def bound(nbytes, ops_):
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = ops_ / FP32_NON_TENSOR_OPS_PER_S * 1e3
-        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
-
-    rows = []
+    log("timing (warm, after warm-up): device ms by CUDA-graph replay; "
+        "eager ms (CUDA events around Python calls) in brackets")
+    rows, eager, lib_eager = [], {}, {}
 
     # dense at the per-round Keccak shape (rho_pi, 1024 payload lanes)
     idxp, xf, kw = ops.dense_operands(rho_pi, x_bits)
     src = rho_pi.idx[:, 0].long()
-    ms = time_ms(lambda: xbk.crossbar_permute_cuda(idxp, xf, **kw), 50)
+    ms, eager["crossbar_dense"] = timed(
+        lambda: xbk.crossbar_permute_cuda(idxp, xf, **kw), 50)
     plain = time_ms(lambda: ref.crossbar_dense(idxp, xf, **kw), 10)
-    lib = time_ms(lambda: torch.index_select(xf, 0, src), 50)
+    lib, lib_eager["crossbar_dense"] = timed(
+        lambda: torch.index_select(xf, 0, src), 50)
     nb = rho_pi.idx.numel() * 4 + xf.numel() * 4 * 2
     bms, by = bound(nb, 2 * rho_pi.n_out * rho_pi.k * xf.shape[1])
     rows.append(dict(name="crossbar_dense", route="cuda",
@@ -344,18 +812,21 @@ def main() -> int:
                      bound_ms=bms, bound_by=by, library_ms=lib))
     # weighted dense case beside a one-hot float32 matmul
     idxw, xw, kww = ops.dense_operands(wplan, x_f[:2048])
-    ms_w = time_ms(lambda: xbk.crossbar_permute_cuda(idxw, xw, **kww), 50)
+    ms_w = graph_ms(lambda: xbk.crossbar_permute_cuda(idxw, xw, **kww), 50)
     onehot = xb.build_onehot(wplan)
-    lib_w = time_ms(lambda: torch.matmul(onehot, xw), 50)
+    with no_tf32():
+        lib_w = graph_ms(lambda: torch.matmul(onehot, xw), 50)
     log(f"  dense weighted k=3 (2048, 256) f32: kernel {ms_w:.4f} ms, "
         f"one-hot torch.matmul (float32, no TF32) {lib_w:.4f} ms")
 
     # sparse at the block-diagonal Keccak shape (batch(rho_pi, 64))
     args, kw = ops.sparse_operands(bd64, x_bd)
-    ms = time_ms(lambda: xbk.crossbar_permute_sparse_cuda(*args, **kw), 50)
+    ms, eager["crossbar_sparse"] = timed(
+        lambda: xbk.crossbar_permute_sparse_cuda(*args, **kw), 50)
     plain = time_ms(lambda: ref.crossbar_sparse(*args, **kw), 10)
     src_bd = bd64.idx[:, 0].long()
-    lib = time_ms(lambda: torch.index_select(args[4], 0, src_bd), 50)
+    lib, lib_eager["crossbar_sparse"] = timed(
+        lambda: torch.index_select(args[4], 0, src_bd), 50)
     nb = (bd64.idx.numel() * 4 + args[4].numel() * 4 * 2
           + sum(t.numel() * 4 for t in args[:3]))
     bms, by = bound(nb, 2 * bd64.n_out * bd64.k * args[4].shape[1])
@@ -369,8 +840,8 @@ def main() -> int:
 
     # megakernel: one Keccak-f[1600] over 1024 lanes
     stT = states.T.contiguous()
-    ms = time_ms(lambda: ppk.plan_program_cuda(stT, *vm_operands(ctl),
-                                               **mk_kw), 20)
+    ms, eager["plan_program"] = timed(
+        lambda: ppk.plan_program_cuda(stT, *vm_operands(ctl), **mk_kw), 20)
     plain = time_ms(lambda: ref.plan_program_vm(stT, *vm_operands(ctl),
                                                 **mk_kw), 2)
     lanes = stT.shape[1]
@@ -387,6 +858,42 @@ def main() -> int:
                      launches=launches["plan_program"],
                      max_abs_err=err["plan_program"], ms=ms, plain_ms=plain,
                      bound_ms=bms, bound_by=by, library_ms=None))
+    # moe_route at the prompt forward's shape, on layer 0's routing ids
+    ids_p = moe["route_ids"]
+    kw_r = dict(num_experts=16, capacity=moe["capacity"])
+    ms, eager["moe_route"] = timed(
+        lambda: mrk.moe_route_cuda(ids_p, **kw_r), 200)
+    plain = time_ms(lambda: ref.moe_route_transform(ids_p, **kw_r), 20)
+    bms, by = bound(ids_p.numel() * 4 * 3, 2 * ids_p.numel())
+    rows.append(dict(name="moe_route", route="cuda",
+                     source="src/repro_torch/kernels/csrc/moe_route.cu",
+                     replaces="src/repro/kernels/moe_route.py:51",
+                     launches=launches["moe_route"],
+                     max_abs_err=err["moe_route"], ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+
+    # fused vcompress, (2048, 4096) bf16, bijective tail; the library
+    # yardstick is one index_select with the packed order computed ahead
+    order = torch.argsort((~vc_mask).to(torch.int8), stable=True)
+    ms, eager["fused_vcompress"] = timed(
+        lambda: fck.fused_vcompress_cuda(vc_mask, vc_x, tail="bijective"),
+        200)
+    ms_zero = graph_ms(lambda: fck.fused_vcompress_cuda(vc_mask, vc_x), 200)
+    plain = time_ms(lambda: ref.fused_vcompress(vc_mask, vc_x,
+                                                tail="bijective"), 20)
+    lib, lib_eager["fused_vcompress"] = timed(
+        lambda: torch.index_select(vc_x, 0, order), 200)
+    nb = vc_mask.numel() + 2 * vc_x.numel() * vc_x.element_size()
+    bms, by = bound(nb, vc_mask.numel())
+    rows.append(dict(name="fused_vcompress", route="cuda",
+                     source="src/repro_torch/kernels/csrc/fused_compress.cu",
+                     replaces="src/repro/kernels/fused_compress.py:62",
+                     launches=launches["fused_vcompress"],
+                     max_abs_err=err["fused_vcompress"], ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=lib))
+    log(f"  fused_vcompress tail=zero: {ms_zero:.4f} ms")
+
     smem_reads = lanes * prog.rounds * prog.n * (permute_selects
                                                  + 2 * elementwise)
     log(f"  megakernel: {smem_reads} shared-memory word reads "
@@ -399,9 +906,11 @@ def main() -> int:
     log(f"  sha3_256_batched 1024 x 1 KiB (megakernel, 8 permutations): "
         f"{sha_s * 1e3:.2f} ms host clock, {1024 / sha_s:.1f} hashes/s")
     for r in rows:
-        log(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms "
-            f"by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']}")
+        lib_txt = ("none" if r["library_ms"] is None else
+                   f"{r['library_ms']:.4f} [{lib_eager[r['name']]:.4f}] ms")
+        log(f"  {r['name']}: {r['ms']:.4f} [{eager[r['name']]:.4f}] ms "
+            f"(bound {r['bound_ms']:.5f} ms by {r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {lib_txt}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ falls back to the CPU on its own.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -40,6 +41,19 @@ def resolve(device: DeviceLike) -> torch.device:
                                "available")
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """float32 products must be float32: TF32 off for the enclosed calls
+    only, the caller's process-wide setting restored after them."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = saved
 
 
 def find_nvcc() -> Optional[str]:

@@ -42,7 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch._device import resolve
+from repro_torch._device import no_tf32, resolve
 from repro_torch.core import integrity as _integrity
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core import transform as _t
@@ -543,9 +543,8 @@ def _apply_einsum(plan: PermutePlan, x2: torch.Tensor) -> torch.Tensor:
             out = out & 1
         return out.to(x2.dtype)
     p = build_onehot(plan, dtype=x2.dtype)
-    # float32 products must be exact: no TF32.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(p, x2).to(x2.dtype)
+    with no_tf32():
+        return torch.matmul(p, x2).to(x2.dtype)
 
 
 def _apply_reference(plan: PermutePlan, x2: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch._device import no_tf32
 from repro_torch.core import crossbar as xb
 from repro_torch.core import plan_algebra as pa
 from repro_torch.core import transform as _t
@@ -170,8 +171,8 @@ def _block_diag_dense(dest: torch.Tensor, x3: torch.Tensor) -> torch.Tensor:
         out = torch.einsum("boi,bid->bod", onehot.to(torch.float64),
                            x3.to(torch.float64))
         return out.to(torch.int64).to(x3.dtype)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    out = torch.einsum("boi,bid->bod", onehot.to(x3.dtype), x3)
+    with no_tf32():
+        out = torch.einsum("boi,bid->bod", onehot.to(x3.dtype), x3)
     return out.to(x3.dtype)
 
 

@@ -8,16 +8,22 @@ versions run on CPU tensors and count nothing.
 from __future__ import annotations
 
 
+def _wrappers():
+    from repro_torch.kernels import (crossbar_permute, fused_compress,
+                                     moe_route, plan_program_kernel)
+    return (crossbar_permute, plan_program_kernel, moe_route, fused_compress)
+
+
 def launch_counts() -> dict:
-    from repro_torch.kernels import crossbar_permute, plan_program_kernel
-    return {**crossbar_permute.LAUNCHES, **plan_program_kernel.LAUNCHES}
+    counts = {}
+    for mod in _wrappers():
+        with mod._LOCK:
+            counts.update(mod.LAUNCHES)
+    return counts
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import crossbar_permute, plan_program_kernel
-    for table, lock in ((crossbar_permute.LAUNCHES, crossbar_permute._LOCK),
-                        (plan_program_kernel.LAUNCHES,
-                         plan_program_kernel._LOCK)):
-        with lock:
-            for key in table:
-                table[key] = 0
+    for mod in _wrappers():
+        with mod._LOCK:
+            for key in mod.LAUNCHES:
+                mod.LAUNCHES[key] = 0

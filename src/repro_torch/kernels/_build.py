@@ -24,7 +24,8 @@ from typing import Optional
 from repro_torch._device import find_nvcc
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("crossbar_permute.cu", "plan_program.cu")
+SOURCES = ("crossbar_permute.cu", "plan_program.cu", "moe_route.cu",
+           "fused_compress.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -38,6 +39,8 @@ SIGNATURES = {
     "pp_smem_optin": [_I, _P],
     "pp_megakernel": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _P],
+    "moe_route": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "fused_vcompress": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

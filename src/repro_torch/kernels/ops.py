@@ -1,6 +1,7 @@
-"""Plan-level wrappers around the crossbar kernels.
+"""Wrappers around the CUDA kernels: the crossbars, the MoE routing
+transform and the fused vcompress.
 
-Port of ``repro/kernels/ops.py`` for the two crossbar kernels:
+Port of ``repro/kernels/ops.py``.  For the two crossbar kernels:
 
 * control rows are padded to whole kernel tiles with DROP (padding is
   inert: a DROP select matches nothing), payload rows and columns are
@@ -12,6 +13,9 @@ Port of ``repro/kernels/ops.py`` for the two crossbar kernels:
 * a CUDA payload launches the CUDA kernel or raises
   ``KernelLaunchError``; a CPU payload runs the kernel's plain version
   (``kernels/ref.py``).  Nothing falls back from one to the other.
+
+``moe_route_transform`` and ``fused_vcompress`` follow the same device
+rule.  Neither pads: the CUDA kernels take any T and any N.
 """
 
 from __future__ import annotations
@@ -24,12 +28,16 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.crossbar_permute import (
     DEFAULT_BLOCK_O, KernelLaunchError, crossbar_permute_cuda,
     crossbar_permute_sparse_cuda)
+from repro_torch.kernels.fused_compress import (check_tail,
+                                                fused_vcompress_cuda)
+from repro_torch.kernels.moe_route import check_geometry, moe_route_cuda
 
 DROP = -1
 
 _F32_EXACT_INT_BOUND = 1 << 24
 
-__all__ = ["KernelLaunchError", "crossbar_permute", "crossbar_permute_sparse"]
+__all__ = ["KernelLaunchError", "crossbar_permute", "crossbar_permute_sparse",
+           "fused_vcompress", "moe_route_transform"]
 
 
 @contextlib.contextmanager
@@ -176,3 +184,48 @@ def sparse_operands(plan, x, *, compiled=None, block_o=128, block_n=128):
             dict(mode=mode, n_out=plan.n_out, out=out, weights=wp,
                  fold_mod2=_semiring_fold(plan), block_o=block_o,
                  block_n=block_n))
+
+
+def moe_route_transform(expert_ids, *, num_experts, capacity):
+    """Fused MoE position/destination transform.
+
+    expert_ids: (T, K) integer ids of one routing group, or (G, T, K) for
+    G groups (each group ranks its own queues).  Returns (positions,
+    dest), int32 shaped like the ids: each assignment's rank in its
+    expert's queue in t-major order, and ``e * C + pos`` or DROP when
+    ``pos >= C`` or the id is outside [0, E).
+    """
+    if expert_ids.dim() not in (2, 3):
+        raise ValueError(f"expert ids must be (T, K) or (G, T, K), got "
+                         f"{tuple(expert_ids.shape)}")
+    if expert_ids.dtype.is_floating_point or expert_ids.dtype == torch.bool:
+        raise ValueError(f"expert ids must be integers, got "
+                         f"{expert_ids.dtype}")
+    check_geometry(num_experts, capacity)
+    shape = expert_ids.shape
+    rows = expert_ids.reshape(-1 if expert_ids.dim() == 3 else 1,
+                              shape[-2] * shape[-1])
+    rows = rows.to(torch.int32).contiguous()
+    if rows.is_cuda:
+        pos, dest = moe_route_cuda(rows, num_experts=num_experts,
+                                   capacity=capacity)
+    else:
+        pos, dest = ref.moe_route_transform(rows, num_experts=num_experts,
+                                            capacity=capacity)
+    return pos.reshape(shape), dest.reshape(shape)
+
+
+def fused_vcompress(mask, x, *, tail="zero"):
+    """Fused mask -> destinations -> row-move compress.  x: (N, D) ->
+    (N, D): selected rows packed to the top in order; the rest follow
+    (``tail="bijective"``) or are zeros (``tail="zero"``).  mask: (N,)
+    bool or 0/1 integers.  Any payload dtype: rows move as bits, so
+    integers are exact at any magnitude (the reference routes them
+    through float32 for its one-hot matmul and refuses |x| >= 2^24)."""
+    check_tail(tail)
+    if x.dim() != 2 or tuple(mask.shape) != (x.shape[0],):
+        raise ValueError(f"need mask (N,) and x (N, D), got "
+                         f"{tuple(mask.shape)} and {tuple(x.shape)}")
+    if x.is_cuda:
+        return fused_vcompress_cuda(mask, x.contiguous(), tail=tail)
+    return ref.fused_vcompress(mask, x, tail=tail)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes what its kernel computes, on the same operands,
 with the same arithmetic: the crossbar in float32 with rounded
@@ -6,13 +6,17 @@ multiply-then-add in the kernel's summation order (bf16 payloads against
 bf16-rounded weights), merge by coverage and the GF(2) parity fold; the
 sparse crossbar over the same schedule, leaving unvisited output tiles
 unwritten; the plan-program VM as a Python loop over rounds and steps in
-wrapping 32-bit arithmetic.  The kernel wrappers use them for CPU
-tensors; the tests and ``chip_smoke.py`` hold the kernels against them.
+wrapping 32-bit arithmetic; the MoE routing transform as a one-hot
+exclusive cumsum per group; the fused vcompress as prefix sums and a row
+copy.  The kernel wrappers use them for CPU tensors; the tests and
+``chip_smoke.py`` hold the kernels against them.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import transform as _t
 
 GATHER, SCATTER = "gather", "scatter"
 _MASK32 = 0xFFFFFFFF
@@ -189,3 +193,32 @@ def plan_program_vm(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
                     val = (av == k).to(torch.int64)
             regs[dst] = val
     return _from_u32(regs[0], state.dtype)
+
+
+def moe_route_transform(ids, *, num_experts, capacity):
+    """Plain routing transform: ids (G, T*K) int32, rows t-major.
+
+    Rank of each assignment among the earlier ones of its expert (one-hot
+    exclusive cumsum down the row); ``dest = e * C + pos``, DROP (-1)
+    when ``pos >= C`` or the id is outside [0, E), whose pos is 0.
+    Returns (pos, dest), each (G, T*K) int32.
+    """
+    valid = (ids >= 0) & (ids < num_experts)
+    experts = torch.arange(num_experts, dtype=ids.dtype, device=ids.device)
+    onehot = (ids[..., None] == experts).to(torch.int32)
+    before = torch.cumsum(onehot, dim=-2) - onehot
+    pos = torch.sum(before * onehot, dim=-1).to(torch.int32)
+    dest = torch.where(valid & (pos < capacity),
+                       ids.to(torch.int64) * capacity + pos, -1)
+    return pos, dest.to(torch.int32)
+
+
+def fused_vcompress(mask, x, *, tail="zero"):
+    """Plain fused vcompress: ``out[dest[i]] = x[i]``, with the tail rows
+    (unselected) zeroed for ``tail="zero"``."""
+    src = x
+    if tail == "zero":
+        src = torch.where((mask != 0)[:, None], x, torch.zeros_like(x))
+    out = torch.empty_like(x)
+    out[_t.compress_destinations(mask != 0).long()] = src
+    return out

@@ -1,0 +1,153 @@
+"""Mixture-of-Experts decoder LM (phi3.5-moe, mixtral).
+
+Port of ``repro.models.moe``.  The MoE layer routes tokens through the
+permutation engine (``core/moe_dispatch.py``): top-k routing -> the
+moe_route kernel's positions and capacity-checked destinations ->
+scatter-mode crossbar dispatch into (B, E, C, D) -> expert SwiGLU ->
+transposed weighted crossbar combine.  Each sequence is a routing group
+with its own capacity; the B groups of a batch dispatch as one
+block-diagonal plan (the reference's ``vmap``), so a layer costs one
+dispatch pass and one combine pass.
+
+The expert FFNs are batched matmuls over the (B, E, C, D) buffer, plain
+PyTorch as the reference leaves them to XLA.  Parameters: nested dicts
+as in the reference, with ``blocks`` a list of per-layer dicts (the
+reference stacks them on a leading L axis for ``lax.scan``).  Decode
+updates the stacked caches in place.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch._device import resolve
+from repro_torch.core import moe_dispatch as md
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def moe_mlp_init(gen, cfg, device):
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": L.dense_init(gen, d, e, scale=0.02, device=device),
+        "wi": L.truncated_normal(gen, (e, d, f), 1.0 / math.sqrt(d), device),
+        "wg": L.truncated_normal(gen, (e, d, f), 1.0 / math.sqrt(d), device),
+        "wo": L.truncated_normal(gen, (e, f, d), 1.0 / math.sqrt(f), device),
+    }
+
+
+def _experts_apply(p, buf, dtype):
+    """buf (G, E, C, D) -> (G, E, C, D): batched SwiGLU per expert."""
+    wi, wg, wo = (p[n].to(dtype) for n in ("wi", "wg", "wo"))
+    g = L.einsum_f32("gecd,edf->gecf", buf, wg)
+    h = L.einsum_f32("gecd,edf->gecf", buf, wi)
+    h = (torch.nn.functional.silu(g) * h).to(dtype)
+    return L.einsum("gecf,efd->gecd", h, wo)
+
+
+def capacity_of(cfg, tokens_per_group: int) -> int:
+    """Expert buffer capacity per routing group.  It decides which
+    tokens are dropped, so it is kept exactly as the reference has it:
+    rounded up to 128 from 512 tokens a group on."""
+    c = int(cfg.capacity_factor * tokens_per_group *
+            cfg.num_experts_per_tok / cfg.num_experts)
+    if tokens_per_group >= 512:
+        return max(128, ((c + 127) // 128) * 128)
+    return max(cfg.num_experts_per_tok, c)
+
+
+def moe_mlp_apply(p, x, cfg):
+    """x (B, S, D) -> (y (B, S, D), aux {lb_loss, z_loss, dropped}).
+
+    Group-wise dispatch: each sequence routes within its own capacity.
+    """
+    _, s, _ = x.shape
+    cap = capacity_of(cfg, s)
+    router_logits = L.dense(p["router"], x, torch.bfloat16).to(torch.float32)
+    routing = md.make_routing(router_logits, num_experts=cfg.num_experts,
+                              k=cfg.num_experts_per_tok, capacity=cap)
+    buf = md.dispatch(x, routing, backend=cfg.dispatch_backend)
+    buf = _experts_apply(p, buf, x.dtype)
+    y = md.combine(buf, routing, backend=cfg.dispatch_backend)
+    aux = {
+        "lb_loss": torch.mean(md.load_balance_loss(routing)),
+        "z_loss": md.router_z_loss(router_logits),
+        "dropped": torch.mean(md.dropped_fraction(routing)),
+    }
+    return y.to(x.dtype), aux
+
+
+def block_init(gen, cfg, device):
+    return {
+        "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+        "attn": A.attn_init(gen, cfg, device),
+        "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+        "moe": moe_mlp_init(gen, cfg, device),
+    }
+
+
+def block_apply(p, x, cfg, *, positions=None):
+    h = A.attn_apply(p["attn"], L.apply_norm(p["ln1"], x, cfg.norm), cfg,
+                     positions=positions)
+    x = x + h
+    h, aux = moe_mlp_apply(p["moe"], L.apply_norm(p["ln2"], x, cfg.norm), cfg)
+    return x + h, aux
+
+
+def lm_init(gen, cfg, device=None):
+    """Seeded random parameters, drawn from ``gen`` on ``device`` (the
+    card by default; ``gen`` must live on the same device)."""
+    device = resolve(device)
+    params = {
+        "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
+        "blocks": [block_init(gen, cfg, device)
+                   for _ in range(cfg.num_layers)],
+        "final_norm": L.norm_init(cfg.d_model, cfg.norm, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                         device)
+    return params
+
+
+def lm_hidden(params, tokens, cfg):
+    """tokens (B, S) -> (final hidden (B, S, D), aux averaged over
+    layers)."""
+    x = L.embed_lookup(params["embed"], tokens, L.dtype_of(cfg.compute_dtype))
+    auxes = []
+    for blk in params["blocks"]:
+        x, aux = block_apply(blk, x, cfg)
+        auxes.append(aux)
+    aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
+           for k in auxes[0]}
+    return L.apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+# -- serving -------------------------------------------------------------------
+
+def block_decode(p, x1, cache, pos, cfg):
+    h, cache = A.decode_attn_apply(p["attn"],
+                                   L.apply_norm(p["ln1"], x1, cfg.norm),
+                                   cache, pos, cfg)
+    x1 = x1 + h
+    h, _ = moe_mlp_apply(p["moe"], L.apply_norm(p["ln2"], x1, cfg.norm), cfg)
+    return x1 + h, cache
+
+
+init_caches = T.init_caches
+
+
+def decode_step(params, tokens1, caches, pos, cfg):
+    """One token for every slot.  tokens1 (B, 1); caches from
+    ``init_caches`` (updated in place).  Returns (logits (B, 1, V),
+    caches)."""
+    x = L.embed_lookup(params["embed"], tokens1,
+                       L.dtype_of(cfg.compute_dtype))
+    for i, blk in enumerate(params["blocks"]):
+        layer_cache = {name: c[i] for name, c in caches.items()}
+        x, _ = block_decode(blk, x, layer_cache, pos, cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    return T.lm_logits(params, x, cfg), caches

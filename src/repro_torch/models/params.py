@@ -1,0 +1,71 @@
+"""Parameters of the port's models: seeded random, or carried across.
+
+* ``init_params(cfg, generator=None, device=None)`` draws seeded random
+  weights directly on the device (the card, unless the caller asks for
+  the CPU) from a ``torch.Generator`` on that device (seed 0 if none is
+  given).
+* ``params_from_numpy(tree, cfg, device=None)`` turns a parameter tree of
+  the JAX package's ``lm_init`` — numpy leaves, each layer's weights
+  stacked on a leading L axis under ``blocks`` — into the port's tree,
+  whose ``blocks`` is a list of per-layer dicts.  The tests carry the
+  reference's weights across with it.
+* ``to_device(params, device)`` copies the port's tree to another device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve
+
+
+def _to_tensor(a, device):
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def family_module(cfg):
+    """The module of ``cfg``'s model family; raises for families the port
+    does not build yet."""
+    if cfg.family != "moe":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; the port builds the "
+            "'moe' family (ROADMAP.md, Queue 1 item 16)")
+    from repro_torch.models import moe
+    return moe
+
+
+def init_params(cfg, generator=None, device=None):
+    """Seeded random parameters of ``cfg``'s model on ``device``."""
+    dev = resolve(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return family_module(cfg).lm_init(generator, cfg, dev)
+
+
+def params_from_numpy(tree, cfg, device=None):
+    """The port's parameters from a reference ``lm_init`` tree."""
+    family_module(cfg)
+    dev = resolve(device)
+    blocks = tree["blocks"]
+    layers = []
+    for i in range(cfg.num_layers):
+        layers.append(_map(blocks, lambda a, i=i: _to_tensor(a[i], dev)))
+    out = {k: _map(v, lambda a: _to_tensor(a, dev))
+           for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = layers
+    return out
+
+
+def to_device(params, device):
+    """The same parameters on ``device``."""
+    dev = resolve(device)
+    return _map(params, lambda t: t.to(dev))

@@ -58,3 +58,74 @@ def test_sha3_on_every_backend(dev):
         0, 2, (8, 1600)).astype(np.int32), device=dev)
     assert_bitexact(keccak.keccak_f1600(s, backend="megakernel"),
                     keccak.keccak_f1600(s.cpu(), backend="megakernel"))
+
+
+def test_moe_route_kernel_matches_plain_version(dev):
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.kernels.moe_route import moe_route_cuda
+    reset_launch_counts()
+    rng = np.random.default_rng(2)
+    for g, tk, e, c in ((2, 4096, 16, 384), (8, 2, 16, 2), (3, 2001, 5, 9)):
+        ids = torch.as_tensor(rng.integers(-1, e + 2, (g, tk)).astype(
+            np.int32), device=dev)
+        for got, want in zip(moe_route_cuda(ids, num_experts=e, capacity=c),
+                             ref.moe_route_transform(ids, num_experts=e,
+                                                     capacity=c)):
+            assert_bitexact(got, want)
+    assert launch_counts()["moe_route"] == 3
+
+
+def test_fused_vcompress_kernel_matches_plain_version(dev):
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(3)
+    for n, d in ((2048, 4096), (5000, 7), (1, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.as_tensor(rng.standard_normal((n, d)).astype(
+                np.float32), device=dev).to(dtype)
+            m = torch.as_tensor(rng.random(n) < 0.5, device=dev)
+            for tail in ("zero", "bijective"):
+                assert_bitexact(ops.fused_vcompress(m, x, tail=tail),
+                                ref.fused_vcompress(m, x, tail=tail))
+    for dtype, d in ((torch.int32, 6), (torch.int64, 3), (torch.uint8, 7)):
+        x = torch.randint(0, 255, (300, d), device=dev).to(dtype) * 99991
+        m = torch.as_tensor(rng.random(300) < 0.5, device=dev)
+        for tail in ("zero", "bijective"):
+            assert_bitexact(ops.fused_vcompress(m, x, tail=tail),
+                            ref.fused_vcompress(m, x, tail=tail))
+
+
+def test_moe_layer_and_greedy_serving_match_the_cpu(dev):
+    import dataclasses
+    from repro_torch.configs import phi3_5_moe
+    from repro_torch.configs.base import reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as M
+    from repro_torch.models import params as MP
+    from repro_torch.serve import ServeOptions, ServingEngine
+    cfg = reduced(phi3_5_moe.CONFIG)
+    params = MP.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = MP.to_device(params, dev)
+    reset_launch_counts()
+    x = np.random.default_rng(4).standard_normal((2, 24, 64)).astype(
+        np.float32)
+    for backend in ("sparse", "kernel"):
+        c = dataclasses.replace(cfg, dispatch_backend=backend)
+        want, _ = M.moe_mlp_apply(params["blocks"][0]["moe"],
+                                  torch.as_tensor(x), c)
+        got, _ = M.moe_mlp_apply(on_card["blocks"][0]["moe"],
+                                 torch.as_tensor(x, device=dev), c)
+        assert_close(got, want, dict(rtol=1e-5, atol=1e-5))
+    counts = launch_counts()
+    assert counts["moe_route"] > 0 and counts["crossbar_sparse"] > 0
+    assert counts["crossbar_dense"] > 0
+    prompts = [[5, 17, 99, 3], [42], [7, 7, 120, 64, 1, 8]]
+    outs = []
+    for where, p in (("cpu", params), (dev, on_card)):
+        api = model_zoo.build(dataclasses.replace(
+            cfg, dispatch_backend="sparse"), device=where)
+        engine = ServingEngine(api, ServeOptions(batch_slots=4,
+                                                 max_new_tokens=6),
+                               max_seq=16)
+        outs.append(engine.generate(p, prompts))
+    assert outs[0] == outs[1]

@@ -67,9 +67,15 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     keccak.keccak_f1600(s, backend="megakernel")
     keccak.keccak_f1600(s, backend="kernel", batch_mode="payload")
     keccak.keccak_f1600(s, backend="sparse")
+    from repro_torch.kernels import ops
+    ops.moe_route_transform(torch.zeros(4, 2, dtype=torch.int32),
+                            num_experts=2, capacity=2)
+    ops.fused_vcompress(torch.ones(4, dtype=torch.bool), torch.zeros(4, 3))
     assert kernels.launch_counts() == {"crossbar_dense": 0,
                                        "crossbar_sparse": 0,
-                                       "plan_program": 0}
+                                       "plan_program": 0,
+                                       "moe_route": 0,
+                                       "fused_vcompress": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -83,7 +89,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
             [torch.zeros(1, 6, dtype=torch.int32)] * 5), None,
             torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, 4, dtype=torch.int32), n_regs=1)
-    assert kernels.launch_counts()["crossbar_dense"] == 0
+    from repro_torch.kernels import moe_route
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_route.moe_route_cuda(idx, num_experts=2, capacity=2)
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_build_without_nvcc_raises(monkeypatch):
