@@ -5,8 +5,11 @@
 
 Builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
 nvcc (into ``build/repro_torch_kernels/``) and holds each kernel against
-its plain PyTorch version at its path's shapes.  Then it drives each
-path through the entry points a user calls, with every launch counter
+its plain PyTorch version at its path's shapes, the crossbars also on
+edge cases (``crossbar_cases``: ragged widths, colliding, one-launch
+and hot-row scatters, merge, GF(2)) with each call's device launches
+printed.  Then it drives each path through the entry points a user
+calls, with every launch counter
 set to 0 just before and read just after:
 
 * SHA-3: batched SHA3-256 of 1024 one-KiB messages on the plan-program
@@ -22,8 +25,10 @@ set to 0 just before and read just after:
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
-call computing the same function, and the kernels' share of the prompt
-forward and of decoding.
+call computing the same function (at the MoE shapes ``index_copy_`` and
+``embedding_bag``), the kernels' share of the prompt forward and of
+decoding, and one forward on each crossbar under ``torch.profiler``
+(device busy and idle share, the top kernels and host calls).
 
 Any failed check raises and the run exits non-zero.  The second-to-last
 line is the ``kernels`` JSON object; the last line is the contract line
@@ -177,6 +182,134 @@ def close_rows(name, got, want, rtol):
         f"{same:.4f} of rows")
 
 
+def profile_call(label, fn, rows=12):
+    """One call under ``torch.profiler``: wall ms, the device's busy and
+    idle share of it (kernel time summed over the call), and the ops
+    with the most device time and the most host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    host_s(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        secs, _ = host_s(fn)
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    # device rows are the kernels, memsets and copies themselves (an
+    # operator's own row repeats the time of the kernels it launched)
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_host = [e for e in events if e.device_type == DeviceType.CPU]
+    busy = sum(dev_us(e) for e in on_dev) / 1e3
+    log(f"  profile, {label}: {secs * 1e3:.2f} ms wall (profiled), device "
+        f"busy {busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.4f}")
+    for rows_, key, what in ((on_dev, dev_us, "device"),
+                             (on_host, lambda e: e.self_cpu_time_total,
+                              "host")):
+        top = sorted(rows_, key=key, reverse=True)[:rows]
+        log(f"    top {rows} by self {what} time (ms): " + "; ".join(
+            f"{e.key[:60]} x{e.count} {key(e) / 1e3:.3f}" for e in top))
+    torch.cuda.synchronize()
+
+
+def crossbar_cases(dev, rng):
+    """Edge cases of both crossbar kernels: (name, plan, payload, merge,
+    tolerance, plain version on the CPU).  Ragged widths (D = 1, D = 7
+    float32, D = 4100 bf16) take the narrower vectors their alignment
+    allows; scatter control of at most 256 entries is inverted inside the
+    kernel (one launch), larger control by the inversion passes.  One hot
+    row takes half of 131072 control entries: its plain version runs on
+    the CPU, whose ``index_add_`` adds in the same order in one call (on
+    the card the plain sum takes one step a colliding entry).  Bit-exact
+    except weighted gathers (the plain version adds in the same order;
+    the tolerance is the exactness rule's)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import crossbar as xb
+    from repro_torch.core.semiring import GF2
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, np.float32)
+
+    cases = []
+    for d, dt, tol in ((1, torch.float32, TOL_F32),
+                       (7, torch.float32, TOL_F32),
+                       (4100, torch.bfloat16, TOL_BF16)):
+        n = 700 if d < 4100 else 300
+        src = t(rng.integers(-5, n + 5, (n, 2), dtype=np.int32))
+        cases.append((f"D={d} {dt} weighted gather k=2",
+                      xb.gather_plan(src, n, weights=t(normal(n, 2))),
+                      t(normal(n, d)).to(dt), None, tol, False))
+        dest = t(np.where(rng.random(n) < 0.2, -1, rng.permutation(2 * n)[:n])
+                 .astype(np.int32))
+        cases.append((f"D={d} {dt} injective scatter with DROPs",
+                      xb.scatter_plan(dest, 2 * n), t(normal(n, d)).to(dt),
+                      None, None, False))
+    dest = t(rng.integers(-3, 1500, (1200, 2), dtype=np.int32))
+    dest[(dest >= 256) & (dest < 768)] = 1500          # tiles 2-5 unvisited
+    cases.append(("colliding weighted REAL scatter (1200, 64), unvisited "
+                  "tiles", xb.scatter_plan(dest, 1500,
+                                           weights=t(normal(1200, 2))),
+                  t(normal(1200, 64)), None, None, False))
+    dest = t(rng.integers(-2, 600, (100, 2), dtype=np.int32))
+    dest[(dest // 128) % 2 == 1] = -1                   # odd tiles unvisited
+    cases.append(("colliding weighted scatter, 200 entries (one launch), "
+                  "D=1", xb.scatter_plan(dest, 600,
+                                         weights=t(normal(100, 2))),
+                  t(normal(100, 1)), None, None, False))
+    dest = t(np.where(rng.random(800) < 0.3, -1, rng.permutation(900)[:800])
+             .astype(np.int32))
+    cases.append(("injective scatter, merge on uncovered rows (800, 33)",
+                  xb.scatter_plan(dest, 900), t(normal(800, 33)),
+                  t(normal(900, 33)), None, False))
+    dest = t(rng.integers(-2, 700, (640, 3), dtype=np.int32))
+    cases.append(("GF(2) fold scatter k=3 (640, 96)",
+                  xb.scatter_plan(dest, 700, semiring=GF2),
+                  t(rng.integers(0, 2, (640, 96), dtype=np.int32)), None,
+                  None, False))
+    dest = rng.integers(-2, 4096, (65536, 2), dtype=np.int32)
+    dest[:, 0] = 7                                      # in-degree ~65 568
+    cases.append(("weighted REAL scatter, one hot row, 131072 entries "
+                  "(65536, 16)", xb.scatter_plan(t(dest), 4096,
+                                                 weights=t(normal(65536, 2))),
+                  t(normal(65536, 16)), None, None, True))
+    return cases
+
+
+def crossbar_library_call(plan, x2):
+    """One PyTorch call that computes an MoE-shape crossbar pass, with its
+    index preparation done ahead: the dispatch (a unique-destination
+    scatter) as ``index_copy_`` of the kept rows, gathered ahead, into a
+    zeroed buffer (uncovered rows are not rewritten); the gate-weighted
+    combine as ``embedding_bag`` sums with per-sample weights over bags
+    with their DROPs filtered out.  Returns (fn, name)."""
+    import torch
+    import torch.nn.functional as F
+    idx = plan.idx
+    if plan.mode == "scatter":
+        valid = (idx >= 0) & (idx < plan.n_out)
+        src = torch.arange(plan.n_in, device=idx.device)[:, None].expand_as(
+            idx)[valid]
+        rows, dest = x2[src].contiguous(), idx[valid].long()
+        buf = torch.zeros((plan.n_out, x2.shape[1]), dtype=x2.dtype,
+                          device=x2.device)
+        return (lambda: buf.index_copy_(0, dest, rows)), "index_copy_"
+    valid = (idx >= 0) & (idx < plan.n_in)
+    flat = idx[valid].long()
+    offsets = torch.zeros(plan.n_out, dtype=torch.long, device=idx.device)
+    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
+    psw = plan.weights[valid].to(x2.dtype)
+    return (lambda: F.embedding_bag(flat, x2, offsets, mode="sum",
+                                    per_sample_weights=psw)), "embedding_bag"
+
+
 def moe_phases(dev, rng, compare):
     """Phi-3.5-MoE at full width and 4 layers on the card.
 
@@ -200,6 +333,7 @@ def moe_phases(dev, rng, compare):
 
     from repro_torch.configs import phi3_5_moe
     from repro_torch.configs.base import reduced
+    from repro_torch.core import crossbar as xb
     from repro_torch.core import moe_dispatch as md
     from repro_torch.kernels import launch_counts, ops, ref
     from repro_torch.kernels import reset_launch_counts
@@ -424,6 +558,18 @@ def moe_phases(dev, rng, compare):
                 *args, **kw), 10)
             de, de_e = timed(lambda: xbk.crossbar_permute_cuda(idxp, xf,
                                                                **kwd), 10)
+            launches = (xbk.DEVICE_LAUNCHES["crossbar_sparse"],
+                         xbk.DEVICE_LAUNCHES["crossbar_dense"])
+            lib_fn, lib_name = crossbar_library_call(plan, x2)
+            lib_diff = float((lib_fn().float() - ref.crossbar_dense(
+                idxp, xf, **kwd).float()).abs().max())
+            lb_e = time_ms(lib_fn, 10)
+            try:
+                lb = graph_ms(lib_fn, 10)
+            except RuntimeError as e:        # a call that cannot be captured
+                log(f"  {lib_name}: no CUDA-graph capture ({e}); eager only")
+                torch.cuda.synchronize()
+                lb = float("nan")
             es = x2.element_size()
             nb = (x2.numel() * es + plan.n_out * cfg.d_model * es
                   + plan.idx.numel() * 4
@@ -433,11 +579,27 @@ def moe_phases(dev, rng, compare):
             log(f"  {part} {shape} ({plan.mode}, {plan.n_in}->{plan.n_out}, "
                 f"k={plan.k}, D={cfg.d_model} bf16): sparse {sp:.4f} ms "
                 f"[{sp_e:.4f} eager], dense {de:.4f} ms [{de_e:.4f} eager], "
-                f"bound {bms:.5f} ms ({by})")
+                f"device launches a call {launches[0]} and {launches[1]}, "
+                f"library {lib_name} {lb:.4f} ms [{lb_e:.4f} eager] (max "
+                f"|diff| {lib_diff} from the plain version), bound "
+                f"{bms:.5f} ms ({by})")
+            if part == "dispatch" and shape == "prompt":
+                profile_call("prompt dispatch, tile-skipping kernel",
+                             lambda: xbk.crossbar_permute_sparse_cuda(
+                                 *args, **kw), rows=6)
+                profile_call("prompt dispatch, dense kernel",
+                             lambda: xbk.crossbar_permute_cuda(idxp, xf,
+                                                               **kwd), rows=6)
+                md_ms = time_ms(lambda: md.dispatch(u_, rt, backend="sparse"),
+                                10)
+                log(f"  md.dispatch(backend='sparse') at the prompt shape, "
+                    f"whole call: {md_ms:.4f} ms (CUDA events around eager "
+                    f"calls) beside the kernel's {sp:.4f} ms device time")
 
     log("one layer's parts (host clock, each ending in a synchronise; "
         "mean of 3 after a warm-up)")
     blk0 = params["blocks"][0]
+    p_disp = md.dispatch_plan(first["routing"])
     x_p = L.embed_lookup(params["embed"], tokens, dtype)
     x_d = L.embed_lookup(params["embed"], tok1, dtype)
     parts = {
@@ -445,6 +607,10 @@ def moe_phases(dev, rng, compare):
             blk0["attn"], x_p, cfg),
         "MoE layer, prompt (2 x 2048)": lambda: M.moe_mlp_apply(
             blk0["moe"], first["u"], cfg),
+        "MoE layer, prompt (2 x 2048), dense crossbar": lambda:
+            M.moe_mlp_apply(blk0["moe"], first["u"], cfgs["kernel"]),
+        "compile_plan of the prompt dispatch plan, cache cleared": lambda: (
+            xb.clear_compile_cache(), xb.compile_plan(p_disp)),
         "logits head, prompt (2 x 2048)": lambda: T.lm_logits(params, x_p,
                                                               cfg),
         "MoE layer, decode (8 x 1)": lambda: M.moe_mlp_apply(
@@ -459,6 +625,11 @@ def moe_phases(dev, rng, compare):
         host_s(fn)
         log(f"  {name}: "
             f"{sum(host_s(fn)[0] for _ in range(3)) / 3 * 1e3:.3f} ms")
+    for b in ("sparse", "kernel"):
+        profile_call(f"prompt forward on the {b} crossbar",
+                     lambda: forward(cfgs[b]))
+    profile_call("MoE layer, decode (8 x 1), tile-skipping crossbar",
+                 lambda: M.moe_mlp_apply(blk0["moe"], first_dec, cfg))
 
     fwd_ms = min(fwd_s["sparse"]) * 1e3
     k_fwd = (fwd_counts["moe_route"] * t_route["prompt"]
@@ -566,8 +737,7 @@ def main() -> int:
     scat = xb.scatter_plan(dest, n_sc, weights=w_sc)
     x_f = torch.as_tensor(rng.standard_normal((n_sc, 256), np.float32),
                           device=dev)
-    dense_case("weighted REAL scatter, collisions (4096, 256)", scat, x_f,
-               tol=TOL_F32)
+    dense_case("weighted REAL scatter, collisions (4096, 256)", scat, x_f)
     src_m = torch.as_tensor(rng.integers(-512, 2048, 2048, dtype=np.int32),
                             device=dev)
     x_m = torch.as_tensor(rng.standard_normal((2048, 128), np.float32),
@@ -611,6 +781,39 @@ def main() -> int:
     compare("crossbar_sparse", "apply_plan sparse, unvisited tiles, no merge",
             xb.apply_plan(uplan, x_u, backend="sparse"),
             xb.apply_plan(uplan, x_u, backend="reference"))
+
+    log("both crossbars vs plain versions: edge cases")
+
+    def plain_on(cpu, fn, *args_, **kw_):
+        """fn's result on the card, or on CPU copies of its operands."""
+        if not cpu:
+            return fn(*args_, **kw_)
+        host = [a.cpu() if torch.is_tensor(a) else a for a in args_]
+        return fn(*host, **{n: v.cpu() if torch.is_tensor(v) else v
+                            for n, v in kw_.items()})
+
+    # a generator of their own: the later paths draw the inputs they drew
+    # before these cases existed
+    for name, plan, x, merge, tol, cpu in crossbar_cases(
+            dev, np.random.default_rng(1)):
+        idxp, xf, kw = ops.dense_operands(plan, x, merge=merge)
+        got = xbk.crossbar_permute_cuda(idxp, xf, **kw)
+        compare("crossbar_dense", f"dense {name}", got.cpu() if cpu else got,
+                plain_on(cpu, ref.crossbar_dense, idxp, xf, **kw), tol)
+        n_dense = xbk.DEVICE_LAUNCHES["crossbar_dense"]
+        args, kw = ops.sparse_operands(plan, x)
+        kw["out"].fill_(-7.0)
+        kw_p = dict(kw, out=kw["out"].clone())
+        got = xbk.crossbar_permute_sparse_cuda(*args, **kw)
+        compare("crossbar_sparse", f"tile-skipping {name}",
+                got.cpu() if cpu else got,
+                plain_on(cpu, ref.crossbar_sparse, *args, **kw_p), tol)
+        log(f"    device launches a call: dense {n_dense}, tile-skipping "
+            f"{xbk.DEVICE_LAUNCHES['crossbar_sparse']}")
+        if merge is not None:
+            compare("crossbar_sparse", f"apply_plan sparse {name}",
+                    xb.apply_plan(plan, x, merge=merge, backend="sparse"),
+                    xb.apply_plan(plan, x, merge=merge, backend="reference"))
 
     # ------------------------------------------------------ megakernel ---
     log("plan-program megakernel vs plain VM")

@@ -179,7 +179,8 @@ class CompiledPlan:
     last active pair; active: slot validity; num_active: the count (a
     Python int — always static here).  run_o/run_ptr: the same schedule
     in CSR form, one entry per o-run, which the CUDA kernel's grid is
-    built from.
+    built from.  idle_rows: the output rows of tiles with no active pair,
+    which the CUDA kernel leaves unwritten (``_idle_rows``).
     """
 
     plan: PermutePlan
@@ -194,6 +195,7 @@ class CompiledPlan:
     num_active: int
     run_o: torch.Tensor
     run_ptr: torch.Tensor
+    idle_rows: torch.Tensor
 
     @property
     def n_pairs(self) -> int:
@@ -249,6 +251,23 @@ def _compile_schedule(plan: PermutePlan, block_o: int, block_n: int):
     return occ, sel // tn, sel % tn, slot < num, num
 
 
+def _idle_rows(run_o: torch.Tensor, n_o_tiles: int, block_o: int,
+               n_out: int) -> torch.Tensor:
+    """(m,) int64 rows of the output tiles absent from run_o, with no host
+    read: the idle tiles are the first n_o_tiles - len(run_o) of a stable
+    sort on the scheduled flag.  Rows past n_out (a ragged last tile)
+    repeat their tile's first row."""
+    dev = run_o.device
+    if run_o.shape[0] == n_o_tiles:     # the common case: no op launched
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    sched = torch.zeros(n_o_tiles, dtype=torch.int8, device=dev)
+    sched[run_o.long()] = 1
+    tiles = torch.argsort(sched, stable=True)[:n_o_tiles - run_o.shape[0]]
+    first = tiles[:, None] * block_o
+    rows = first + torch.arange(block_o, device=dev)
+    return torch.where(rows < n_out, rows, first).reshape(-1)
+
+
 _COMPILE_CACHE: "OrderedDict[tuple, CompiledPlan]" = OrderedDict()
 _COMPILE_CACHE_CAPACITY = 64
 _COMPILE_CACHE_STATS = {"hits": 0, "misses": 0}
@@ -266,7 +285,7 @@ def _schedule_parts(compiled: CompiledPlan) -> tuple:
     return (compiled.block_o, compiled.block_n, compiled.n_o_tiles,
             compiled.n_n_tiles, compiled.occupancy, compiled.pair_o,
             compiled.pair_n, compiled.active, compiled.num_active,
-            compiled.run_o, compiled.run_ptr)
+            compiled.run_o, compiled.run_ptr, compiled.idle_rows)
 
 
 def clear_compile_cache() -> None:
@@ -327,10 +346,12 @@ def compile_plan(plan: PermutePlan, *, block_o: int = 128,
     occ, pair_o, pair_n, active, num = _compile_schedule(
         plan, block_o, block_n)
     run_o, run_ptr = schedule_runs(pair_o[:num])
-    compiled = CompiledPlan(plan, block_o, block_n,
-                            -(-plan.n_out // block_o),
+    n_o_tiles = -(-plan.n_out // block_o)
+    compiled = CompiledPlan(plan, block_o, block_n, n_o_tiles,
                             -(-plan.n_in // block_n), occ, pair_o, pair_n,
-                            active, num, run_o, run_ptr)
+                            active, num, run_o, run_ptr,
+                            _idle_rows(run_o, n_o_tiles, block_o,
+                                       plan.n_out))
     _integrity.SCHEDULE_GUARD.seal(key, _schedule_parts(compiled))
     if pin:
         _PINNED_COMPILE[key] = compiled
@@ -447,8 +468,7 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
             f"semiring {sr.name!r} carries small integers; got payload "
             f"dtype {x2.dtype} — cast to an integer type first")
 
-    need_cov = backend == "sparse" or merge2 is not None \
-        or out_mask is not None
+    need_cov = merge2 is not None or out_mask is not None
     cov = coverage(plan) if need_cov else None
 
     if backend == "reference":
@@ -458,12 +478,14 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
         out2 = _kops.crossbar_permute(plan, x2)
     elif backend == "sparse":
         from repro_torch.kernels import ops as _kops
-        out2 = _kops.crossbar_permute_sparse(plan, x2)
-        # Unvisited output tiles hold whatever the buffer held: pin them
-        # to the zeros every other backend produces (merge overwrites
-        # them below anyway).
-        if merge2 is None:
-            out2 = torch.where(cov[:, None], out2, torch.zeros_like(out2))
+        compiled = compile_plan(plan)
+        out2 = _kops.crossbar_permute_sparse(plan, x2, compiled=compiled)
+        # The kernel writes every row of the schedule's output tiles (the
+        # uncovered ones as zeros); rows of the other tiles hold whatever
+        # the buffer held.  Pin those to the zeros every other backend
+        # produces (merge overwrites them below anyway).
+        if merge2 is None and compiled.run_o.shape[0] < compiled.n_o_tiles:
+            out2.index_fill_(0, compiled.idle_rows, 0)
     else:
         out2 = _apply_einsum(plan, x2)
 

@@ -30,18 +30,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# Every C entry point and its signature; each returns a cudaError_t.
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+# Every C entry point and its signature; each returns a cudaError_t,
+# except those named in RESTYPES.
 SIGNATURES = {
-    "xb_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "xb_sparse": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                  _I, _I, _P],
+    "xb_scratch_ints": [_I, _I, _I, _I],
+    "xb_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
+    "xb_sparse": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _P, _IP],
     "pp_smem_optin": [_I, _P],
     "pp_megakernel": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _I, _I, _I, _P],
     "moe_route": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fused_vcompress": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
+RESTYPES = {"xb_scratch_ints": ctypes.c_longlong}
 
 
 class KernelLaunchError(RuntimeError):
@@ -136,7 +139,7 @@ def library() -> ctypes.CDLL:
                 raise KernelLaunchError(f"cannot load {path}: {e}") from e
             for fn, argtypes in SIGNATURES.items():
                 getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
             _LIB = lib
         return _LIB
 

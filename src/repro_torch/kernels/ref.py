@@ -2,14 +2,16 @@
 
 Each function computes what its kernel computes, on the same operands,
 with the same arithmetic: the crossbar in float32 with rounded
-multiply-then-add in the kernel's summation order (bf16 payloads against
-bf16-rounded weights), merge by coverage and the GF(2) parity fold; the
-sparse crossbar over the same schedule, leaving unvisited output tiles
-unwritten; the plan-program VM as a Python loop over rounds and steps in
-wrapping 32-bit arithmetic; the MoE routing transform as a one-hot
-exclusive cumsum per group; the fused vcompress as prefix sums and a row
-copy.  The kernel wrappers use them for CPU tensors; the tests and
-``chip_smoke.py`` hold the kernels against them.
+multiply-then-add in the kernel's summation order (select order; a
+scatter through its inversion, ``invert_scatter``, in (input row,
+select) order), bf16 payloads against bf16-rounded weights, merge by
+coverage and the GF(2) parity fold; the sparse crossbar over the same
+schedule, leaving unvisited output tiles unwritten; the plan-program
+VM as a Python loop over rounds and steps in wrapping 32-bit
+arithmetic; the MoE routing transform as a one-hot exclusive cumsum per
+group; the fused vcompress as prefix sums and a row copy.  The kernel
+wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
+the kernels against them.
 """
 
 from __future__ import annotations
@@ -33,19 +35,79 @@ def _fold2(r):
     return r - 2.0 * torch.floor(r * 0.5)
 
 
-def _contributions(idx, x, weights, mode, n_out, keep=None):
-    """(acc, hits): float32 sums in the kernel's order, and hit counts."""
+def invert_scatter(idx, n_in, n_out):
+    """The scatter inversion: for each output row, the control entries
+    ``e = i * K + j`` landing on it, as a CSR ``(row_ptr, ent)`` (int64),
+    each row's segment in (i, j) order.  DROPs and out-of-range entries
+    land nowhere; a row's segment length is its coverage.  The CUDA
+    kernels build the same CSR on the device (a stable radix sort of the
+    entries by output row).
+    """
+    dest = idx[:n_in].reshape(-1).long()
+    valid = (dest >= 0) & (dest < n_out)
+    ent = torch.nonzero(valid).reshape(-1)
+    ent = ent[torch.argsort(dest[ent], stable=True)]
+    counts = torch.bincount(dest[valid], minlength=n_out)[:n_out]
+    row_ptr = torch.zeros(n_out + 1, dtype=torch.int64, device=idx.device)
+    row_ptr[1:] = torch.cumsum(counts, 0)
+    return row_ptr, ent
+
+
+def _scatter_sum(idx, xf, w, n_out, *, inverted=None):
+    """(acc, hits) of a scatter: float32 sums of its contributions in
+    (input row, select) order, and hit counts.
+
+    ``inverted`` sums through the inversion's segments, one segment
+    position at a time (each step writes a row at most once, so the order
+    holds on any device); otherwise one ``index_add_``, which adds in
+    index order on the CPU (the same bits) and in no fixed order on CUDA.
+    The default is the inversion on every device but the CPU.
+    """
+    n_in, d = xf.shape
+    k = idx.shape[1]
+    if inverted is None:
+        inverted = xf.device.type != "cpu"
+    acc = torch.zeros((n_out, d), dtype=torch.float32, device=xf.device)
+    w_flat = None if w is None else w[:n_in].reshape(-1)
+    if not inverted:
+        dest = idx[:n_in].reshape(-1).long()
+        e = torch.nonzero((dest >= 0) & (dest < n_out)).reshape(-1)
+        vals = xf[e // k]
+        if w_flat is not None:
+            vals = w_flat[e][:, None] * vals
+        acc.index_add_(0, dest[e], vals)
+        return acc, torch.bincount(dest[e], minlength=n_out)
+    row_ptr, ent = invert_scatter(idx, n_in, n_out)
+    hits = row_ptr[1:] - row_ptr[:-1]
+    # rows by descending in-degree: those with more than r entries are a
+    # prefix, whose length for every r comes from one host read
+    order = torch.argsort(hits, descending=True, stable=True)
+    deeper = torch.bincount(hits, minlength=1).flip(0).cumsum(0).flip(0)
+    for r, n_rows in enumerate(deeper[1:].tolist()):
+        rows = order[:n_rows]
+        e = ent[row_ptr[rows] + r]
+        vals = xf[e // k]
+        if w_flat is not None:
+            vals = w_flat[e][:, None] * vals
+        acc[rows] = acc[rows] + vals
+    return acc, hits
+
+
+def _contributions(idx, x, weights, mode, n_out):
+    """(acc, hits): float32 sums in the kernel's order, and hit counts.
+
+    Gather rows add their K selects in select order; scatter rows add
+    their contributions in (input row, select) order (``_scatter_sum``).
+    """
     n_in, d = x.shape
     k = idx.shape[1]
     xf = x.to(torch.float32)
     w = None if weights is None else _weights_as_compute(weights, x)
     if mode == GATHER:
+        acc = torch.zeros((n_out, d), dtype=torch.float32, device=x.device)
         idx = idx[:n_out]
         valid = (idx >= 0) & (idx < n_in)
         hits = valid.sum(dim=1)
-        if keep is not None:
-            valid = valid & keep
-        acc = torch.zeros((n_out, d), dtype=torch.float32, device=x.device)
         for j in range(k):
             vals = xf[idx[:, j].clamp(0, max(n_in - 1, 0))]
             if w is not None:
@@ -53,22 +115,7 @@ def _contributions(idx, x, weights, mode, n_out, keep=None):
             acc = acc + torch.where(valid[:, j:j + 1], vals,
                                     torch.zeros_like(vals))
         return acc, hits
-    idx = idx[:n_in]
-    valid = (idx >= 0) & (idx < n_out)
-    if keep is not None:
-        valid = valid & keep
-    dest = torch.where(valid, idx, torch.zeros_like(idx)).reshape(-1).long()
-    contrib = xf[:, None, :].expand(n_in, k, d)
-    if w is not None:
-        contrib = w[:n_in, :, None] * contrib
-    contrib = torch.where(valid[:, :, None], contrib,
-                          torch.zeros_like(contrib)).reshape(n_in * k, d)
-    # (input row, select) order, the order the kernel's owner thread adds.
-    acc = torch.zeros((n_out, d), dtype=torch.float32, device=x.device)
-    acc.index_add_(0, dest, contrib)
-    hits = torch.zeros((n_out,), dtype=torch.int64, device=x.device)
-    hits.index_add_(0, dest, valid.reshape(-1).long())
-    return acc, hits
+    return _scatter_sum(idx, xf, w, n_out)
 
 
 def crossbar_dense(idx, x, *, mode, n_out, weights=None, merge=None,
@@ -99,32 +146,18 @@ def crossbar_sparse(run_o, run_ptr, pair_n, idx, x, *, mode, n_out, out,
                     weights=None, fold_mod2=False, block_o=128, block_n=128):
     """Plain tile-skipping crossbar over the same schedule.
 
-    A select contributes only through an active (o_tile, n_tile) pair;
-    rows of output tiles in the schedule are written into ``out``, the
-    rest of ``out`` is left as it was.
+    Every row of the run_o output tiles is written into ``out``, the
+    rest of ``out`` is left as it was.  Every select of a compiled plan
+    lies in one of its active pairs, so the pairs (run_ptr, pair_n) and
+    block_n do not change the result and are not consulted.
     """
-    n_in = x.shape[0]
-    n_o_tiles = -(-n_out // block_o)
-    n_n_tiles = max(1, -(-n_in // block_n))
-    counts = (run_ptr[1:] - run_ptr[:-1]).long()
-    pair_o = torch.repeat_interleave(run_o.long(), counts)
-    occ = torch.zeros((n_o_tiles, n_n_tiles), dtype=torch.bool,
-                      device=x.device)
-    occ[pair_o, pair_n.long()] = True
-    if mode == GATHER:
-        idx = idx[:n_out]
-        o_t = (torch.arange(n_out, device=x.device) // block_o)[:, None]
-        n_t = idx.clamp(0, max(n_in - 1, 0)) // block_n
-    else:
-        idx = idx[:n_in]
-        o_t = idx.clamp(0, max(n_out - 1, 0)) // block_o
-        n_t = (torch.arange(n_in, device=x.device) // block_n)[:, None]
-    keep = occ[o_t.expand_as(idx).long(), n_t.expand_as(idx).long()]
-    acc, _ = _contributions(idx, x, weights, mode, n_out, keep=keep)
+    acc, _ = _contributions(idx, x, weights, mode, n_out)
     if fold_mod2:
         acc = _fold2(acc)
-    rows = torch.repeat_interleave(
-        occ.any(dim=1), block_o)[:n_out]
+    tiles = torch.zeros(-(-n_out // block_o), dtype=torch.bool,
+                        device=x.device)
+    tiles[run_o.long()] = True
+    rows = torch.repeat_interleave(tiles, block_o)[:n_out]
     out[rows] = acc[rows].to(out.dtype)
     return out
 

@@ -14,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_support import (assert_bitexact, assert_close,
-                                reset_torch_state)  # noqa: F401
+from test_torch_support import (BF16_TOL, F32_TOL,  # noqa: F401
+                                assert_bitexact, assert_close,
+                                reset_torch_state)
 
 pytestmark = pytest.mark.cuda
 
@@ -29,24 +30,111 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def test_crossbar_kernels_match_plain_versions(dev):
+def _crossbar_case(case, dev, rng):
+    """(plan, payload, merge, tol) of one edge case: tol None = bit-exact.
+    Ragged widths take narrower vectors; scatter control of at most 256
+    entries is inverted inside the kernel, larger control by the
+    inversion passes."""
     from repro_torch.core import crossbar as txb
-    from repro_torch.kernels import launch_counts
+    from repro_torch.core.semiring import GF2
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    kind, _, width = case.partition("_d")
+    d = int(width) if width else 40
+    dt = torch.bfloat16 if d == 4100 else torch.float32
+    n = 300 if d == 4100 else 700
+    if kind == "gather":
+        plan = txb.gather_plan(t(rng.integers(-5, n + 5, (n, 3)).astype(
+            np.int32)), n, weights=t(normal(n, 3)))
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        return plan, t(normal(n, d)).to(dt), None, tol
+    if kind == "injective":
+        dest = np.where(rng.random(n) < 0.2, -1, rng.permutation(2 * n)[:n])
+        plan = txb.scatter_plan(t(dest.astype(np.int32)), 2 * n)
+        merge = t(normal(2 * n, d)).to(dt)
+        return plan, t(normal(n, d)).to(dt), merge, None
+    if kind == "colliding":
+        dest = rng.integers(-3, 1500, (1200, 2)).astype(np.int32)
+        dest[(dest >= 256) & (dest < 768)] = 1500       # unvisited tiles
+        plan = txb.scatter_plan(t(dest), 1500, weights=t(normal(1200, 2)))
+        return plan, t(normal(1200, d)), None, None
+    if kind == "small":                                  # 200 entries
+        dest = rng.integers(-2, 600, (100, 2)).astype(np.int32)
+        dest[(dest // 128) % 2 == 1] = -1               # odd tiles unvisited
+        plan = txb.scatter_plan(t(dest), 600, weights=t(normal(100, 2)))
+        return plan, t(normal(100, d)), None, None
+    if kind == "hot":                                    # 131072 entries
+        dest = rng.integers(-2, 4096, (65536, 2)).astype(np.int32)
+        dest[:, 0] = 7                                  # one hot row
+        plan = txb.scatter_plan(t(dest), 4096, weights=t(normal(65536, 2)))
+        return plan, t(normal(65536, d)), None, None
+    assert kind == "gf2"
+    dest = rng.integers(-2, 700, (640, 3)).astype(np.int32)
+    plan = txb.scatter_plan(t(dest), 700, semiring=GF2)
+    return plan, t(rng.integers(0, 2, (640, d)).astype(np.int32)), None, None
+
+
+@pytest.mark.parametrize("case", [
+    "apply_plan", "gather_d1", "gather_d7", "gather_d4100", "injective_d1",
+    "injective_d7", "injective_d4100", "colliding_d64", "small_d1",
+    "gf2_d96", "hot_d16"])
+def test_crossbar_kernels_match_plain_versions(dev, case):
+    from repro_torch.core import crossbar as txb
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import crossbar_permute as xbk
     rng = np.random.default_rng(0)
-    for mode in ("gather", "scatter"):
-        idx = torch.as_tensor(rng.integers(-5, 700, (700, 3)).astype(
-            np.int32), device=dev)
-        w = torch.as_tensor(rng.standard_normal((700, 3)).astype(
-            np.float32), device=dev)
-        fn = txb.gather_plan if mode == "gather" else txb.scatter_plan
-        plan = fn(idx, 700, weights=w)
-        x = torch.as_tensor(rng.standard_normal((700, 40)).astype(
-            np.float32), device=dev)
-        want = txb.apply_plan(plan, x, backend="reference")
-        for backend in ("kernel", "sparse"):
-            assert_close(txb.apply_plan(plan, x, backend=backend), want)
-    counts = launch_counts()
-    assert counts["crossbar_dense"] > 0 and counts["crossbar_sparse"] > 0
+    if case == "apply_plan":
+        for mode in ("gather", "scatter"):
+            idx = torch.as_tensor(rng.integers(-5, 700, (700, 3)).astype(
+                np.int32), device=dev)
+            w = torch.as_tensor(rng.standard_normal((700, 3)).astype(
+                np.float32), device=dev)
+            fn = txb.gather_plan if mode == "gather" else txb.scatter_plan
+            plan = fn(idx, 700, weights=w)
+            x = torch.as_tensor(rng.standard_normal((700, 40)).astype(
+                np.float32), device=dev)
+            want = txb.apply_plan(plan, x, backend="reference")
+            for backend in ("kernel", "sparse"):
+                assert_close(txb.apply_plan(plan, x, backend=backend), want)
+        counts = launch_counts()
+        assert counts["crossbar_dense"] > 0 and counts["crossbar_sparse"] > 0
+        return
+    plan, x, merge, tol = _crossbar_case(case, dev, rng)
+    check = assert_bitexact if tol is None else (
+        lambda got, want: assert_close(got, want, tol))
+
+    def plain(fn, *args_, **kw_):
+        # the hot row's plain sum runs on the CPU: one index_add_ in the
+        # kernel's order, where the card takes a step per colliding entry
+        if case != "hot_d16":
+            return fn(*args_, **kw_)
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args_]
+        return fn(*cpu, **{n: v.cpu() if torch.is_tensor(v) else v
+                           for n, v in kw_.items()}).to(dev)
+
+    idxp, xf, kw = ops.dense_operands(plan, x, merge=merge)
+    check(xbk.crossbar_permute_cuda(idxp, xf, **kw),
+          plain(ref.crossbar_dense, idxp, xf, **kw))
+    args, kw = ops.sparse_operands(plan, x)
+    kw["out"].fill_(-7.0)
+    want = plain(ref.crossbar_sparse, *args,
+                 **dict(kw, out=kw["out"].clone()))
+    check(xbk.crossbar_permute_sparse_cuda(*args, **kw), want)
+    # memset + 2 launches a radix pass (8 bits of the output row) + gather
+    passes = max(1, -(-plan.n_out.bit_length() // 8))
+    scatter_launches = 1 if plan.idx[:plan.n_in].numel() <= 256 \
+        else 2 + 2 * passes
+    assert xbk.DEVICE_LAUNCHES["crossbar_sparse"] == (
+        1 if plan.mode == "gather" else scatter_launches)
+    if merge is not None:
+        assert_bitexact(txb.apply_plan(plan, x, merge=merge, backend="sparse"),
+                        txb.apply_plan(plan, x, merge=merge,
+                                       backend="reference"))
 
 
 def test_sha3_on_every_backend(dev):
