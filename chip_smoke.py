@@ -182,37 +182,141 @@ def close_rows(name, got, want, rtol):
         f"{same:.4f} of rows")
 
 
-def profile_call(label, fn, rows=12):
-    """One call under ``torch.profiler``: wall ms, the device's busy and
-    idle share of it (kernel time summed over the call), and the ops
-    with the most device time and the most host time."""
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+WINDOW = "profiled window"
+
+
+def profiled_window(fn, tries=5):
+    """Run ``fn()`` once under ``torch.profiler``, inside a
+    ``record_function`` range and between two sentinel kernels
+    (``torch.cuda._sleep``).  Returns fn's result, the host events inside
+    the range and the device events (kernels, copies, memsets) between
+    the sentinels, in start order.
+
+    The profiler can lose device records at the edges of a window
+    (CUPTI had not delivered them when the profile stopped, or was not
+    yet collecting): pad kernels come before the opening sentinel and
+    after the closing one, then a pause, so that what is lost is
+    padding.  A window in which either sentinel is still missing
+    proves nothing either way; it is taken again, at most ``tries``
+    times, and the run fails if none is whole."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    pad = torch.empty(16, device="cuda")
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                pad.fill_(0.0)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20000)
+            with record_function(WINDOW):
+                out = fn()
+            torch.cuda._sleep(20000)
+            for _ in range(16):
+                pad.fill_(0.0)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = prof.events()
+        on_dev = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                         and e.name != WINDOW),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(on_dev) if "spin_kernel" in e.name]
+        if len(marks) == 2:
+            break
+        log(f"  (profiler window {attempt} not whole: device records "
+            f"{[e.name[:40] for e in on_dev]})")
+    else:
+        raise AssertionError(f"torch.profiler recorded no whole window in "
+                             f"{tries} tries")
+    win = next(e for e in events
+               if e.device_type == DeviceType.CPU and e.name == WINDOW)
+    lo, hi = win.time_range.start, win.time_range.end
+    on_host = [e for e in events if e.device_type == DeviceType.CPU
+               and e is not win and lo <= e.time_range.start
+               and e.time_range.end <= hi]
+    return out, on_host, on_dev[marks[0] + 1:marks[1]]
+
+
+def _dev_us(e):
+    if hasattr(e, "self_device_time_total"):
+        return e.self_device_time_total
+    return e.self_cuda_time_total
+
+
+def _by_name(events, us):
+    """{name: [count, us summed]} over ``events``."""
+    out = {}
+    for e in events:
+        row = out.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += us(e)
+    return out
+
+
+def profile_call(label, fn, rows=12):
+    """One call under ``torch.profiler``: wall ms, the device's busy and
+    idle share of it (kernel time summed over the call), the host
+    synchronisations, and the ops with the most device time and the most
+    host time.  Returns wall and busy ms, the synchronisations and the
+    device ms by kernel name."""
+    import torch
     host_s(fn)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        secs, _ = host_s(fn)
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
+    (secs, _), on_host, on_dev = profiled_window(lambda: host_s(fn))
     # device rows are the kernels, memsets and copies themselves (an
     # operator's own row repeats the time of the kernels it launched)
-    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    on_host = [e for e in events if e.device_type == DeviceType.CPU]
-    busy = sum(dev_us(e) for e in on_dev) / 1e3
+    dev = _by_name(on_dev, _dev_us)
+    host = _by_name(on_host, lambda e: e.self_cpu_time_total)
+    busy = sum(us for _, us in dev.values()) / 1e3
+    syncs = sum(host[k][0] for k in SYNC_CALLS if k in host)
     log(f"  profile, {label}: {secs * 1e3:.2f} ms wall (profiled), device "
-        f"busy {busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.4f}")
-    for rows_, key, what in ((on_dev, dev_us, "device"),
-                             (on_host, lambda e: e.self_cpu_time_total,
-                              "host")):
-        top = sorted(rows_, key=key, reverse=True)[:rows]
+        f"busy {busy:.2f} ms, idle share {1 - busy / (secs * 1e3):.4f}, "
+        f"{syncs} host synchronisations")
+    for table, what in ((dev, "device"), (host, "host")):
+        top = sorted(table.items(), key=lambda kv: kv[1][1],
+                     reverse=True)[:rows]
         log(f"    top {rows} by self {what} time (ms): " + "; ".join(
-            f"{e.key[:60]} x{e.count} {key(e) / 1e3:.3f}" for e in top))
+            f"{k[:60]} x{c} {us / 1e3:.3f}" for k, (c, us) in top))
     torch.cuda.synchronize()
+    return dict(wall_ms=secs * 1e3, busy_ms=busy, syncs=syncs,
+                kernels={k: (c, us / 1e3) for k, (c, us) in dev.items()})
+
+
+def device_work(fn, calls=4):
+    """(name, count) of every device kernel, copy and memset that
+    ``calls`` calls of ``fn`` run, from ``torch.profiler`` (after a
+    warm-up call)."""
+    import torch
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    _, _, on_dev = profiled_window(run)
+    return [(k, c) for k, (c, _) in _by_name(on_dev, _dev_us).items()]
+
+
+def cold_ms(fn, sets, iters):
+    """Mean device ms of one call with its inputs out of L2: ``fn(i)``
+    reads the i-th of ``sets`` input sets (together over the card's 50 MB
+    L2), the calls rotate over them in one CUDA graph, so each call finds
+    its inputs last touched ``sets - 1`` calls earlier."""
+    return graph_ms(_Rotate(fn, sets), iters)
+
+
+class _Rotate:
+    def __init__(self, fn, sets):
+        self.fn, self.sets, self.i = fn, sets, 0
+
+    def __call__(self):
+        self.i = (self.i + 1) % self.sets
+        return self.fn(self.i)
 
 
 def crossbar_cases(dev, rng):
@@ -816,21 +920,52 @@ def main() -> int:
                     xb.apply_plan(plan, x, merge=merge, backend="reference"))
 
     # ------------------------------------------------------ megakernel ---
-    log("plan-program megakernel vs plain VM")
+    log("plan-program megakernel vs plain VM, both layouts")
     prog = K.megakernel_program(dev)
-    ctl = pp.build_control(prog, dev)
+    ctl = pp.control_for(prog, dev)
+    check(ctl["layout"] == "packed" and pp.bit_sliceable(prog),
+          f"keccak_f1600 program takes the {ctl['layout']} layout")
+    chunk = ppk.packed_chunk(prog.n, ctl["n_phys"], ctl["blob_words"],
+                             ppk.smem_optin(dev))
+    smem_words = ppk.packed_smem_words(prog.n, ctl["n_phys"],
+                                       ctl["blob_words"]) + 32 * chunk
+    log(f"  keccak_f1600 program: packed layout, {ctl['n_steps']} steps a "
+        f"round ({int(ctl['phys_steps'][:, 6].sum())} barriers), renaming "
+        f"period {ctl['period']} rounds, control blob "
+        f"{ctl['blob_words'] * 4} B, {smem_words * 4} B of shared memory a "
+        f"CTA of 32 lanes ({chunk} staged rows)")
 
-    def vm_operands(ctl_):
-        return (ctl_["steps"], ctl_["plan_tbl"], ctl_["koff"], ctl_["kcnt"],
-                ctl_["folds"], ctl_["w_flat"], ctl_["woff"], ctl_["consts"])
+    def vm(state, ctl_):
+        return ref.plan_program_vm(state, *pp.vm_operands(ctl_),
+                                   n_regs=ctl_["n_regs"],
+                                   rounds=ctl_["rounds"],
+                                   const_stride=ctl_["const_stride"])
 
     st = t_int01(1600, 1024)
-    mk_kw = dict(n_regs=prog.n_regs, rounds=prog.rounds,
-                 const_stride=prog.const_stride)
-    got = ppk.plan_program_cuda(st, *vm_operands(ctl), **mk_kw)
-    want = ref.plan_program_vm(st, *vm_operands(ctl), **mk_kw)
-    torch.cuda.synchronize()
-    compare("plan_program", "keccak_f1600 program, 1024 lanes", got, want)
+    want = vm(st, ctl)
+    for layout in ("packed", "word"):
+        got = ppk.plan_program_cuda(st, ctl, layout=layout)
+        torch.cuda.synchronize()
+        compare("plan_program", f"keccak_f1600 program, {layout} layout, "
+                "1024 lanes 0/1", got, want)
+    compare("plan_program", "keccak_f1600 program, packed layout's plain "
+            "emulation, 1024 lanes", ref.plan_program_packed(st, ctl), want)
+    # ragged widths and int32 states whose high bits the program never
+    # reads, from a generator of their own (the later paths draw the
+    # inputs they drew before these cases existed)
+    rng_mk = np.random.default_rng(2)
+    for d in (1, 31, 33, 1000):
+        for kind in ("0/1", "int32"):
+            hi = 2 if kind == "0/1" else 2**31
+            sd = torch.as_tensor(rng_mk.integers(-hi if hi > 2 else 0, hi,
+                                                 (1600, d), dtype=np.int32),
+                                 device=dev)
+            want_d = vm(sd, ctl)
+            for layout in ("packed", "word"):
+                compare("plan_program", f"keccak_f1600 program, {layout} "
+                        f"layout, {d} lanes {kind}",
+                        ppk.plan_program_cuda(sd, ctl, layout=layout),
+                        want_d)
 
     n_syn = 256
     b = pp.ProgramBuilder("all_ops", n_syn, n_regs=4)
@@ -855,17 +990,17 @@ def main() -> int:
     b.xor_const_at(0, 0, xc)
     b.add(0, 0, 1)
     syn = b.build(rounds=3, const_stride=1)
-    ctl_syn = pp.build_control(syn, dev)
+    ctl_syn = pp.control_for(syn, dev)
+    check(ctl_syn["layout"] == "word" and not pp.bit_sliceable(syn),
+          f"all-opcode program takes the {ctl_syn['layout']} layout")
     su = torch.as_tensor(rng.integers(0, 2**32, (n_syn, 77), dtype=np.uint64)
                          .astype(np.uint32).view(np.int32),
                          device=dev).view(torch.uint32)
-    syn_kw = dict(n_regs=syn.n_regs, rounds=syn.rounds,
-                  const_stride=syn.const_stride)
-    got = ppk.plan_program_cuda(su, *vm_operands(ctl_syn), **syn_kw)
-    want = ref.plan_program_vm(su, *vm_operands(ctl_syn), **syn_kw)
+    got = ppk.plan_program_cuda(su, ctl_syn)
+    want = vm(su, ctl_syn)
     torch.cuda.synchronize()
-    compare("plan_program", "all-opcode uint32 program, weighted ADD plan",
-            got.view(torch.int32), want.view(torch.int32))
+    compare("plan_program", "all-opcode uint32 program, weighted ADD plan, "
+            "word layout", got.view(torch.int32), want.view(torch.int32))
     chained = pp.run_program(syn, su, backend="chained",
                              pass_backend="einsum")
     compare("plan_program", "same program, megakernel vs chained",
@@ -901,6 +1036,13 @@ def main() -> int:
     mo = torch.as_tensor(rng.random(5000) < 0.5, device=dev)
     compare("fused_vcompress", "(5000, 7) f32, N over one TPU block",
             fck.fused_vcompress_cuda(mo, xo), ref.fused_vcompress(mo, xo))
+    for mdt in (torch.int8, torch.int32, torch.float32):
+        m_ = mo.to(mdt)
+        for tail in ("zero", "bijective"):
+            compare("fused_vcompress", f"(5000, 7) f32, {mdt} mask, "
+                    f"tail={tail}", fck.fused_vcompress_cuda(m_, xo,
+                                                             tail=tail),
+                    ref.fused_vcompress(m_, xo, tail=tail))
 
     # ------------------------------------------------ main path, counted ---
     log("main path (launch counters from 0)")
@@ -970,6 +1112,11 @@ def main() -> int:
     for name in ("crossbar_dense", "crossbar_sparse", "plan_program"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the SHA-3 path")
+    layouts = dict(ppk.LAYOUT_LAUNCHES)
+    check(layouts["packed"] == launches["plan_program"]
+          and layouts["word"] == 0,
+          f"the SHA-3 path's megakernel launches by layout: {layouts}")
+    log(f"  megakernel launches by layout: {layouts}")
 
     # ------------------------------------------ fused vcompress, counted ---
     log("fused vcompress path, its entry point (launch counters from 0)")
@@ -987,6 +1134,18 @@ def main() -> int:
     log(f"  ops.fused_vcompress (2048, 4096) bf16, both tails: equal the "
         f"plain version; launches {vc_counts}")
     add_counts(launches, vc_counts)
+    for mdt in (torch.bool, torch.int8, torch.int32):
+        m_ = vc_mask.to(mdt)
+        for tail in ("zero", "bijective"):
+            work = device_work(lambda: ops.fused_vcompress(m_, vc_x,
+                                                           tail=tail),
+                               calls=4)
+            check(len(work) == 1 and work[0][1] == 4
+                  and "fused_vcompress" in work[0][0],
+                  f"fused vcompress, {mdt} mask, tail={tail}: device work "
+                  f"of 4 calls {work}, not one kernel a call")
+        log(f"  {mdt} mask: one device kernel a call, both tails "
+            f"({work[0][0][:70]})")
 
     moe = moe_phases(dev, rng, compare)
     add_counts(launches, moe["launches"])
@@ -1041,20 +1200,48 @@ def main() -> int:
                      plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=lib))
 
-    # megakernel: one Keccak-f[1600] over 1024 lanes
+    # megakernel: one Keccak-f[1600] over 1024 lanes, in the layout the
+    # entry point takes (packed); the word layout and the all-opcode
+    # program beside it
     stT = states.T.contiguous()
     ms, eager["plan_program"] = timed(
-        lambda: ppk.plan_program_cuda(stT, *vm_operands(ctl), **mk_kw), 20)
-    plain = time_ms(lambda: ref.plan_program_vm(stT, *vm_operands(ctl),
-                                                **mk_kw), 2)
+        lambda: ppk.plan_program_cuda(stT, ctl), 20)
+    ms_word = graph_ms(lambda: ppk.plan_program_cuda(stT, ctl,
+                                                     layout="word"), 20)
+    ms_syn = graph_ms(lambda: ppk.plan_program_cuda(su, ctl_syn), 20)
+    # the packed layout's fixed cost (state in and out, control staged)
+    # and its cost a round: the same launch with 0 and 1 rounds
+    st32 = stT[:, :32].contiguous()
+    ms_r = [graph_ms(lambda: ppk.plan_program_cuda(
+        x_, dict(ctl, rounds=r_)), 20)
+        for x_ in (stT, st32) for r_ in (0, 1, prog.rounds)]
+    plain = time_ms(lambda: vm(stT, ctl), 2)
     lanes = stT.shape[1]
     permute_selects = sum(int(ctl["kcnt"][s.plan]) for s in prog.steps
                           if s.op == "permute")
     elementwise = sum(1 for s in prog.steps if s.op != "permute")
     n_ops = lanes * prog.rounds * prog.n * (permute_selects + elementwise)
-    nb = 2 * stT.numel() * 4 + sum(
-        t.numel() * 4 for t in vm_operands(ctl) if t is not None)
-    bms, by = bound(nb, n_ops)
+    words = -(-lanes // 32)
+    packed_ops = words * prog.rounds * prog.n * (permute_selects
+                                                 + elementwise)
+    # the packed kernel reads the state and its control blob and writes
+    # the state; the word layout's bound counts one operation a lane
+    nb = 2 * stT.numel() * 4 + ctl["blob_words"] * 4
+    bms, by = bound(nb, packed_ops)
+    old_b, old_by = bound(2 * stT.numel() * 4 + sum(
+        t.numel() * 4 for t in pp.vm_operands(ctl) if t is not None), n_ops)
+    log(f"  megakernel, keccak_f1600 x {lanes} lanes: packed {ms:.4f} ms "
+        f"[{eager['plan_program']:.4f} eager], word layout {ms_word:.4f} ms;"
+        f" bound {bms:.5f} ms ({by}: {nb} B, {packed_ops} word operations);"
+        f" the word layout's yardstick, one operation a lane: {old_b:.5f} ms"
+        f" ({old_by}, {n_ops} operations)")
+    log(f"  megakernel, all-opcode program (256 rows, 77 lanes, 3 rounds, "
+        f"word layout): {ms_syn:.4f} ms")
+    for i, lanes_ in ((0, lanes), (3, 32)):
+        log(f"  megakernel, packed, keccak_f1600 program at {lanes_} lanes "
+            f"cut to 0, 1 and {prog.rounds} rounds: {ms_r[i]:.4f}, "
+            f"{ms_r[i + 1]:.4f}, {ms_r[i + 2]:.4f} ms; "
+            f"{(ms_r[i + 2] - ms_r[i]) / prog.rounds:.5f} ms a round")
     rows.append(dict(name="plan_program", route="cuda",
                      source="src/repro_torch/kernels/csrc/plan_program.cu",
                      replaces="src/repro/kernels/plan_program_kernel.py:188",
@@ -1076,7 +1263,9 @@ def main() -> int:
                      bound_ms=bms, bound_by=by, library_ms=None))
 
     # fused vcompress, (2048, 4096) bf16, bijective tail; the library
-    # yardstick is one index_select with the packed order computed ahead
+    # yardstick is one index_select with the packed order computed ahead.
+    # Warm: the same inputs every call (33.5 MB, resident in the 50 MB L2
+    # across replays); cold: inputs rotated over 4 sets (67 MB of inputs).
     order = torch.argsort((~vc_mask).to(torch.int8), stable=True)
     ms, eager["fused_vcompress"] = timed(
         lambda: fck.fused_vcompress_cuda(vc_mask, vc_x, tail="bijective"),
@@ -1086,6 +1275,19 @@ def main() -> int:
                                                 tail="bijective"), 20)
     lib, lib_eager["fused_vcompress"] = timed(
         lambda: torch.index_select(vc_x, 0, order), 200)
+    sets = [(vc_mask, vc_x, order)]
+    for _ in range(3):
+        m_ = torch.as_tensor(rng.random(2048) < 0.5, device=dev)
+        sets.append((m_, torch.randn_like(vc_x),
+                     torch.argsort((~m_).to(torch.int8), stable=True)))
+    ms_cold = cold_ms(lambda i: fck.fused_vcompress_cuda(
+        sets[i][0], sets[i][1], tail="bijective"), len(sets), 200)
+    lib_cold = cold_ms(lambda i: torch.index_select(sets[i][1], 0,
+                                                    sets[i][2]),
+                       len(sets), 200)
+    ms_warm2 = graph_ms(lambda: fck.fused_vcompress_cuda(
+        vc_mask, vc_x, tail="bijective"), 200)
+    lib_warm2 = graph_ms(lambda: torch.index_select(vc_x, 0, order), 200)
     nb = vc_mask.numel() + 2 * vc_x.numel() * vc_x.element_size()
     bms, by = bound(nb, vc_mask.numel())
     rows.append(dict(name="fused_vcompress", route="cuda",
@@ -1095,12 +1297,19 @@ def main() -> int:
                      max_abs_err=err["fused_vcompress"], ms=ms,
                      plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=lib))
-    log(f"  fused_vcompress tail=zero: {ms_zero:.4f} ms")
+    log(f"  fused_vcompress (2048, 4096) bf16: warm {ms:.4f}, {ms_warm2:.4f}"
+        f" ms (tail=zero {ms_zero:.4f}), L2-cold {ms_cold:.4f} ms; "
+        f"index_select warm {lib:.4f}, {lib_warm2:.4f} ms, L2-cold "
+        f"{lib_cold:.4f} ms; bound {bms:.5f} ms ({by})")
+    del sets
 
     smem_reads = lanes * prog.rounds * prog.n * (permute_selects
                                                  + 2 * elementwise)
-    log(f"  megakernel: {smem_reads} shared-memory word reads "
-        f"(gathers + elementwise operands) for 1024 lanes")
+    log(f"  megakernel: {smem_reads} shared-memory word reads (gathers + "
+        f"elementwise operands) for {lanes} lanes in the word layout, "
+        f"{smem_reads // lanes * words} in the packed layout (plus its "
+        f"{words * prog.rounds * prog.n * permute_selects} int16 plan "
+        "reads)")
 
     t = time.perf_counter()
     digests = K.sha3_256_batched(msgs, backend="megakernel", device=dev)
@@ -1108,6 +1317,22 @@ def main() -> int:
     sha_s = time.perf_counter() - t
     log(f"  sha3_256_batched 1024 x 1 KiB (megakernel, 8 permutations): "
         f"{sha_s * 1e3:.2f} ms host clock, {1024 / sha_s:.1f} hashes/s")
+    sha_more = [host_s(lambda: K.sha3_256_batched(
+        msgs, backend="megakernel", device=dev))[0] * 1e3 for _ in range(3)]
+    log(f"  sha3_256_batched again: {[round(t_, 2) for t_ in sha_more]} ms")
+    prof = profile_call("sha3_256_batched 1024 x 1 KiB, megakernel",
+                        lambda: K.sha3_256_batched(msgs, backend="megakernel",
+                                                   device=dev), rows=8)
+    mk = [(k, c, t_) for k, (c, t_) in prof["kernels"].items()
+          if "pp_packed_kernel" in k or "pp_word_kernel" in k]
+    mk_ms = sum(t_ for _, _, t_ in mk)
+    check(sum(c for _, c, _ in mk) == 8,
+          f"sha3_256_batched ran megakernels {mk}, not 8 launches")
+    log(f"  sha3_256_batched: the 8 megakernel launches {mk_ms:.3f} ms of "
+        f"{prof['wall_ms']:.2f} ms wall; the host time outside them "
+        f"{prof['wall_ms'] - mk_ms:.2f} ms; other device work "
+        f"{prof['busy_ms'] - mk_ms:.3f} ms; {prof['syncs']} host "
+        "synchronisations")
     for r in rows:
         lib_txt = ("none" if r["library_ms"] is None else
                    f"{r['library_ms']:.4f} [{lib_eager[r['name']]:.4f}] ms")

@@ -17,7 +17,11 @@ Two executors share the IR:
   version (``kernels.ref.plan_program_vm``) on a CPU state, over control
   tables encoded once per (program, device) and cached under a digest
   guard.  The tables are not padded: the CUDA kernel masks nothing and
-  needs n rows of control per plan exactly.
+  needs n rows of control per plan exactly.  The cache entry also holds
+  the kernel's layout, decided once per program on the host
+  (``bit_sliceable``): ``packed`` (32 lanes a word) for GF(2) programs
+  whose output provably depends on bit 0 only, such as Keccak-f[1600],
+  and ``word`` for every other program.
 
 Telemetry counts program launches and the crossbar passes they replaced.
 """
@@ -321,11 +325,258 @@ def _plan_fold(plan: xb.PermutePlan) -> str:
     return "xor" if plan.semiring is GF2 else "add"
 
 
+# A renaming whose register assignment returns to the start only after
+# more rounds than this copies back through an AND step instead.
+_MAX_RENAME_PERIOD = 64
+
+
+def rename_registers(program: PlanProgram):
+    """The step stream over physical registers, as both megakernel layouts
+    run it: ``(rows, period, out_reg)``, rows of (opcode, dst, a, b, plan,
+    const, barrier).
+
+    Each thread of the kernels owns the same rows of every register in
+    every step, so only a PERMUTE, which gathers any row, crosses threads.
+    A block barrier goes before a step (``barrier`` = 1) only where it is
+    needed: a PERMUTE reading a register written since the last barrier,
+    or a step writing a register a PERMUTE has read since then; and before
+    each round's first step.  There are n_regs + 1 physical registers.  A
+    PERMUTE whose destination is its source, and a step whose destination
+    a PERMUTE is still reading, write the free one instead (if no PERMUTE
+    since the barrier reads it), which then takes the destination's name:
+    no copy back, and fewer barriers.  The assignment of names changes
+    from round to round; ``rows`` holds one round's rows for each of
+    ``period`` rounds, after which the assignment is back where it
+    started, and register 0 ends in physical register ``out_reg``.  Where
+    the period would exceed ``_MAX_RENAME_PERIOD`` rounds, an in-place
+    PERMUTE writes the last physical register and an AND of it with itself
+    copies it back (period 1).  Host data only; the same for every state.
+    """
+    n_regs = program.n_regs
+    start = list(range(n_regs))
+
+    def with_barriers(rows):
+        written, perm_reads, out = set(), set(), []
+        for i, (code, dst, a, b, p, c) in enumerate(rows):
+            permute = code == _OPCODE[PERMUTE]
+            need = (i == 0 or (permute and a in written)
+                    or dst in perm_reads)
+            if need:
+                written, perm_reads = set(), set()
+            written.add(dst)
+            if permute:
+                perm_reads.add(a)
+            out.append((code, dst, a, b, p, c, int(need)))
+        return out
+
+    def one_round(names, free):
+        rows, written, perm_reads = [], set(), set()
+        for i, s in enumerate(program.steps):
+            code = _OPCODE[s.op]
+            a = names[s.a]
+            b = names[s.b] if s.op in _BINARY_OPS else 0
+            dst = names[s.dst]
+            if i == 0:
+                written, perm_reads = set(), set()
+            if ((s.op == PERMUTE and s.dst == s.a)
+                    or (dst in perm_reads and free not in perm_reads)):
+                names[s.dst], free, dst = free, dst, free
+            if (s.op == PERMUTE and a in written) or dst in perm_reads:
+                written, perm_reads = set(), set()
+            written.add(dst)
+            if s.op == PERMUTE:
+                perm_reads.add(a)
+            rows.append((code, dst, a, b, max(s.plan, 0), max(s.const, 0)))
+        return rows, free
+
+    names, free, rows = list(start), n_regs, []
+    for period in range(1, _MAX_RENAME_PERIOD + 1):
+        one, free = one_round(names, free)
+        rows.extend(with_barriers(one))
+        if names == start:
+            break
+    else:
+        rows = []
+        for s in program.steps:
+            code = _OPCODE[s.op]
+            if s.op == PERMUTE and s.dst == s.a:
+                rows += [(code, n_regs, s.a, 0, s.plan, 0),
+                         (_OPCODE[AND], s.a, n_regs, n_regs, 0, 0)]
+            else:
+                rows.append((code, s.dst, s.a, max(s.b, 0), max(s.plan, 0),
+                             max(s.const, 0)))
+        return np.asarray(with_barriers(rows), np.int32).reshape(-1, 7), 1, 0
+    names, free = list(start), n_regs
+    for _ in range(program.rounds % period):
+        free = one_round(names, free)[1]
+    return np.asarray(rows, np.int32).reshape(-1, 7), period, names[0]
+
+
+def _clean_after_rounds(program: PlanProgram) -> tuple:
+    """Per register, whether it provably holds zero high bits (bits 1-31
+    of every word) after the last round.  Register 0 starts tainted (the
+    input), the others clean (zero).  An XOR-fold PERMUTE writes 0/1, so
+    its output is clean; a single-select ADD-fold gather (a move) is
+    clean when its source is; XOR is clean when both sources are, AND
+    when either is, ANDN (~a & b) when b is, XOR_CONST (0/1 constants)
+    when its source is.  The caller admits no other step."""
+    def one_round(clean):
+        c = list(clean)
+        for s in program.steps:
+            if s.op == PERMUTE:
+                c[s.dst] = (program.plans[s.plan].semiring is GF2
+                            or c[s.a])
+            elif s.op == XOR:
+                c[s.dst] = c[s.a] and c[s.b]
+            elif s.op == AND:
+                c[s.dst] = c[s.a] or c[s.b]
+            elif s.op == ANDN:
+                c[s.dst] = c[s.b]
+            else:  # XOR_CONST
+                c[s.dst] = c[s.a]
+        return tuple(c)
+
+    clean = (False,) + (True,) * (program.n_regs - 1)
+    seen = {}
+    for k in range(program.rounds):
+        if clean in seen:       # a cycle: skip its whole turns
+            period = k - seen[clean]
+            for _ in range((program.rounds - k) % period):
+                clean = one_round(clean)
+            return clean
+        seen[clean] = k
+        clean = one_round(clean)
+    return clean
+
+
+def _r4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+# Renamed steps (period x steps a round) the packed kernel takes as a
+# launch parameter (kMaxPackedSteps in csrc/plan_program.cu).
+MAX_PACKED_STEPS = 120
+
+
+def packed_sections(program: PlanProgram) -> tuple:
+    """Word offsets of the packed layout's control blob: (cbits, total
+    words).  The plan rows as uint16 at 0, then on a 16-byte boundary the
+    constant rows as bits (ceil(n / 32) words a row)."""
+    n = program.n
+    k_total = sum(int(p.idx.shape[1]) for p in program.plans)
+    n_consts = 1 if program.consts is None else program.consts.shape[0]
+    off_cbits = _r4(-(-k_total * n // 2))
+    return off_cbits, off_cbits + _r4(n_consts * -(-n // 32))
+
+
+def bit_sliceable(program: PlanProgram) -> bool:
+    """Whether the program runs exactly on 32 lanes a word (the packed
+    megakernel layout): its output then depends on bit 0 of its input
+    only, and every register's bit 0 on bit 0s only.  It holds when
+    every PERMUTE's plan is unweighted and either GF(2) (the XOR fold
+    reads bit 0 and writes 0/1) or a single-select REAL gather (a move:
+    bit 0 of the output is bit 0 of the source, so Keccak's χ shifts
+    qualify; an ADD fold over two or more selects carries into bit 1 and
+    does not); every other step is XOR, AND, ANDN or an XOR_CONST whose
+    constant rows, over all rounds, are 0/1; register 0 provably ends
+    with zero high bits (``_clean_after_rounds``); n fits the 16-bit plan
+    rows; the renamed step table fits the kernel's parameter
+    (``MAX_PACKED_STEPS``); and the layout's shared memory fits an sm_90
+    block.  A static property of the program, decided from host data."""
+    from repro_torch.kernels import plan_program_kernel as ppk
+    if program.n >= 2**15:
+        return False
+    for s in program.steps:
+        if s.op == PERMUTE:
+            plan = program.plans[s.plan]
+            if plan.weights is not None or (plan.semiring is not GF2
+                                            and plan.idx.shape[1] != 1):
+                return False
+        elif s.op == XOR_CONST:
+            rows = program.consts[s.const + program.const_stride
+                                  * np.arange(program.rounds)]
+            if not ((rows == 0) | (rows == 1)).all():
+                return False
+        elif s.op not in (XOR, AND, ANDN):
+            return False
+    if not _clean_after_rounds(program)[0]:
+        return False
+    if rename_registers(program)[0].shape[0] > MAX_PACKED_STEPS:
+        return False
+    words = ppk.packed_smem_words(program.n, program.n_regs + 1,
+                                  packed_sections(program)[-1])
+    return (words + 32) * 4 <= ppk.PACKED_SMEM_BYTES  # and one staged row
+
+
+def _const_bits(program: PlanProgram) -> np.ndarray:
+    """Bit 0 of every constant row, 32 rows to a word (little-endian)."""
+    n = program.n
+    consts = (np.zeros((1, n), np.int32) if program.consts is None
+              else program.consts)
+    bits = np.zeros((consts.shape[0], -(-n // 32) * 32), np.uint8)
+    bits[:, :n] = consts & 1
+    return np.packbits(bits, axis=1, bitorder="little").view("<u4").view(
+        np.int32)
+
+
+def _packed_control(program: PlanProgram, rows: np.ndarray, idx_rows,
+                    koff, kcnt, device) -> tuple:
+    """The packed layout's step table (host int32, 8 a step) and control
+    blob (on ``device``, with its constant-bits offset).
+
+    Each renamed step becomes 8 ints that the kernel reads without a
+    further lookup: (opcode, dst, a, b) with the registers as word
+    offsets (register x (n + 1): a register has a zero pad row), then for
+    a PERMUTE its plan's first row offset (plan row x n) and its selects,
+    the const row, and the barrier flag.  The blob holds the plan rows as
+    16-bit sources, n (the pad row) where a select has none, and the
+    constant rows as bits.
+    """
+    n = program.n
+    off_cbits, words = packed_sections(program)
+    steps = np.zeros((rows.shape[0], 8), np.int64)
+    steps[:, 0] = rows[:, 0]
+    steps[:, 1:4] = rows[:, 1:4] * (n + 1)
+    perm = rows[:, 0] == _OPCODE[PERMUTE]
+    if perm.any():
+        steps[perm, 4] = np.asarray(koff)[rows[perm, 4]] * n
+        steps[perm, 5] = np.asarray(kcnt)[rows[perm, 4]]
+    steps[:, 6] = rows[:, 5]
+    steps[:, 7] = rows[:, 6]
+
+    def section(t, n_words):
+        t = t.reshape(-1)
+        return torch.cat([t, torch.zeros(n_words - t.numel(),
+                                         dtype=torch.int32, device=device)])
+
+    if idx_rows:
+        tbl = torch.stack(idx_rows)
+        plan16 = torch.where((tbl >= 0) & (tbl < n), tbl, n).to(torch.int16)
+    else:
+        plan16 = torch.zeros((0,), dtype=torch.int16, device=device)
+    plan16 = plan16.reshape(-1)
+    plan16 = torch.cat([plan16, torch.zeros(plan16.numel() % 2,
+                                            dtype=torch.int16,
+                                            device=device)]).view(torch.int32)
+    blob = torch.cat([
+        section(plan16, off_cbits),
+        section(torch.as_tensor(_const_bits(program), device=device),
+                words - off_cbits)])
+    return np.ascontiguousarray(steps, np.int32), blob.contiguous(), off_cbits
+
+
 def build_control(program: PlanProgram, device) -> dict:
-    """The megakernel's operands for one program on one device: the step
-    stream, the ragged flat plan table (every plan's select columns, one
-    (n,) row per column) with per-plan offset/count/fold, the ragged
-    weight rows (offset -1 = unweighted) and the constants table."""
+    """The megakernel's operands for one program on one device.
+
+    For the plain VM (the program's semantics): the step stream, the
+    ragged flat plan table (every plan's select columns, one (n,) row per
+    column) with per-plan offset/count/fold, the ragged weight rows
+    (offset -1 = unweighted) and the constants table.  For the kernel:
+    the renamed step table (``rename_registers``), the layout
+    (``"packed"`` where ``bit_sliceable``, else ``"word"``) and, for a
+    bit-sliceable program, the packed layout's step table (host int32)
+    and control blob.
+    """
     from repro_torch.kernels import plan_program_kernel as ppk
     # The step-stream opcodes index the kernel's dispatch; the two
     # orderings must never drift apart.
@@ -352,6 +603,11 @@ def build_control(program: PlanProgram, device) -> dict:
 
     consts = (np.zeros((1, program.n), np.int32) if program.consts is None
               else program.consts)
+    rows, period, out_reg = rename_registers(program)
+    packed = bit_sliceable(program)
+    psteps, blob, off_cbits = (
+        _packed_control(program, rows, idx_rows, koff, kcnt, device)
+        if packed else (None, None, 0))
     return {
         "steps": torch.as_tensor(encode_steps(program), device=device),
         "plan_tbl": (torch.stack(idx_rows).contiguous() if idx_rows else
@@ -362,10 +618,43 @@ def build_control(program: PlanProgram, device) -> dict:
         "woff": vec(woff, -1),
         "consts": torch.as_tensor(np.asarray(consts, np.int32),
                                   device=device).contiguous(),
+        "n": program.n, "n_regs": program.n_regs, "rounds": program.rounds,
+        "const_stride": program.const_stride,
+        "phys_steps": torch.as_tensor(rows, device=device).contiguous(),
+        "n_steps": rows.shape[0] // period, "period": period,
+        "out_reg": out_reg, "n_phys": program.n_regs + 1,
+        "layout": "packed" if packed else "word",
+        "packed_steps": psteps, "blob": blob, "off_cbits": off_cbits,
+        "blob_words": 0 if blob is None else blob.numel(),
     }
 
 
+def control_for(program: PlanProgram, device) -> dict:
+    """The program's cached control tables on ``device`` (built and sealed
+    on a miss; a hit re-digests the program's control content, sampled,
+    against the seal)."""
+    key = (id(program), str(device))
+    hit = _EXEC_CACHE.get(key)
+    if hit is not None and hit[0] is program:
+        _integrity.PROGRAM_GUARD.verify(
+            key, digest_fn=lambda: _control_digest(program),
+            evict=lambda: _EXEC_CACHE.pop(key, None))
+        _EXEC_STATS["hits"] += 1
+        _EXEC_CACHE.move_to_end(key)
+        return hit[1]
+    _EXEC_STATS["misses"] += 1
+    ctl = build_control(program, device)
+    _integrity.PROGRAM_GUARD.seal(key, digest=_control_digest(program))
+    _EXEC_CACHE[key] = (program, ctl)
+    while len(_EXEC_CACHE) > _EXEC_CACHE_CAPACITY:
+        evicted_key, _ = _EXEC_CACHE.popitem(last=False)
+        _integrity.PROGRAM_GUARD.drop(evicted_key)
+    return ctl
+
+
 def _run_megakernel(program: PlanProgram, x2: torch.Tensor) -> torch.Tensor:
+    """One launch on a CUDA state, in the layout ``build_control`` chose;
+    the plain VM on a CPU state."""
     global _PROGRAM_LAUNCHES, _PASSES_AVOIDED
     from repro_torch.kernels import plan_program_kernel as ppk
     from repro_torch.kernels import ref
@@ -373,33 +662,21 @@ def _run_megakernel(program: PlanProgram, x2: torch.Tensor) -> torch.Tensor:
     if x2.dtype not in (torch.int32, torch.uint32):
         raise ValueError(f"the megakernel runs int32/uint32 states, got "
                          f"{x2.dtype}")
-    key = (id(program), str(x2.device))
-    hit = _EXEC_CACHE.get(key)
-    if hit is not None and hit[0] is program:
-        # Sampled re-digest of the program's control content against the
-        # seal taken at insert.
-        _integrity.PROGRAM_GUARD.verify(
-            key, digest_fn=lambda: _control_digest(program),
-            evict=lambda: _EXEC_CACHE.pop(key, None))
-        _EXEC_STATS["hits"] += 1
-        _EXEC_CACHE.move_to_end(key)
-        ctl = hit[1]
-    else:
-        _EXEC_STATS["misses"] += 1
-        ctl = build_control(program, x2.device)
-        _integrity.PROGRAM_GUARD.seal(key, digest=_control_digest(program))
-        _EXEC_CACHE[key] = (program, ctl)
-        while len(_EXEC_CACHE) > _EXEC_CACHE_CAPACITY:
-            evicted_key, _ = _EXEC_CACHE.popitem(last=False)
-            _integrity.PROGRAM_GUARD.drop(evicted_key)
+    ctl = control_for(program, x2.device)
     with _COUNT_LOCK:
         _PROGRAM_LAUNCHES += 1
         _PASSES_AVOIDED += program.passes
-    run = ppk.plan_program_cuda if x2.is_cuda else ref.plan_program_vm
-    return run(x2.contiguous(), ctl["steps"], ctl["plan_tbl"], ctl["koff"],
-               ctl["kcnt"], ctl["folds"], ctl["w_flat"], ctl["woff"],
-               ctl["consts"], n_regs=program.n_regs, rounds=program.rounds,
-               const_stride=program.const_stride)
+    if x2.is_cuda:
+        return ppk.plan_program_cuda(x2.contiguous(), ctl)
+    return ref.plan_program_vm(x2.contiguous(), *vm_operands(ctl),
+                               n_regs=program.n_regs, rounds=program.rounds,
+                               const_stride=program.const_stride)
+
+
+def vm_operands(ctl: dict) -> tuple:
+    """The plain VM's positional operands from a program's control."""
+    return (ctl["steps"], ctl["plan_tbl"], ctl["koff"], ctl["kcnt"],
+            ctl["folds"], ctl["w_flat"], ctl["woff"], ctl["consts"])
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch counter, the megakernel's per-layout counts
+    (``plan_program_kernel.LAYOUT_LAUNCHES``) included."""
     for mod in _wrappers():
         with mod._LOCK:
-            for key in mod.LAUNCHES:
-                mod.LAUNCHES[key] = 0
+            for table in (mod.LAUNCHES, getattr(mod, "LAYOUT_LAUNCHES", {})):
+                for key in table:
+                    table[key] = 0

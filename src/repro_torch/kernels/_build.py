@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_IP = ctypes.POINTER(ctypes.c_int)
 # Every C entry point and its signature; each returns a cudaError_t,
 # except those named in RESTYPES.
 SIGNATURES = {
@@ -39,10 +40,11 @@ SIGNATURES = {
     "xb_sparse": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _IP],
     "pp_smem_optin": [_I, _P],
-    "pp_megakernel": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _I, _I, _I, _P],
+    "pp_megakernel": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _I, _P],
+    "pp_packed": [_P, _P, _P, _I, _P] + [_I] * 13 + [_P],
     "moe_route": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "fused_vcompress": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "fused_vcompress": [_P, _I, _U, _U, _I, _P, _P] + [_I] * 7 + [_P],
 }
 RESTYPES = {"xb_scratch_ints": ctypes.c_longlong}
 

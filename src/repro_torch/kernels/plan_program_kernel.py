@@ -2,10 +2,14 @@
 
 Port of ``repro/kernels/plan_program_kernel.py`` (``plan_program_pallas``);
 the kernel is ``csrc/plan_program.cu``, a bytecode VM over a register
-file held in shared memory, and its plain version is
-``kernels.ref.plan_program_vm``.  ``OPCODES`` numbers the step stream
-in the same order as the reference, and ``control_digest`` salts the
-digest of a program's control state with that numbering.
+file held in shared memory, in one of two layouts: ``word`` (one uint32
+a lane a row, any program) and ``packed`` (32 lanes a word, for the
+programs ``core.plan_program.bit_sliceable`` admits).  Its plain
+versions are ``kernels.ref.plan_program_vm`` (the program's semantics)
+and ``kernels.ref.plan_program_packed`` (the packed layout's arithmetic
+on the same tables).  ``OPCODES`` numbers the step stream in the same
+order as the reference, and ``control_digest`` salts the digest of a
+program's control state with that numbering.
 """
 
 from __future__ import annotations
@@ -20,8 +24,14 @@ from repro_torch.kernels._build import KernelLaunchError
 
 OPCODES = ("permute", "xor", "and", "andn", "add", "rotlv", "xor_const",
            "eq_const")
+LAYOUTS = ("packed", "word")
+
+# Shared memory an sm_90 block may opt in to: the packed layout's whole
+# footprint (control blob and register file) must fit it.
+PACKED_SMEM_BYTES = 232448
 
 LAUNCHES = {"plan_program": 0}
+LAYOUT_LAUNCHES = {"packed": 0, "word": 0}
 _LOCK = threading.Lock()
 
 
@@ -33,10 +43,12 @@ def control_digest(steps, consts, plan_parts=()) -> str:
 
 
 def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int) -> int:
-    """Lanes each CTA owns: whole lanes whose register file — n_regs
-    registers plus one scratch register, n uint32 rows each — fits the
-    shared memory a block may opt in to.  The largest power of two that
-    fits, capped at ``d``.  Raises when not even one lane fits."""
+    """Lanes each CTA owns in the word layout: whole lanes whose register
+    file — n_regs registers plus one scratch register, n uint32 rows
+    each — fits the shared memory a block may opt in to.  A power of two
+    (the kernel finds a thread's lane by shifts): the largest that fits,
+    capped at the power of two that covers ``d``.  Raises when not even
+    one lane fits."""
     per_lane = (n_regs + 1) * n * 4
     fit = smem_bytes // per_lane
     if fit < 1:
@@ -45,9 +57,33 @@ def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int) -> int:
             f"{per_lane} bytes of shared memory; the card allows "
             f"{smem_bytes} per block")
     lanes = 1
-    while lanes * 2 <= fit:
+    while lanes * 2 <= fit and lanes < d:
         lanes *= 2
-    return max(1, min(lanes, d))
+    return lanes
+
+
+def packed_threads(n: int) -> int:
+    """Threads of a packed CTA: a warp per 32 rows, at most 1024."""
+    return min(1024, 32 * -(-max(n, 1) // 32))
+
+
+def packed_smem_words(n: int, n_phys: int, blob_words: int) -> int:
+    """Shared memory of a packed CTA before its state staging, in words:
+    the control blob and n_phys registers of n + 1 words, 16-B aligned."""
+    return blob_words + -(-n_phys * (n + 1) // 4) * 4
+
+
+def packed_chunk(n: int, n_phys: int, blob_words: int,
+                 smem_bytes: int) -> int:
+    """Rows of state a packed CTA stages at a time (128 B each) in the
+    shared memory left behind its control and registers: as few chunks as
+    fit, of equal size.  Raises when not one row fits."""
+    fit = (smem_bytes // 4 - packed_smem_words(n, n_phys, blob_words)) // 32
+    if fit < 1:
+        raise ValueError(f"packed layout needs more than {smem_bytes} bytes "
+                         "of shared memory a block")
+    n = max(n, 1)
+    return -(-n // -(-n // fit))
 
 
 _SMEM_OPTIN: dict = {}
@@ -67,15 +103,14 @@ def smem_optin(device: torch.device) -> int:
     return _SMEM_OPTIN[index]
 
 
-def plan_program_cuda(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
-                      consts, *, n_regs, rounds=1, const_stride=0):
+def plan_program_cuda(state, ctl, *, layout=None):
     """Launch the megakernel on a CUDA state.
 
     state: (n, D) int32 or uint32 (bit-cast to uint32 through the
-    launch); steps: (n_steps, 6) int32; plan_tbl: (K_total, n) int32;
-    koff/kcnt/folds/woff: (n_plans,) int32; w_flat: (KW_total, n) int32
-    or None; consts: (n_consts, n) int32.  Returns (n, D) in state's
-    dtype.
+    launch); ctl: the program's control tables
+    (``core.plan_program.build_control``) on the state's device; layout:
+    ``"packed"`` or ``"word"``, by default the one ``build_control``
+    chose.  Returns (n, D) in state's dtype.
     """
     if not state.is_cuda:
         raise ValueError(f"megakernel needs a CUDA state, got {state.device}")
@@ -84,31 +119,57 @@ def plan_program_cuda(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
                          f"{state.dtype}")
     if state.dim() != 2 or not state.is_contiguous():
         raise ValueError("state must be a contiguous (n, D) tensor")
+    layout = ctl["layout"] if layout is None else layout
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if layout == "packed" and ctl["blob"] is None:
+        raise ValueError("this program is not bit-sliceable: it runs in "
+                         "the word layout only")
     n, d = state.shape
-    tables = [steps, plan_tbl, koff, kcnt, folds, woff, consts]
-    if w_flat is not None:
-        tables.append(w_flat)
+    tables = [ctl[k] for k in ("phys_steps", "plan_tbl", "koff", "kcnt",
+                               "folds", "woff", "consts", "w_flat", "blob")
+              if ctl[k] is not None]
     for t in tables:
         if (t.device != state.device or t.dtype != torch.int32
                 or not t.is_contiguous()):
             raise ValueError("control tables must be contiguous int32 on "
                              "the state's device")
-    if plan_tbl.shape[1] != n or consts.shape[1] != n:
-        raise ValueError("plan and constant rows must have n entries")
+    if ctl["n"] != n:
+        raise ValueError(f"the program runs on {ctl['n']}-row states, got "
+                         f"{n}")
     out = torch.empty_like(state)
     if d == 0 or n == 0:
         return out
-    lanes = lanes_per_cta(n, n_regs, d, smem_optin(state.device))
     lib = _build.library()
-    err = lib.pp_megakernel(
-        state.data_ptr(), out.data_ptr(), steps.data_ptr(), steps.shape[0],
-        plan_tbl.data_ptr(), koff.data_ptr(), kcnt.data_ptr(),
-        folds.data_ptr(), None if w_flat is None else w_flat.data_ptr(),
-        woff.data_ptr(), consts.data_ptr(), n, d, n_regs, rounds,
-        const_stride, lanes, _build.stream_handle(state.device))
+    stream = _build.stream_handle(state.device)
+    if layout == "packed":
+        chunk = packed_chunk(n, ctl["n_phys"], ctl["blob_words"],
+                             smem_optin(state.device))
+        steps = ctl["packed_steps"]
+        err = lib.pp_packed(
+            state.data_ptr(), out.data_ptr(), steps.ctypes.data,
+            steps.shape[0], ctl["blob"].data_ptr(), ctl["blob_words"],
+            ctl["off_cbits"], ctl["n_steps"], ctl["period"], n, d,
+            ctl["n_phys"], ctl["rounds"], ctl["const_stride"],
+            ctl["out_reg"], packed_threads(n), chunk,
+            int(d % 4 == 0 and state.data_ptr() % 16 == 0), stream)
+    else:
+        lanes = lanes_per_cta(n, ctl["n_phys"] - 1, d,
+                              smem_optin(state.device))
+        w_flat = ctl["w_flat"]
+        err = lib.pp_megakernel(
+            state.data_ptr(), out.data_ptr(), ctl["phys_steps"].data_ptr(),
+            ctl["n_steps"], ctl["period"], ctl["plan_tbl"].data_ptr(),
+            ctl["koff"].data_ptr(), ctl["kcnt"].data_ptr(),
+            ctl["folds"].data_ptr(),
+            None if w_flat is None else w_flat.data_ptr(),
+            ctl["woff"].data_ptr(), ctl["consts"].data_ptr(), n, d,
+            ctl["n_phys"], ctl["rounds"], ctl["const_stride"],
+            lanes.bit_length() - 1, ctl["out_reg"], stream)
     with _LOCK:
         LAUNCHES["plan_program"] += 1
+        LAYOUT_LAUNCHES[layout] += 1
     if err != 0:
-        raise KernelLaunchError(f"plan_program launch failed: cudaError "
-                                f"{err}")
+        raise KernelLaunchError(f"plan_program launch failed ({layout} "
+                                f"layout): cudaError {err}")
     return out

@@ -8,8 +8,9 @@ select) order), bf16 payloads against bf16-rounded weights, merge by
 coverage and the GF(2) parity fold; the sparse crossbar over the same
 schedule, leaving unvisited output tiles unwritten; the plan-program
 VM as a Python loop over rounds and steps in wrapping 32-bit
-arithmetic; the MoE routing transform as a one-hot exclusive cumsum per
-group; the fused vcompress as prefix sums and a row copy.  The kernel
+arithmetic, and its packed layout bit-sliced on the kernel's tables;
+the MoE routing transform as a one-hot exclusive cumsum per group; the
+fused vcompress as prefix sums and a row copy.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
 the kernels against them.
 """
@@ -226,6 +227,68 @@ def plan_program_vm(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
                     val = (av == k).to(torch.int64)
             regs[dst] = val
     return _from_u32(regs[0], state.dtype)
+
+
+def plan_program_packed(state, ctl):
+    """Plain bit-sliced emulation of the packed megakernel layout, on the
+    kernel's own control: bit 0 of 32 lanes a word (int64 carriers), the
+    renamed step table (8 ints a step: opcode, the registers' word
+    offsets, the plan's row offset and selects, the const row, the
+    barrier flag), PERMUTE as the XOR of the gathered words (16-bit plan
+    rows, n = no source: the register's zero pad row), XOR/AND/ANDN
+    word-wise, XOR_CONST against 0 or ~0 a row from the constant bits;
+    out, each lane's bit as 0/1.  For tests and ``chip_smoke.py``: the
+    port runs the plain VM (``plan_program_vm``) on CPU states."""
+    from repro_torch.kernels.plan_program_kernel import OPCODES
+
+    if ctl["blob"] is None:
+        raise ValueError("this program is not bit-sliceable")
+    n, d = state.shape
+    blob = ctl["blob"].cpu()
+    off_cbits = ctl["off_cbits"]
+    period, n_steps = ctl["period"], ctl["n_steps"]
+    rows = ctl["packed_steps"].tolist()
+    plan = blob[:off_cbits].view(torch.int16).to(torch.int64)
+    stride = n + 1                  # a register's words: n rows, a zero pad
+    cw = -(-n // 32)
+    cbits = blob[off_cbits:off_cbits + ctl["consts"].shape[0] * cw].reshape(
+        -1, cw).to(torch.int64) & _MASK32
+    nw = -(-d // 32)
+    shifts = torch.arange(32, dtype=torch.int64)
+    bits = torch.zeros((n, nw * 32), dtype=torch.int64)
+    bits[:, :d] = _to_u32(state.cpu()) & 1
+    regs = [(bits.reshape(n, nw, 32) << shifts).sum(-1)]
+    regs += [torch.zeros_like(regs[0]) for _ in range(ctl["n_phys"] - 1)]
+    r_idx = torch.arange(n)
+    for rnd in range(ctl["rounds"]):
+        for code, dst, a, b, poff, cnt, c, _ in rows[
+                (rnd % period) * n_steps:(rnd % period + 1) * n_steps]:
+            op = OPCODES[code]
+            dst, a, b = dst // stride, a // stride, b // stride
+            av = regs[a]
+            if op == "permute":
+                val = torch.zeros_like(av)
+                for j in range(cnt):
+                    src = plan[poff + j * n:poff + (j + 1) * n]
+                    g = av[src.clamp(max=n - 1)]      # n: the pad row, 0
+                    val = val ^ torch.where((src < n)[:, None], g,
+                                            torch.zeros_like(g))
+            elif op == "xor":
+                val = av ^ regs[b]
+            elif op == "and":
+                val = av & regs[b]
+            elif op == "andn":
+                val = (av ^ _MASK32) & regs[b]
+            elif op == "xor_const":
+                row = cbits[c + rnd * ctl["const_stride"]]
+                val = av ^ (((row[r_idx >> 5] >> (r_idx & 31)) & 1)
+                            * _MASK32)[:, None]
+            else:
+                raise ValueError(f"{op} has no packed form")
+            regs[dst] = val
+    out = ((regs[ctl["out_reg"]][:, :, None] >> shifts) & 1).reshape(
+        n, nw * 32)[:, :d]
+    return _from_u32(out, state.dtype).to(state.device)
 
 
 def moe_route_transform(ids, *, num_experts, capacity):

@@ -182,6 +182,120 @@ def test_fused_vcompress_kernel_matches_plain_version(dev):
                             ref.fused_vcompress(m, x, tail=tail))
 
 
+def _all_opcode_program(dev, n=256):
+    """Every opcode over 3 rounds: a weighted ADD plan, a GF(2) plan run in
+    place, per-round strided constants (word layout only)."""
+    from repro_torch.core import crossbar as txb
+    from repro_torch.core import plan_program as pp
+    from repro_torch.core.semiring import GF2
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a.astype(np.int32), device=dev)
+
+    b = pp.ProgramBuilder("all_ops", n, n_regs=4)
+    rot = b.add_const_rows(rng.integers(0, 32, (3, n)))
+    xc = b.add_const_rows(rng.integers(-2**31, 2**31, (3, n)))
+    eqc = b.add_const_rows(rng.integers(0, 3, (3, n)))
+    src3 = t(rng.integers(-4, n + 4, (n, 3)))
+    b.permute(1, 0, txb.gather_plan(t(rng.permutation(n)), n))
+    b.permute(2, 1, txb.gather_plan(src3, n, weights=t(
+        rng.integers(-9, 9, (n, 3))).float()))
+    b.xor(3, 3, 1)
+    b.permute(3, 3, txb.gather_plan(src3, n, semiring=GF2))
+    b.eq_const_at(3, 3, eqc)
+    b.and_(1, 1, 2)
+    b.andn(2, 3, 0)
+    b.add(0, 0, 2)
+    b.rotlv_at(0, 0, rot)
+    b.xor_const_at(0, 0, xc)
+    b.add(0, 0, 1)
+    return b.build(rounds=3, const_stride=1)
+
+
+def _vm(state, ctl):
+    from repro_torch.core import plan_program as pp
+    from repro_torch.kernels import ref
+    return ref.plan_program_vm(state, *pp.vm_operands(ctl),
+                               n_regs=ctl["n_regs"], rounds=ctl["rounds"],
+                               const_stride=ctl["const_stride"])
+
+
+@pytest.mark.parametrize("kind", ["bits", "int32"])
+@pytest.mark.parametrize("d", [1, 31, 33, 1000, 1024])
+def test_packed_megakernel_matches_plain_vm(dev, d, kind):
+    """Keccak-f[1600] on 32 lanes a word against the plain VM and the
+    packed layout's plain emulation, bit-exact; int32 states carry high
+    bits that the program never reads."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import keccak
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import ref, reset_launch_counts
+    rng = np.random.default_rng(d)
+    s = torch.as_tensor((rng.integers(0, 2, (1600, d)) if kind == "bits"
+                         else rng.integers(-2**31, 2**31, (1600, d))).astype(
+        np.int32), device=dev)
+    reset_launch_counts()
+    got = keccak.keccak_f1600(s.T.contiguous(), backend="megakernel").T
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 1, "word": 0}
+    ctl = pp.control_for(keccak.megakernel_program(dev), dev)
+    assert ctl["layout"] == "packed"
+    assert_bitexact(got, _vm(s, ctl))
+    assert_bitexact(ppk.plan_program_cuda(s, ctl), _vm(s, ctl))
+    assert_bitexact(got, ref.plan_program_packed(s, ctl))
+
+
+@pytest.mark.parametrize("case", ["keccak", "all_opcodes"])
+def test_word_layout_matches_plain_vm(dev, case):
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import keccak
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import reset_launch_counts
+    rng = np.random.default_rng(9)
+    if case == "keccak":
+        prog = keccak.megakernel_program(dev)
+        s = torch.as_tensor(rng.integers(-2**31, 2**31, (1600, 1000)).astype(
+            np.int32), device=dev)
+    else:
+        prog = _all_opcode_program(dev)
+        s = torch.as_tensor(rng.integers(0, 2**32, (256, 77), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32),
+                            device=dev).view(torch.uint32)
+    ctl = pp.control_for(prog, dev)
+    reset_launch_counts()
+    got = ppk.plan_program_cuda(s, ctl, layout="word")
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1}
+    assert_bitexact(got.view(torch.int32), _vm(s, ctl).view(torch.int32))
+    if case == "all_opcodes":
+        assert ctl["layout"] == "word"
+        assert_bitexact(pp.run_program(prog, s).view(torch.int32),
+                        got.view(torch.int32))
+        assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 2}
+
+
+@pytest.mark.parametrize("n", [1, 31, 2048, 5000, 100000])
+def test_fused_vcompress_edge_cases(dev, n):
+    """One kernel a call, bit-exact against the plain version: random,
+    all-0 and all-1 masks, bool and int8, 7 float32 and 4100 bf16 a row,
+    both tails."""
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.kernels.fused_compress import fused_vcompress_cuda
+    rng = np.random.default_rng(n)
+    reset_launch_counts()
+    calls = 0
+    for dt, d in ((torch.float32, 7), (torch.bfloat16, 4100)):
+        x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
+                            device=dev).to(dt)
+        for sel in (rng.random(n) < 0.5, np.zeros(n, bool), np.ones(n, bool)):
+            for mdt in (torch.bool, torch.int8):
+                m = torch.as_tensor(sel, device=dev).to(mdt)
+                for tail in ("zero", "bijective"):
+                    assert_bitexact(fused_vcompress_cuda(m, x, tail=tail),
+                                    ref.fused_vcompress(m, x, tail=tail))
+                    calls += 1
+    assert launch_counts()["fused_vcompress"] == calls
+
+
 def test_moe_layer_and_greedy_serving_match_the_cpu(dev):
     import dataclasses
     from repro_torch.configs import phi3_5_moe

@@ -110,3 +110,59 @@ def test_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="CUDA"):
         fused_vcompress_cuda(torch.ones(4, dtype=torch.bool), x)
     assert launch_counts()["fused_vcompress"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 31, 2048, 5000])
+def test_launch_geometry(n):
+    """Rows split into whole CTAs of a multiple of 16 rows, at most two
+    CTAs an SM, capped for narrow rows at row_bytes / mask bytes (each CTA
+    reads the whole mask); vectors as wide as the pitch and addresses
+    allow, 1-32 lanes a row."""
+    from repro_torch.kernels import fused_compress as fck
+    sms = 132
+    for row_bytes, align, mask_bytes, vec, lanes in (
+            (8192, 256, 1, 16, 32),     # (N, 4096) bf16: 512 vectors a row
+            (28, 256, 1, 4, 8),         # 7 float32: 7 words
+            (28, 256, 8, 4, 8),         # ... under an int64 mask
+            (8200, 256 + 8, 1, 8, 32),  # 4100 bf16, 8-byte aligned
+            (3, 1, 4, 1, 4)):           # 3 int8, an odd address
+        geo = fck.launch_geometry(n, row_bytes, mask_bytes, align, sms)
+        per, grid = geo["rows_per_cta"], geo["grid"]
+        assert per % fck.ROW_ALIGN == 0
+        assert (grid - 1) * per < n <= grid * per
+        assert grid <= max(1, min(fck.CTAS_PER_SM * sms,
+                                  row_bytes // mask_bytes))
+        assert (geo["vec_bytes"], 1 << geo["lpr_log2"]) == (vec, lanes)
+    wide = fck.launch_geometry(n, 8192, 1, 256, sms)
+    # 16 rows a CTA up to 264 CTAs (4224 rows), then 32 rows a CTA
+    assert wide["grid"] == (-(-n // 16) if n <= 4224 else -(-n // 32))
+    narrow = fck.launch_geometry(n, 3, 1, 1, sms)
+    assert narrow["grid"] <= 3                  # 3-byte rows: 3 CTAs at most
+
+
+@pytest.mark.parametrize("dtype", ["bool", "int8", "uint8", "int16", "int32",
+                                   "int64", "float16", "bfloat16", "float32",
+                                   "float64", "complex64"])
+def test_mask_reaches_the_kernel_in_its_own_dtype(dtype):
+    """Bool, integer and floating masks go to the kernel as they are (no
+    cast kernel): the kernel tests an element's bits under ``keep`` —
+    every bit for integers, all but the sign bit for floats, so -0.0 does
+    not select.  Complex masks are compared with 0 first.  The keep mask
+    applied to the raw bits here gives the plain version's selection."""
+    from repro_torch.kernels import fused_compress as fck
+    vals = torch.tensor([0, 1, 0, 3, 0, 0, 1, 2])
+    mask = vals.to(getattr(torch, dtype))
+    if mask.dtype.is_floating_point:
+        mask[0] = -0.0
+        mask[3] = -2.5
+    got, es, keep_lo, keep_hi = fck.mask_operand(mask)
+    assert (got is mask) == (dtype != "complex64")
+    assert es == got.element_size()
+    keep = (keep_hi << 32) | keep_lo
+    raw = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = got.view(raw[es]).to(torch.int64)
+    if es == 8:                 # int64 carriers: sign bit through the view
+        sel = (bits & (keep - (1 << 64) if keep >= 1 << 63 else keep)) != 0
+    else:
+        sel = (bits & (keep & ((1 << 8 * es) - 1))) != 0
+    assert torch.equal(sel, mask != 0)

@@ -84,11 +84,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         xbk.crossbar_permute_cuda(idx, torch.zeros(4, 2), mode="gather",
                                   n_out=4)
     from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.core import plan_program as tpp
+    ctl = tpp.build_control(tpp.ProgramBuilder("p", 4, n_regs=1).build(),
+                            "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        ppk.plan_program_cuda(torch.zeros(4, 2, dtype=torch.int32), *(
-            [torch.zeros(1, 6, dtype=torch.int32)] * 5), None,
-            torch.zeros(1, dtype=torch.int32),
-            torch.zeros(1, 4, dtype=torch.int32), n_regs=1)
+        ppk.plan_program_cuda(torch.zeros(4, 2, dtype=torch.int32), ctl)
     from repro_torch.kernels import moe_route
     with pytest.raises(ValueError, match="CUDA"):
         moe_route.moe_route_cuda(idx, num_experts=2, capacity=2)

@@ -135,8 +135,12 @@ def test_program_validation():
 
 def test_lanes_per_cta_derivation():
     # Keccak: 3 registers + scratch x 1600 rows x 4 B = 25.6 KB a lane.
+    # Lanes are a power of two (the word kernel finds a lane by shifts):
+    # 3 lanes of payload take a CTA of 4, one of them idle.
     assert ppk.lanes_per_cta(1600, 3, 1024, 232448) == 8
-    assert ppk.lanes_per_cta(1600, 3, 3, 232448) == 3
+    assert ppk.lanes_per_cta(1600, 3, 3, 232448) == 4
+    assert ppk.lanes_per_cta(1600, 3, 1, 232448) == 1
+    assert ppk.lanes_per_cta(64, 3, 1000, 232448) == 128
     with pytest.raises(ValueError, match="one lane"):
         ppk.lanes_per_cta(100_000, 4, 8, 232448)
 
@@ -152,3 +156,207 @@ def test_control_cache_seals_and_catches_corruption():
         with pytest.raises(integrity.IntegrityError):
             tpp.run_program(tprog, x)
     assert tpp.program_cache_info()["size"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The packed (32 lanes a word) layout: the static check, the register
+# renaming both layouts run, and the plain bit-sliced emulation
+# ---------------------------------------------------------------------------
+
+def _gf2_perm_plan(rng):
+    from repro_torch.core import crossbar as txb
+    from repro_torch.core.semiring import GF2
+    return txb.gather_plan(torch.as_tensor(
+        rng.integers(-2, N + 2, (N, 2)).astype(np.int32)), N, semiring=GF2)
+
+
+def _check_program(case):
+    """(program, layout the static check must choose) for one case."""
+    from repro_torch.core import crossbar as txb
+    from repro_torch.crypto import keccak as TK
+    if case == "keccak":
+        return TK.megakernel_program("cpu"), "packed"
+    if case == "all_opcodes":
+        return _port_of(_all_ops_jax_program()), "word"
+    rng = np.random.default_rng(5)
+    b = tpp.ProgramBuilder(case, N, n_regs=3)
+    if case == "gf2_andn_chain":        # r0 rewritten by a PERMUTE first
+        b.permute(0, 0, _gf2_perm_plan(rng))
+        b.permute(1, 0, txb.gather_plan(torch.as_tensor(
+            rng.permutation(N).astype(np.int32)), N))
+        b.andn(2, 0, 1)
+        b.and_(0, 0, 2)
+        b.xor_const(0, 0, rng.integers(0, 2, N))
+        return b.build(rounds=3), "packed"
+    if case == "input_xored_last":      # r0 ^= a clean register: tainted
+        b.permute(1, 0, _gf2_perm_plan(rng))
+        b.xor(0, 0, 1)
+        return b.build(), "word"
+    if case == "xor_const_2":           # a constant row with bit 1 set
+        b.permute(0, 0, _gf2_perm_plan(rng))
+        row = np.zeros(N, np.int64)
+        row[3] = 2
+        b.xor_const(0, 0, row)
+        return b.build(), "word"
+    assert case == "add_fold"           # two selects summed: carries
+    b.permute(0, 0, txb.gather_plan(torch.as_tensor(
+        rng.integers(0, N, (N, 2)).astype(np.int32)), N))
+    return b.build(), "word"
+
+
+CHECK_CASES = ["keccak", "gf2_andn_chain", "all_opcodes", "input_xored_last",
+               "xor_const_2", "add_fold"]
+
+
+@pytest.mark.parametrize("case", CHECK_CASES)
+def test_bit_sliceable_static_check(case):
+    prog, layout = _check_program(case)
+    assert tpp.bit_sliceable(prog) == (layout == "packed")
+    ctl = tpp.build_control(prog, "cpu")
+    assert ctl["layout"] == layout
+    assert (ctl["blob"] is None) == (layout == "word")
+
+
+def _run_renamed(ctl, state):
+    """Word-semantics interpreter of the renamed step table (what the word
+    kernel runs): n_phys registers, the table's round period, register 0
+    read from out_reg."""
+    from repro_torch.kernels.ref import _from_u32, _to_u32
+    mask = 0xFFFFFFFF
+    n = state.shape[0]
+    rows = ctl["phys_steps"].tolist()
+    koff, kcnt, folds, woff = (ctl[k].tolist() for k in
+                               ("koff", "kcnt", "folds", "woff"))
+    tbl = ctl["plan_tbl"].to(torch.int64)
+    wts = None if ctl["w_flat"] is None else _to_u32(ctl["w_flat"])
+    cst = _to_u32(ctl["consts"])
+    regs = [_to_u32(state)] + [torch.zeros_like(_to_u32(state))
+                               for _ in range(ctl["n_phys"] - 1)]
+    n_steps, period = ctl["n_steps"], ctl["period"]
+    for rnd in range(ctl["rounds"]):
+        for code, dst, a, b, p, c, _ in rows[(rnd % period) * n_steps:
+                                             (rnd % period + 1) * n_steps]:
+            op, av = ppk.OPCODES[code], regs[a]
+            if op == "permute":
+                assert dst != a, "renamed PERMUTE runs in place"
+                acc = torch.zeros_like(av)
+                for j in range(kcnt[p]):
+                    src = tbl[koff[p] + j]
+                    g = av[src.clamp(0, n - 1)]
+                    if woff[p] >= 0:
+                        g = (g * wts[woff[p] + j][:, None]) & mask
+                    g = torch.where(((src >= 0) & (src < n))[:, None], g, 0)
+                    acc = acc ^ (g & 1) if folds[p] else (acc + g) & mask
+                val = acc
+            elif op in ("xor", "and", "andn", "add"):
+                bv = regs[b]
+                val = {"xor": av ^ bv, "and": av & bv,
+                       "andn": (av ^ mask) & bv,
+                       "add": (av + bv) & mask}[op]
+            else:
+                k = cst[c + rnd * ctl["const_stride"]][:, None]
+                if op == "rotlv":
+                    left = torch.where(k < 32, (av << k.clamp(max=32)) & mask,
+                                       0)
+                    val = left | (av >> ((32 - k) & 31))
+                elif op == "xor_const":
+                    val = av ^ k
+                else:
+                    val = (av == k).to(torch.int64)
+            regs[dst] = val
+    return _from_u32(regs[ctl["out_reg"]], state.dtype)
+
+
+def _barrier_hazards(rows):
+    """Cross-thread hazards the barrier flags leave open: a PERMUTE reading
+    a register written since the last barrier, or a write to a register a
+    PERMUTE read since then (a thread owns the same rows in every step)."""
+    open_, written, perm_reads = [], set(), set()
+    for i, (code, dst, a, b, p, c, barrier) in enumerate(rows):
+        if barrier:
+            written, perm_reads = set(), set()
+        if (code == 0 and a in written) or dst in perm_reads:
+            open_.append(i)
+        written.add(dst)
+        if code == 0:
+            perm_reads.add(a)
+    return open_
+
+
+@pytest.mark.parametrize("case", ["keccak", "all_opcodes",
+                                  "all_opcodes_copy_back"])
+def test_register_renaming_keeps_the_program(case, monkeypatch):
+    """Both kernels run the renamed step table: an in-place PERMUTE, or a
+    write to a register a PERMUTE is still reading, goes to the free
+    register, which takes its name; barriers only where a PERMUTE crosses
+    threads (Keccak: 2 a round, the assignment back at its start after
+    each round); past the period limit an AND copies back instead."""
+    if case == "all_opcodes_copy_back":
+        monkeypatch.setattr(tpp, "_MAX_RENAME_PERIOD", 1)
+    prog, _ = _check_program(case.replace("_copy_back", ""))
+    ctl = tpp.build_control(prog, "cpu")
+    rows = ctl["phys_steps"]
+    if case == "keccak":
+        assert (ctl["period"], ctl["out_reg"], ctl["n_steps"]) == (1, 0, 6)
+        assert rows[:, 6].tolist() == [1, 1, 0, 0, 0, 0]
+    elif case == "all_opcodes":
+        assert ctl["n_steps"] == len(prog.steps)
+    else:
+        assert (ctl["period"], ctl["out_reg"]) == (1, 0)
+        assert ctl["n_steps"] == len(prog.steps) + 1     # the AND copy
+    assert rows.shape == (ctl["period"] * ctl["n_steps"], 7)
+    assert _barrier_hazards(rows.tolist()) == []
+    for phase in range(ctl["period"]):
+        assert rows[phase * ctl["n_steps"], 6] == 1     # each round's start
+    d = 3
+    x = (torch.as_tensor(np.random.default_rng(6).integers(
+        0, 2, (prog.n, d)).astype(np.int32)) if case == "keccak" else
+        torch.as_tensor(_u32_payload(6, d).view(np.int32)).view(torch.uint32))
+    want = tpp.run_program(prog, x)
+    assert_bitexact(_run_renamed(ctl, x).view(torch.int32),
+                    want.view(torch.int32))
+
+
+def test_megakernel_entry_picks_the_layout_once():
+    """``_run_megakernel`` takes the layout from the program's cached
+    control: packed for Keccak-f[1600], word for the all-opcode program;
+    a second call is a cache hit and decides nothing again."""
+    from repro_torch.crypto import keccak as TK
+    s = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 2, (2, 1600)).astype(np.int32))
+    TK.keccak_f1600(s, backend="megakernel")
+    prog = TK.megakernel_program("cpu")
+    assert tpp.control_for(prog, torch.device("cpu"))["layout"] == "packed"
+    syn = _port_of(_all_ops_jax_program())
+    x = torch.as_tensor(_u32_payload(8, 2).view(np.int32)).view(torch.uint32)
+    tpp.run_program(syn, x)
+    assert tpp.control_for(syn, "cpu")["layout"] == "word"
+    assert tpp.program_cache_info()["misses"] == 2
+
+
+def _keccak_state(kind, d, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "bits":
+        return rng.integers(0, 2, (1600, d)).astype(np.int32)
+    return rng.integers(-2**31, 2**31, (1600, d)).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["bits", "int32"])
+@pytest.mark.parametrize("d", [1, 31, 33, 64])
+def test_packed_emulation_matches_vm_and_jax_megakernel(jax_ref, d, kind):
+    """The packed layout's arithmetic (32 lanes a word, on the kernel's own
+    control blob) against the plain VM and the JAX megakernel (interpret
+    mode), bit-exact, on 0/1 states and on int32 states with high bits
+    set: the program reads bit 0 of its input only."""
+    from repro.core import plan_program as jpp
+    from repro.crypto import keccak as JK
+    from repro_torch.crypto import keccak as TK
+    from repro_torch.kernels import ref
+    s = _keccak_state(kind, d, d)
+    ctl = tpp.build_control(TK.megakernel_program("cpu"), "cpu")
+    x = torch.as_tensor(s)
+    got = ref.plan_program_packed(x, ctl)
+    assert_bitexact(got, ref.plan_program_vm(
+        x, *tpp.vm_operands(ctl), n_regs=3, rounds=24, const_stride=1))
+    assert_bitexact(got, jpp.run_program(JK.megakernel_program(),
+                                         jnp.asarray(s), backend="megakernel"))
