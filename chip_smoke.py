@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent CHECKOUT]
 
 Builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
 nvcc (into ``build/repro_torch_kernels/``) and holds each kernel against
 its plain PyTorch version at its path's shapes, the crossbars also on
 edge cases (``crossbar_cases``: ragged widths, colliding, one-launch
 and hot-row scatters, merge, GF(2)) with each call's device launches
-printed.  Then it drives each path through the entry points a user
+printed, the MoE routing kernel on each form's edges (``route_cases``)
+with one device kernel a call.  Then it drives each path through the entry points a user
 calls, with every launch counter
 set to 0 just before and read just after:
 
@@ -28,7 +29,11 @@ eager call), its plain version and, where one exists, a single PyTorch
 call computing the same function (at the MoE shapes ``index_copy_`` and
 ``embedding_bag``), the kernels' share of the prompt forward and of
 decoding, and one forward on each crossbar under ``torch.profiler``
-(device busy and idle share, the top kernels and host calls).
+(device busy and idle share, the top kernels and host calls).  The
+routing kernel is also timed at the prompt, decode, long-group and
+E = 1024 shapes beside an empty kernel on the same geometry, with its
+cluster-form alternatives (``route_timing``); ``--parent CHECKOUT``
+builds another checkout's routing kernel and times it there in turns.
 
 Any failed check raises and the run exits non-zero.  The second-to-last
 line is the ``kernels`` JSON object; the last line is the contract line
@@ -414,6 +419,137 @@ def crossbar_library_call(plan, x2):
                                     per_sample_weights=psw)), "embedding_bag"
 
 
+def route_cases(dev, rng):
+    """Edge cases of the moe_route kernel: (name, ids, experts, capacity,
+    geometry overrides for ``moe_route_cuda``).  Each form at its edges: one id
+    (warp form), 33 ids (cluster form, one CTA), 300 groups of 2 (16
+    groups a warp), one long group (65536 ids), E = 1024 (8 warps a
+    CTA; at 65536 ids 4 chunks a CTA), E = 1, capacity 0, every id -1,
+    and a forced cluster of 16."""
+    import numpy as np
+    import torch
+
+    def ids(g, tk, e):
+        return torch.as_tensor(rng.integers(-1, e + 2, (g, tk),
+                                            dtype=np.int32), device=dev)
+    return [
+        ("(1, 1) E=16 C=1", ids(1, 1, 16), 16, 1, {}),
+        ("(1, 33) E=16 C=4", ids(1, 33, 16), 16, 4, {}),
+        ("(300, 2) E=16 C=2", ids(300, 2, 16), 16, 2, {}),
+        ("(1, 65536) E=16 C=5120", ids(1, 65536, 16), 16, 5120, {}),
+        ("(1, 65536) E=1024 C=80", ids(1, 65536, 1024), 1024, 80, {}),
+        ("(2, 4096) E=1024 C=128", ids(2, 4096, 1024), 1024, 128, {}),
+        ("(2, 4096) E=1 C=3000", ids(2, 4096, 1), 1, 3000, {}),
+        ("(2, 4096) E=16 C=0", ids(2, 4096, 16), 16, 0, {}),
+        ("(2, 4096) every id -1", torch.full((2, 4096), -1,
+                                             dtype=torch.int32, device=dev),
+         16, 384, {}),
+        ("(2, 4096) E=16 C=384, cluster of 16", ids(2, 4096, 16), 16, 384,
+         dict(cluster=16)),
+    ]
+
+
+# moe_route timing shapes: (name, groups, T*K, experts, capacity); the
+# long group is S = 32768 tokens, K = 2, C = capacity_of
+ROUTE_SHAPES = (("prompt", MOE_BATCH, 2 * MOE_SEQ, 16, 384),
+                ("decode", SERVE_SLOTS, 2, 16, 2),
+                ("long", 1, 65536, 16, 5120),
+                ("prompt E=1024", MOE_BATCH, 2 * MOE_SEQ, 1024, 128))
+# cluster-form alternatives timed at the prompt and long shapes:
+# (cluster, threads), None for the default
+ROUTE_VARIANTS = {"prompt": ((1, None), (2, None), (4, None), (8, None),
+                             (8, 512), (16, 256), (16, 64)),
+                  "long": ((8, None), (16, 512), (16, 256)),
+                  "prompt E=1024": ((1, None), (4, None), (8, None),
+                                    (16, None))}
+
+
+def parent_route(parent: Path):
+    """The moe_route kernel of another checkout (``--parent``; its C
+    entry takes ids, pos, dest, groups, T*K, E, C, stream), built alone
+    with nvcc from that checkout's source beside this tree's kernel
+    build, as a callable (ids, E, C) -> (pos, dest).  Not counted: it is
+    timed beside this tree's kernel, never on a path."""
+    import ctypes
+
+    import torch
+
+    from repro_torch._device import find_nvcc
+    from repro_torch.kernels import _build
+    out = _build.build_root() / "parent_moe_route"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libparent_moe_route.so"
+    subprocess.run([find_nvcc(), *_build.NVCC_FLAGS, "-shared",
+                    str(parent / "src/repro_torch/kernels/csrc/moe_route.cu"),
+                    "-o", str(lib)], check=True, capture_output=True,
+                   timeout=600)
+    fn = ctypes.CDLL(str(lib)).moe_route
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+
+    def call(ids, e, c):
+        pos, dest = torch.empty_like(ids), torch.empty_like(ids)
+        err = fn(ids.data_ptr(), pos.data_ptr(), dest.data_ptr(),
+                 ids.shape[0], ids.shape[1], e, c,
+                 _build.stream_handle(ids.device))
+        check(err == 0, f"parent moe_route launch failed: cudaError {err}")
+        return pos, dest
+    return call
+
+
+def route_timing(dev, rng, parent):
+    """moe_route at ROUTE_SHAPES on uniform ids: device ms by graph
+    replay; an empty kernel's on the same grid, block and cluster (the
+    practical floor) and the byte bound beside it; with ``parent`` (a
+    callable from ``parent_route``) the parent's kernel in turns, parent,
+    change, change, parent, after a bit-exact check of its output; then
+    the cluster form's alternatives (ROUTE_VARIANTS)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import moe_route as mrk
+    from repro_torch.kernels import ref
+    for name, g, tk, e, c in ROUTE_SHAPES:
+        ids = torch.as_tensor(rng.integers(0, e, (g, tk), dtype=np.int32),
+                              device=dev)
+        geo = mrk.launch_geometry(g, tk, e)
+
+        def new():
+            return mrk.moe_route_cuda(ids, num_experts=e, capacity=c)
+        floor = graph_ms(lambda: mrk.floor_launch(geo, dev), 200)
+        bms, by = bound(ids.numel() * 12, 2 * ids.numel())
+        if parent is None:
+            ms = [graph_ms(new, 200)]
+            old = ""
+        else:
+            want = ref.moe_route_transform(ids, num_experts=e, capacity=c)
+            for a, b in zip(parent(ids, e, c), want):
+                check(torch.equal(a, b), f"parent moe_route {name}: not "
+                      "bit-exact")
+            p1 = graph_ms(lambda: parent(ids, e, c), 200)
+            ms = [graph_ms(new, 200), graph_ms(new, 200)]
+            p2 = graph_ms(lambda: parent(ids, e, c), 200)
+            old = f"; parent {p1:.5f}, {p2:.5f} ms (in turns)"
+        log(f"  moe_route {name} ({g}, {tk}) E={e} C={c}, {geo['form']} "
+            f"form (cluster {geo['cluster']}, {geo['threads']} threads, "
+            f"{geo['per_thread']} a thread, {geo['chunks']} chunks): "
+            f"{', '.join(f'{m:.5f}' for m in ms)} ms{old}; empty kernel on "
+            f"that geometry {floor:.5f} ms; bound {bms:.3g} ms ({by})")
+        for cl, th in ROUTE_VARIANTS.get(name, ()):
+            vgeo = mrk.launch_geometry(g, tk, e, cluster=cl, threads=th)
+            got = mrk.moe_route_cuda(ids, num_experts=e, capacity=c,
+                                     cluster=cl, threads=th)
+            want = ref.moe_route_transform(ids, num_experts=e, capacity=c)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"moe_route {name} cluster {cl} threads {th}: not "
+                  "bit-exact")
+            vms = graph_ms(lambda: mrk.moe_route_cuda(
+                ids, num_experts=e, capacity=c, cluster=cl, threads=th), 200)
+            log(f"    cluster {vgeo['cluster']}, {vgeo['threads']} threads,"
+                f" {vgeo['per_thread']} a thread, {vgeo['chunks']} chunks: "
+                f"{vms:.5f} ms (bit-exact)")
+
+
 def moe_phases(dev, rng, compare):
     """Phi-3.5-MoE at full width and 4 layers on the card.
 
@@ -753,8 +889,14 @@ def moe_phases(dev, rng, compare):
     return dict(launches=total, route_ids=ids_p, capacity=cap)
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = Path(argv[1]).resolve()
+    elif argv:
+        print("usage: chip_smoke.py [--parent CHECKOUT]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1020,6 +1162,25 @@ def main() -> int:
         for part, a, b in zip(("pos", "dest"), got, want):
             compare("moe_route", f"({g}, {t}x2) ids in [-1, {e_ + 2}), "
                     f"E={e_} C={c}: {part}", a, b)
+    # the forms' edges, from a generator of their own (the later paths
+    # draw the inputs they drew before these cases existed)
+    for name, ids, e_, c, over in route_cases(dev, np.random.default_rng(3)):
+        geo = mrk.launch_geometry(*ids.shape, e_, **over)
+        got = mrk.moe_route_cuda(ids, num_experts=e_, capacity=c, **over)
+        want = ref.moe_route_transform(ids, num_experts=e_, capacity=c)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("pos", "dest"), got, want):
+            compare("moe_route", f"{name}, {geo['form']} form (cluster "
+                    f"{geo['cluster']}, {geo['threads']} threads, "
+                    f"{geo['chunks']} chunks): {part}", a, b)
+        if name.startswith(("(300, 2)", "(1, 65536)", "(2, 4096) E=1024")):
+            work = device_work(lambda: mrk.moe_route_cuda(
+                ids, num_experts=e_, capacity=c, **over), calls=4)
+            check(len(work) == 1 and work[0][1] == 4
+                  and "route_" in work[0][0],
+                  f"moe_route {name}: device work of 4 calls {work}, not "
+                  "one kernel a call")
+            log(f"    one device kernel a call ({work[0][0][:60]})")
 
     # ------------------------------------------ fused vcompress kernel ---
     log("fused vcompress kernel vs plain version")
@@ -1261,6 +1422,7 @@ def main() -> int:
                      launches=launches["moe_route"],
                      max_abs_err=err["moe_route"], ms=ms, plain_ms=plain,
                      bound_ms=bms, bound_by=by, library_ms=None))
+    route_timing(dev, rng, None if parent is None else parent_route(parent))
 
     # fused vcompress, (2048, 4096) bf16, bijective tail; the library
     # yardstick is one index_select with the packed order computed ahead.
@@ -1348,4 +1510,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -43,7 +43,8 @@ SIGNATURES = {
     "pp_megakernel": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _I, _I, _P],
     "pp_packed": [_P, _P, _P, _I, _P] + [_I] * 13 + [_P],
-    "moe_route": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "moe_route": [_P, _P, _P] + [_I] * 12 + [_P],
+    "moe_route_floor": [_I, _I, _I, _P],
     "fused_vcompress": [_P, _I, _U, _U, _I, _P, _P] + [_I] * 7 + [_P],
 }
 RESTYPES = {"xb_scratch_ints": ctypes.c_longlong}

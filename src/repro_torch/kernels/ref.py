@@ -309,6 +309,68 @@ def moe_route_transform(ids, *, num_experts, capacity):
     return pos, dest.to(torch.int32)
 
 
+def moe_route_tiled(ids, geometry, *, num_experts, capacity):
+    """The routing transform decomposed as the kernel decomposes it on
+    ``geometry`` (``moe_route.launch_geometry``); for the tests, which
+    hold it against ``moe_route_transform`` and the TPU kernel.
+
+    Warp form: a rank among the earlier lanes of the group's segment.
+    Cluster form: each CTA's slice in chunks, each chunk's warps in rounds
+    of 32 lanes; a rank is the lane's rank in its round, plus the warp's
+    running count over its earlier rounds, the earlier warps' counts in
+    the chunk (an exclusive scan of the (warps, E) table), the earlier
+    chunks' counts (the chunk carry) and the earlier CTAs' totals (the
+    cluster exchange).  Returns (pos, dest) like ``moe_route_transform``.
+    """
+    g, tk = ids.shape
+    e = num_experts
+    valid = (ids >= 0) & (ids < e)
+    key = torch.where(valid, ids, e).long()          # bin e is not counted
+
+    def earlier_peers(x):                            # (..., L) -> (..., L)
+        n = x.shape[-1]
+        same = (x[..., :, None] == x[..., None, :]) & (x[..., None, :] < e)
+        before = torch.ones(n, n, dtype=torch.bool,
+                            device=x.device).tril(-1)
+        return (same & before).sum(-1)
+
+    if geometry["form"] == "warp":
+        seg = 1 << geometry["seg_log2"]
+        pos = earlier_peers(torch.nn.functional.pad(
+            key, (0, seg - tk), value=e))[:, :tk]
+    else:
+        c, sl = geometry["cluster"], geometry["slice"]
+        ch, r, w = (geometry["chunks"], geometry["per_thread"],
+                    geometry["threads"] // 32)
+        x = torch.nn.functional.pad(key, (0, c * sl - tk), value=e)
+        x = torch.nn.functional.pad(x.reshape(g, c, sl),
+                                    (0, ch * w * r * 32 - sl), value=e)
+        x = x.reshape(g, c, ch, w, r, 32)
+        local = earlier_peers(x)                     # rank in the round
+        hist = torch.zeros((g, c, ch, w, e + 1), dtype=torch.long,
+                           device=ids.device)
+        for j in range(r):                           # the warp's rounds
+            local[..., j, :] += hist.gather(-1, x[..., j, :])
+            hist.scatter_add_(-1, x[..., j, :], torch.ones_like(x[..., j, :]))
+        earlier_warps = hist.cumsum(3) - hist
+        chunk_tot = hist.sum(3)
+        carry = chunk_tot.cumsum(2) - chunk_tot
+        cta_tot = chunk_tot.sum(2)
+        base = cta_tot.cumsum(1) - cta_tot
+        flat = x.reshape(g, c, ch, w, r * 32)
+        local = (local.reshape(g, c, ch, w, r * 32)
+                 + earlier_warps.gather(-1, flat)
+                 + carry.gather(-1, flat.reshape(g, c, ch, -1)).reshape(
+                     flat.shape)
+                 + base.gather(-1, flat.reshape(g, c, -1)).reshape(
+                     flat.shape))
+        pos = local.reshape(g, c, -1)[:, :, :sl].reshape(g, -1)[:, :tk]
+    pos = torch.where(valid, pos, 0).to(torch.int32)
+    dest = torch.where(valid & (pos < capacity),
+                       ids.to(torch.int64) * capacity + pos, -1)
+    return pos, dest.to(torch.int32)
+
+
 def fused_vcompress(mask, x, *, tail="zero"):
     """Plain fused vcompress: ``out[dest[i]] = x[i]``, with the tail rows
     (unselected) zeroed for ``tail="zero"``."""

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_moe_route import ROUTE_CASES, route_capacities, route_ids
 from test_torch_support import (BF16_TOL, F32_TOL,  # noqa: F401
                                 assert_bitexact, assert_close,
                                 reset_torch_state)
@@ -161,6 +162,31 @@ def test_moe_route_kernel_matches_plain_version(dev):
                                                      capacity=c)):
             assert_bitexact(got, want)
     assert launch_counts()["moe_route"] == 3
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES + [
+    (1, 32768, 2, 16, None, None, "mixed"),     # one long group
+    (1, 32768, 2, 1024, None, None, "mixed"),   # 4 chunks a CTA
+    (1, 2048, 2, 16, 16, 1024, "mixed"),        # 16 CTAs of 1024 threads
+], ids=lambda c: "-".join(map(str, c)))
+def test_moe_route_kernel_cases(dev, case):
+    """The routing kernel on each geometry of the CPU decomposition tests
+    (``tests/test_torch_moe_route.py``), bit-exact against the plain
+    version; one launch a call."""
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.kernels import moe_route as mrk
+    g, t, k, e, cluster, threads, _ = case
+    ids = torch.as_tensor(route_ids(case, seed=g + t + e), device=dev)
+    reset_launch_counts()
+    caps = route_capacities(case)
+    for cap in caps:
+        got = mrk.moe_route_cuda(ids, num_experts=e, capacity=cap,
+                                 cluster=cluster, threads=threads)
+        for a, b in zip(got, ref.moe_route_transform(ids, num_experts=e,
+                                                     capacity=cap)):
+            assert_bitexact(a, b)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_route"] == len(caps)
 
 
 def test_fused_vcompress_kernel_matches_plain_version(dev):
