@@ -22,7 +22,14 @@ set to 0 just before and read just after:
   backend's layer input (dispatch bit-exact, combine, layer outputs and
   logits within the bf16 tolerance), then the counted prompt forward
   (2 x 2048 tokens) on the tile-skipping and the dense crossbar, and
-  ``ServingEngine.generate`` answering 8 requests greedy and sampled.
+  ``ServingEngine.generate`` answering 8 requests greedy and sampled;
+* ChaCha20 over 1 MiB of keystream as one word-layout megakernel launch
+  a call (``chacha_phase``), against the plain VM, RFC 8439, a
+  plain-Python oracle and the per-round einsum path;
+* AES-128-CTR over 1 MiB on the dense and tile-skipping crossbars
+  (``aes_phase``): the S-box, lifted ShiftRows∘MixColumns and ShiftRows
+  passes against the kernels' plain versions, 20 passes a call, SP
+  800-38A and FIPS-197 fused and chained.
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
@@ -889,6 +896,331 @@ def moe_phases(dev, rng, compare):
     return dict(launches=total, route_ids=ids_p, capacity=cap)
 
 
+# ChaCha20: RFC 8439 §2.3.2's key, nonce and first block; 1 MiB of
+# keystream is 16384 blocks.
+CHACHA_KEY = bytes(range(32))
+CHACHA_NONCE = bytes.fromhex("000000090000004a00000000")
+CHACHA_BLOCK1 = bytes.fromhex(
+    "10f1e7e4d13b5915500fdd1fa32071c4c7d1f4c733c068030422aa9ac3d46c4e"
+    "d2826446079faa0914c2d705d98b02a2b5129cd1de164eb9cbd083e8a2503c4e")
+CHACHA_BLOCKS = 16384
+# word-layout lanes a CTA timed beside the default (1024: what fits)
+CHACHA_LANES = (16, 32, 64, 128, 256, 512, 1024)
+
+# AES-128: FIPS-197 Appendix B and C.1 (key, plaintext, ciphertext), NIST
+# SP 800-38A F.5.1 (CTR-AES128); 1 MiB is 65536 counter blocks.
+AES_FIPS = ((bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c"),
+             bytes.fromhex("3243f6a8885a308d313198a2e0370734"),
+             bytes.fromhex("3925841d02dc09fbdc118597196a0b32")),
+            (bytes.fromhex("000102030405060708090a0b0c0d0e0f"),
+             bytes.fromhex("00112233445566778899aabbccddeeff"),
+             bytes.fromhex("69c4e0d86a7b0430d8cdb78070b4c55a")))
+CTR_KEY = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
+CTR_IV = bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff")
+CTR_PLAIN = bytes.fromhex(
+    "6bc1bee22e409f96e93d7e117393172a" "ae2d8a571e03ac9c9eb76fac45af8e51"
+    "30c81c46a35ce411e5fbc1191a0a52ef" "f69f2445df4f9b17ad2b417be66c3710")
+CTR_CIPHER = bytes.fromhex(
+    "874d6191b620e3261bef6864990db6ce" "9806f66b7970fdff8617187bb9fffdff"
+    "5ae4df3edbd5d35e5b4f09020db03eab" "1e031dda2fbe03d1792170a0f3009cee")
+AES_BLOCKS = 65536
+
+
+def chacha_block_oracle(key: bytes, counter: int, nonce: bytes) -> bytes:
+    """RFC 8439 §2.3 in plain Python: quarter-rounds on ints."""
+    import struct
+
+    def qr(s, a, b, c, d):
+        for x, y, z, r in ((a, b, d, 16), (c, d, b, 12), (a, b, d, 8),
+                           (c, d, b, 7)):
+            s[x] = (s[x] + s[y]) & 0xFFFFFFFF
+            v = s[z] ^ s[x]
+            s[z] = ((v << r) & 0xFFFFFFFF) | (v >> (32 - r))
+
+    s = (list(struct.unpack("<4I", b"expand 32-byte k"))
+         + list(struct.unpack("<8I", key)) + [counter & 0xFFFFFFFF]
+         + list(struct.unpack("<3I", nonce)))
+    w = s[:]
+    for _ in range(10):
+        for q in ((0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14),
+                  (3, 7, 11, 15), (0, 5, 10, 15), (1, 6, 11, 12),
+                  (2, 7, 8, 13), (3, 4, 9, 14)):
+            qr(w, *q)
+    return struct.pack("<16I", *[(a + b) & 0xFFFFFFFF
+                                 for a, b in zip(w, s)])
+
+
+def chacha_phase(dev, compare):
+    """ChaCha20 over 1 MiB of keystream through the megakernel's word
+    layout: the kernel against the plain VM on the program's control (at
+    the default lanes a CTA and the alternatives timed), then the counted
+    path — ``chacha20_blocks(backend="megakernel")`` under the
+    fixed-latency contract (1 launch, 0 passes a call), against RFC 8439,
+    the plain-Python oracle and the per-round einsum path in both batch
+    modes — then the kernel's device time, the call's host time and the
+    bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import plan_program as pp
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import chacha as CC
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.kernels import plan_program_kernel as ppk
+
+    n = CHACHA_BLOCKS
+    log(f"chacha20, {n} blocks ({64 * n} bytes of keystream), megakernel "
+        "word layout")
+    prog = CC.megakernel_program(dev)
+    ctl = pp.control_for(prog, dev)
+    check(ctl["layout"] == "word" and not pp.bit_sliceable(prog),
+          f"chacha20 program takes the {ctl['layout']} layout")
+    lanes = ppk.lanes_per_cta(prog.n, prog.n_regs, n, ppk.smem_optin(dev),
+                              sms=ppk.sm_count(dev))
+    log(f"  program: {len(prog.steps)} steps a double round x "
+        f"{prog.rounds}, n_regs {prog.n_regs} (+1 staging), renaming "
+        f"period {ctl['period']} rounds, "
+        f"{int(ctl['phys_steps'][:, 6].sum())} barriers a period; "
+        f"{lanes} lanes a CTA -> {-(-n // lanes)} CTAs of "
+        f"{ppk.word_threads(prog.n, lanes)} threads")
+    host = CC._setup_states(CHACHA_KEY, 1, CHACHA_NONCE, n).view(np.int32)
+    words = torch.as_tensor(np.ascontiguousarray(host.T),
+                            device=dev).view(torch.uint32)
+
+    def vm(state):
+        return ref.plan_program_vm(state, *pp.vm_operands(ctl),
+                                   n_regs=ctl["n_regs"],
+                                   rounds=ctl["rounds"],
+                                   const_stride=ctl["const_stride"])
+
+    want = vm(words).view(torch.int32)
+    for l_ in (None,) + CHACHA_LANES:
+        got = ppk.plan_program_cuda(words, ctl, lanes=l_)
+        torch.cuda.synchronize()
+        compare("plan_program", f"chacha20 program, word layout, {n} lanes"
+                f" ({l_ or lanes} a CTA)", got.view(torch.int32), want)
+
+    log("  counted path (launch counters from 0)")
+    reset_launch_counts()
+    with telemetry.delta() as d:
+        mk = CC.chacha20_blocks(CHACHA_KEY, 1, CHACHA_NONCE, n,
+                                backend="megakernel", fixed_latency=True,
+                                device=dev)
+        mk_next = CC.chacha20_blocks(CHACHA_KEY, 1 + n, CHACHA_NONCE, n,
+                                     backend="megakernel",
+                                     fixed_latency=True, device=dev)
+    dd = d()
+    check(dd["program_launches"] == 2 and dd["apply_calls"] == 0,
+          f"chacha20 megakernel: {dd['program_launches']} launches, "
+          f"{dd['apply_calls']} passes for two calls")
+    layouts = dict(ppk.LAYOUT_LAUNCHES)
+    check(layouts == {"packed": 0, "word": 2},
+          f"chacha20 megakernel launches by layout: {layouts}")
+    check(len(mk) == 64 * n and mk[:64] == CHACHA_BLOCK1,
+          "chacha20 megakernel: block 1 differs from RFC 8439 §2.3.2")
+    oracle = b"".join(chacha_block_oracle(CHACHA_KEY, c, CHACHA_NONCE)
+                      for c in (1, 2, 3))
+    check(mk[:192] == oracle and mk_next[:64] == chacha_block_oracle(
+        CHACHA_KEY, 1 + n, CHACHA_NONCE),
+        "chacha20 megakernel differs from the plain-Python oracle")
+    check(mk[-64:] == chacha_block_oracle(CHACHA_KEY, n, CHACHA_NONCE),
+          "chacha20 megakernel: last block differs from the oracle")
+    for mode in ("payload", "block_diag"):
+        with telemetry.delta() as d:
+            per_round = CC.chacha20_blocks(
+                CHACHA_KEY, 1, CHACHA_NONCE, n, backend="einsum",
+                batch_mode=mode, fixed_latency=True, device=dev)
+        check(per_round == mk, f"chacha20 einsum/{mode} != megakernel")
+        check(d()["apply_calls_einsum"] == CC.PASSES_PER_BLOCK,
+              f"chacha20 einsum/{mode}: not {CC.PASSES_PER_BLOCK} passes")
+    counts = dict(launch_counts())
+    check(counts["plan_program"] == 2, f"chacha20 path launches {counts}")
+    log(f"  chacha20_blocks x{n}: megakernel (1 launch, 0 passes a call, "
+        f"word layout) equals RFC 8439 §2.3.2, the Python oracle (blocks "
+        f"1-3, {n}, {n + 1}) and the per-round einsum path (payload and "
+        f"block_diag, {CC.PASSES_PER_BLOCK} passes); launches {counts}")
+
+    ms = graph_ms(lambda: ppk.plan_program_cuda(words, ctl), 20)
+    alt = {(l_, t_): graph_ms(lambda: ppk.plan_program_cuda(
+        words, ctl, lanes=l_, threads=t_), 20)
+        for l_ in CHACHA_LANES for t_ in (None, 1024)}
+    eager = time_ms(lambda: ppk.plan_program_cuda(words, ctl), 20)
+    plain = time_ms(lambda: vm(words), 2)
+    call_ms = [host_s(lambda: CC.chacha20_blocks(
+        CHACHA_KEY, 1, CHACHA_NONCE, n, backend="megakernel",
+        device=dev))[0] * 1e3 for _ in range(3)]
+    einsum_ms = host_s(lambda: CC.chacha20_blocks(
+        CHACHA_KEY, 1, CHACHA_NONCE, n, backend="einsum",
+        batch_mode="payload", device=dev))[0] * 1e3
+    nb = 2 * n * 64                    # states in, keystream out
+    ops_ = 2 * CC._DOUBLE_ROUNDS * 4 * 12 * n
+    bms, by = bound(nb, ops_)
+    log(f"  megakernel, chacha20 x {n} lanes (word layout, {lanes} a CTA):"
+        f" {ms:.4f} ms by graph replay [{eager:.4f} eager], "
+        f"{ms / CC._DOUBLE_ROUNDS:.5f} ms a double round; lanes a CTA "
+        "(threads: sized to the work / 1024) "
+        + ", ".join(f"{l_} ({t_ or ppk.word_threads(prog.n, l_)}): {v:.4f}"
+                    for (l_, t_), v in alt.items())
+        + f" ms; bound {bms:.6f} ms ({by}: {nb} B, {ops_} ARX operations);"
+        f" plain VM {plain:.4f} ms")
+    log(f"  chacha20_blocks x{n}, megakernel, host clock: "
+        f"{[round(t_, 3) for t_ in call_ms]} ms; per-round einsum "
+        f"{einsum_ms:.2f} ms")
+    profile_call(f"chacha20_blocks x{n}, megakernel",
+                 lambda: CC.chacha20_blocks(CHACHA_KEY, 1, CHACHA_NONCE, n,
+                                            backend="megakernel", device=dev),
+                 rows=6)
+    return counts
+
+
+def aes_phase(dev, compare):
+    """AES-128-CTR over 1 MiB on the dense and the tile-skipping crossbar.
+
+    First each kernel against its plain version on the passes the cipher
+    runs, at the call's shapes: the S-box pass (a 256-row k = 1 gather
+    over a (256, 16 x 65536) 0/1 payload), the lifted ShiftRows∘MixColumns
+    pass (128 bit rows, k = 32 selects, GF(2) fold) and ShiftRows (16 rows
+    of bytes).  Then the counted path: ``aes128_ctr_xor`` on 'kernel' and
+    'sparse' under the fixed-latency contract (20 passes a call,
+    fingerprints invariant over two payloads) against the einsum path and
+    SP 800-38A F.5.1; FIPS-197 B and C.1 encrypt and decrypt, fused (20)
+    and chained (29).  Then host-clock ms, device busy and idle share and
+    peak memory of a call on each backend, and the S-box and lifted passes'
+    device ms beside their bound and ``index_select`` on the same rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import crossbar as xb
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import aes as AE
+    from repro_torch.crypto.registry import registry
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels import crossbar_permute as xbk
+
+    b = AES_BLOCKS
+    rng = np.random.default_rng(5)
+    log(f"aes-128-ctr, {b} counter blocks ({16 * b} bytes), dense and "
+        "tile-skipping crossbars")
+    for fuse in (True, False):
+        AE._ensure_plans(False, fuse, dev)
+        AE._ensure_plans(True, fuse, dev)
+    reg = registry(dev)
+    st = torch.as_tensor(rng.integers(0, 256, (16, b), dtype=np.int32),
+                         device=dev)
+    lifted = xb.lift_gf2_8(reg["aes/shift_rows_mix_columns"])
+    check((lifted.n_out, lifted.k) == (128, 32),
+          f"lifted round plan is ({lifted.n_out}, k={lifted.k})")
+    live = int(((lifted.idx >= 0) & (lifted.idx < lifted.n_in)).sum())
+    shifts = torch.arange(8, dtype=torch.int32, device=dev)
+    bits = ((st[:, None, :] >> shifts[None, :, None]) & 1).reshape(128, b)
+    passes = ((f"S-box, (256, 16 x {b}) one-hot int32", reg["aes/sbox"],
+               AE._onehot_encode(st).reshape(256, -1)),
+              (f"lifted ShiftRows∘MixColumns, k=32 ({live} live selects), "
+               f"GF(2) fold, (128, {b}) bits", lifted, bits),
+              (f"ShiftRows, (16, {b}) bytes", reg["aes/shift_rows"], st))
+    for name, plan, x in passes:
+        idxp, xf, kw = ops.dense_operands(plan, x)
+        got = xbk.crossbar_permute_cuda(idxp, xf, **kw)
+        compare("crossbar_dense", f"dense {name}", got,
+                ref.crossbar_dense(idxp, xf, **kw))
+        n_dense = xbk.DEVICE_LAUNCHES["crossbar_dense"]
+        args, kws = ops.sparse_operands(plan, x)
+        kws["out"].fill_(-7.0)
+        kw_p = dict(kws, out=kws["out"].clone())
+        got = xbk.crossbar_permute_sparse_cuda(*args, **kws)
+        compare("crossbar_sparse", f"tile-skipping {name}", got,
+                ref.crossbar_sparse(*args, **kw_p))
+        log(f"    device launches a call: dense {n_dense}, tile-skipping "
+            f"{xbk.DEVICE_LAUNCHES['crossbar_sparse']}")
+        del got, args, kws, kw_p, idxp, xf
+    torch.cuda.synchronize()
+
+    data = bytes(rng.integers(0, 256, 16 * b, dtype=np.uint8))
+    data2 = bytes(rng.integers(0, 256, 16 * b, dtype=np.uint8))
+    want = AE.aes128_ctr_xor(CTR_KEY, CTR_IV, data, backend="einsum",
+                             device=dev)
+    check(want[:64] == bytes(x ^ y for x, y in zip(
+        data[:64], AE.aes128_ctr_xor(CTR_KEY, CTR_IV, bytes(64),
+                                     backend="reference", device=dev))),
+          "aes ctr einsum keystream differs from the reference backend")
+    log("  counted path (launch counters from 0)")
+    reset_launch_counts()
+    for backend in ("kernel", "sparse"):
+        for payload in (data, data2):
+            with telemetry.delta() as d:
+                got = AE.aes128_ctr_xor(CTR_KEY, CTR_IV, payload,
+                                        backend=backend, fixed_latency=True,
+                                        device=dev)
+            check(d()[f"apply_calls_{backend}"] == 20,
+                  f"aes ctr on {backend}: not 20 passes a call")
+            if payload is data:
+                check(got == want, f"aes ctr 1 MiB on {backend} != einsum")
+            else:
+                check(AE.aes128_ctr_xor(CTR_KEY, CTR_IV, got,
+                                        backend=backend, device=dev)
+                      == payload, f"aes ctr on {backend} does not invert")
+        check(AE.aes128_ctr_xor(CTR_KEY, CTR_IV, CTR_PLAIN, backend=backend,
+                                device=dev) == CTR_CIPHER
+              and AE.aes128_ctr_xor(CTR_KEY, CTR_IV, CTR_CIPHER,
+                                    backend=backend, device=dev)
+              == CTR_PLAIN, f"aes ctr on {backend} != SP 800-38A F.5.1/2")
+        for fuse, n_pass in ((True, 20), (False, 29)):
+            for key, plain, cipher in AES_FIPS:
+                with telemetry.delta() as d:
+                    enc = AE.aes128_encrypt(key, plain, backend=backend,
+                                            fuse_layers=fuse,
+                                            fixed_latency=True, device=dev)
+                    dec = AE.aes128_decrypt(key, cipher, backend=backend,
+                                            fuse_layers=fuse,
+                                            fixed_latency=True, device=dev)
+                check(enc == cipher and dec == plain,
+                      f"aes on {backend} fuse={fuse} != FIPS-197")
+                check(d()[f"apply_calls_{backend}"] == 2 * n_pass,
+                      f"aes on {backend} fuse={fuse}: not {n_pass} passes")
+    counts = dict(launch_counts())
+    check(counts["crossbar_dense"] > 0 and counts["crossbar_sparse"] > 0,
+          f"aes path launches {counts}")
+    log(f"  aes128_ctr_xor 1 MiB on kernel and sparse: equal einsum, "
+        f"20 passes a call, fingerprints invariant over two payloads; "
+        f"SP 800-38A F.5.1/F.5.2 and FIPS-197 B, C.1 (fused 20, chained "
+        f"29 passes) pass; launches {counts}")
+
+    for backend in ("kernel", "sparse", "einsum"):
+        call = (lambda be=backend: AE.aes128_ctr_xor(
+            CTR_KEY, CTR_IV, data, backend=be, device=dev))
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = [host_s(call)[0] * 1e3 for _ in range(3)]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"  aes128_ctr_xor 1 MiB on {backend}, host clock: "
+            f"{[round(t_, 2) for t_ in secs]} ms; peak memory above the "
+            f"resting {peak:.3f} GiB")
+        profile_call(f"aes128_ctr_xor 1 MiB, {backend}", call, rows=6)
+
+    for name, plan, x in passes[:2]:
+        idxp, xf, kw = ops.dense_operands(plan, x)
+        args, kws = ops.sparse_operands(plan, x)
+        ms_d = graph_ms(lambda: xbk.crossbar_permute_cuda(idxp, xf, **kw),
+                        10)
+        ms_s = graph_ms(lambda: xbk.crossbar_permute_sparse_cuda(
+            *args, **kws), 10)
+        valid = (plan.idx >= 0) & (plan.idx < plan.n_in)
+        rows = plan.idx[valid].long()            # every row a select reads
+        lib = graph_ms(lambda: torch.index_select(xf, 0, rows), 10)
+        nb = plan.idx.numel() * 4 + xf.numel() * 4 + plan.n_out * \
+            xf.shape[1] * 4
+        bms, by = bound(nb, 2 * live * xf.shape[1] if plan is lifted
+                        else plan.n_out * xf.shape[1])
+        log(f"  {name}: dense {ms_d:.4f} ms, tile-skipping {ms_s:.4f} ms by "
+            f"graph replay; bound {bms:.5f} ms ({by}); index_select of the "
+            f"{rows.numel()} rows the selects read {lib:.4f} ms")
+        del idxp, xf, args, kws
+    return counts
+
+
 def main(argv) -> int:
     import torch
     parent = None
@@ -1310,6 +1642,8 @@ def main(argv) -> int:
 
     moe = moe_phases(dev, rng, compare)
     add_counts(launches, moe["launches"])
+    add_counts(launches, chacha_phase(dev, compare))
+    add_counts(launches, aes_phase(dev, compare))
     log(f"  launches over every counted path: {launches}")
 
     # ---------------------------------------------------------- timing ---
@@ -1370,6 +1704,11 @@ def main(argv) -> int:
     ms_word = graph_ms(lambda: ppk.plan_program_cuda(stT, ctl,
                                                      layout="word"), 20)
     ms_syn = graph_ms(lambda: ppk.plan_program_cuda(su, ctl_syn), 20)
+    word_alt = {l_: graph_ms(lambda: ppk.plan_program_cuda(
+        stT, ctl, layout="word", lanes=l_), 20) for l_ in (2, 4, 8)}
+    log("  megakernel, keccak_f1600 word layout at other lanes a CTA: "
+        + ", ".join(f"{k} ({ppk.word_threads(prog.n, k)} threads): {v:.4f}"
+                    for k, v in word_alt.items()) + " ms")
     # the packed layout's fixed cost (state in and out, control staged)
     # and its cost a round: the same launch with 0 and 1 rounds
     st32 = stT[:, :32].contiguous()

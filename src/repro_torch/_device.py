@@ -15,6 +15,7 @@ import os
 import shutil
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[None, str, torch.device]
@@ -41,6 +42,18 @@ def resolve(device: DeviceLike) -> torch.device:
                                "available")
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def place(x, device: DeviceLike) -> torch.Tensor:
+    """An entry point's array argument as a tensor: a tensor runs where it
+    lies (a different ``device`` asked for raises); anything else goes to
+    ``device`` (None: the card)."""
+    if isinstance(x, torch.Tensor):
+        if device is not None and resolve(device) != x.device:
+            raise ValueError(f"state lies on {x.device}, device={device!r} "
+                             "requested")
+        return x
+    return torch.as_tensor(np.asarray(x), device=resolve(device))
 
 
 @contextlib.contextmanager

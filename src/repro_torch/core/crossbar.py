@@ -28,8 +28,11 @@ Port of ``repro.core.crossbar``.  Output ``o`` receives
 
 On a CUDA payload 'kernel' and 'sparse' launch their CUDA kernels (or
 raise); on a CPU payload they run the kernels' plain versions.  Plans
-over a GF(2^k) semiring (width >= 2) need the GF(2) bit lift, which
-comes with the AES/GCM slice.
+over a scalar GF(2^k) semiring (width 2..31: AES's GF(2^8)) run on
+'einsum', 'kernel' and 'sparse' as their GF(2) bit lift (``lift_gf2_k``,
+memoised in a sealed LRU): one crossbar evaluation over width x the
+rows, payloads unpacked to bit rows around it; 'reference' keeps direct
+field arithmetic.
 """
 
 from __future__ import annotations
@@ -51,8 +54,8 @@ from repro_torch.core.semiring import REAL, Semiring
 GATHER = "gather"    # output-driven: idx[o, k] = source of output o
 SCATTER = "scatter"  # input-driven:  idx[i, k] = destination of input i
 
-_LIFT_SLICE = ("GF(2^k) plans execute through the GF(2) bit lift, which "
-               "comes with the AES/GCM slice of the port")
+_WIDE_SLICE = ("wide GF(2^k) plans (byte-limb carriers, GHASH's "
+               "GF(2^128)) come with the GCM slice of the port")
 
 
 @dataclasses.dataclass(eq=False)
@@ -461,8 +464,8 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
         raise ValueError(f"unknown backend {backend!r}")
 
     sr = plan.semiring
-    if sr.is_gf2k:
-        raise NotImplementedError(f"semiring {sr.name!r}: {_LIFT_SLICE}")
+    if sr.limbs:
+        raise NotImplementedError(f"semiring {sr.name!r}: {_WIDE_SLICE}")
     if sr.integer_carrier and not _is_int(x2):
         raise ValueError(
             f"semiring {sr.name!r} carries small integers; got payload "
@@ -473,19 +476,18 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
 
     if backend == "reference":
         out2 = _apply_reference(plan, x2)
+    elif sr.is_gf2k:
+        # The GF(2) bit lift on the chosen backend; the take lowering
+        # substitutes only for einsum — an explicitly requested kernel
+        # backend runs its kernel.
+        fast = _take_fastpath(plan, x2) if backend == "einsum" else None
+        out2 = fast if fast is not None else _apply_gf2k(plan, x2, backend)
     elif backend == "kernel":
         from repro_torch.kernels import ops as _kops
         out2 = _kops.crossbar_permute(plan, x2)
     elif backend == "sparse":
-        from repro_torch.kernels import ops as _kops
-        compiled = compile_plan(plan)
-        out2 = _kops.crossbar_permute_sparse(plan, x2, compiled=compiled)
-        # The kernel writes every row of the schedule's output tiles (the
-        # uncovered ones as zeros); rows of the other tiles hold whatever
-        # the buffer held.  Pin those to the zeros every other backend
-        # produces (merge overwrites them below anyway).
-        if merge2 is None and compiled.run_o.shape[0] < compiled.n_o_tiles:
-            out2.index_fill_(0, compiled.idle_rows, 0)
+        # merge overwrites the unwritten rows below anyway
+        out2 = _apply_sparse(plan, x2, pin_zeros=merge2 is None)
     else:
         out2 = _apply_einsum(plan, x2)
 
@@ -499,6 +501,23 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
     out = out2.reshape((n_out,) + out_trailing) if out_trailing \
         else out2[:, 0]
     return out.to(x.dtype)
+
+
+def _apply_sparse(plan: PermutePlan, x2: torch.Tensor, *,
+                  pin_zeros: bool) -> torch.Tensor:
+    """The tile-skipping kernel over the plan's compiled schedule.
+
+    The kernel writes every row of the schedule's output tiles (the
+    uncovered ones as zeros); rows of the other tiles hold whatever the
+    buffer held.  ``pin_zeros`` pins those to the zeros every other
+    backend produces.
+    """
+    from repro_torch.kernels import ops as _kops
+    compiled = compile_plan(plan)
+    out2 = _kops.crossbar_permute_sparse(plan, x2, compiled=compiled)
+    if pin_zeros and compiled.run_o.shape[0] < compiled.n_o_tiles:
+        out2.index_fill_(0, compiled.idle_rows, 0)
+    return out2
 
 
 # The take lowering of a concrete, unweighted, single-select gather (a
@@ -624,6 +643,154 @@ def _apply_reference(plan: PermutePlan, x2: torch.Tensor) -> torch.Tensor:
         bitplanes = (contrib[:, :, None] >> shifts) & 1
         acc.index_add_(0, dest.clamp(0, n_out_c).long(), bitplanes)
     out = torch.sum((acc & 1) << shifts, dim=-1)
+    return out.to(x2.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GF(2^k) execution: the GF(2) bit lift
+# ---------------------------------------------------------------------------
+#
+# Multiplication by a constant is GF(2)-linear, so a GF(2^width)-weighted
+# plan over n element rows is exactly an unweighted GF2 plan over
+# width·n bit rows: each select (o <- i, weight w) becomes, for output
+# bit b, the selects {width·i + j : bit b of w·x^j == 1} — up to width
+# bit selects per element select, DROP elsewhere.  Lifts are memoised on
+# the source plan's tensor identities (as compiled schedules are), so
+# the lifted plan and its schedule stay cache-stable across calls; each
+# cached lift is sealed and re-verified on sampled hits by LIFT_GUARD.
+
+_LIFT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_LIFT_CACHE_CAPACITY = 32
+_LIFT_STATS = {"hits": 0, "misses": 0}
+
+
+def lift_cache_info() -> dict:
+    return dict(_LIFT_STATS, size=len(_LIFT_CACHE),
+                capacity=_LIFT_CACHE_CAPACITY)
+
+
+def clear_lift_cache() -> None:
+    for key in list(_LIFT_CACHE):
+        _integrity.LIFT_GUARD.drop(key)
+    _LIFT_CACHE.clear()
+    _LIFT_STATS.update(hits=0, misses=0)
+
+
+def lift_gf2_k(plan: PermutePlan) -> PermutePlan:
+    """The GF(2) bit-level plan equivalent to a GF(2^width) plan.
+
+    Each select ``(o <- i, weight w)`` becomes, for output bit ``b``, the
+    selects ``{width·i + j : M_w[b, j] = 1}``, ``M_w`` the constant's bit
+    matrix assembled from ``semiring.gf2k_tile_table`` (``M_w[b, j] =
+    XOR_t E[limb_t, b, j + 8t]``).  The lift keeps the plan's mode: a
+    scatter lifts to a scatter (input bit ``width·i+j`` lands on output
+    bits ``{width·o+b : M_w[b,j]=1}``), which accumulates colliding
+    destinations exactly (XOR is per-bit parity).
+    """
+    sr = plan.semiring
+    if not sr.is_gf2k:
+        raise ValueError(f"lift_gf2_k needs a GF(2^k) plan (width >= 2), "
+                         f"got {sr.name!r}")
+    if sr.limbs:
+        raise NotImplementedError(f"semiring {sr.name!r}: {_WIDE_SLICE}")
+    width = sr.width
+    # The semiring name is part of the key: two plans sharing the same
+    # tensors under different widths must never collide.
+    key = (plan.mode, plan.n_in, plan.n_out, sr.name, id(plan.idx),
+           id(plan.weights) if plan.weights is not None else None)
+    hit = _LIFT_CACHE.get(key)
+    if hit is not None and hit[1] is plan.idx and hit[2] is plan.weights:
+        # The key names the source tensors, so a flipped bit in the
+        # lifted idx keeps hitting this entry: the sampled digest check
+        # is what catches it.
+        lifted_hit = hit[0]
+        _integrity.LIFT_GUARD.verify(
+            key, lambda: (lifted_hit.idx, lifted_hit.weights),
+            evict=lambda: _LIFT_CACHE.pop(key, None))
+        _LIFT_CACHE.move_to_end(key)
+        _LIFT_STATS["hits"] += 1
+        return lifted_hit
+    _LIFT_STATS["misses"] += 1
+
+    idx = plan.idx                                      # (n_ctrl, k)
+    dev = idx.device
+    bound = plan.n_in if plan.mode == GATHER else plan.n_out
+    valid = (idx >= 0) & (idx < bound)
+    n_tiles = (width + 7) // 8
+    if plan.weights is None:
+        limbs = [torch.full(idx.shape, 1 if t == 0 else 0,
+                            dtype=torch.int64, device=dev)
+                 for t in range(n_tiles)]
+    else:
+        w = plan.weights.to(torch.int64) & sr.carrier_mask
+        limbs = [(w >> (8 * t)) & 0xFF for t in range(n_tiles)]
+    table = torch.as_tensor(sr_mod.gf2k_tile_table(width, sr.poly),
+                            device=dev)
+    m = None                                   # (n_ctrl, k, width b, width j)
+    for t in range(n_tiles):
+        mt = table[limbs[t]][..., 8 * t: 8 * t + width]
+        m = mt if m is None else m ^ mt
+    keep = valid[:, :, None, None] & (m != 0)
+    safe = idx.clamp(0, max(bound - 1, 0))
+    lanes = torch.arange(width, dtype=torch.int32, device=dev)
+    if plan.mode == GATHER:
+        # out bit width·o+b selects in bits {width·i+j : M[b,j]=1}.
+        src = (width * safe)[:, :, None, None] + lanes[None, None, None, :]
+        bit_idx = torch.where(keep, src, _t.DROP)       # (n_out, k, b, j)
+        bit_idx = bit_idx.permute(0, 2, 1, 3).reshape(
+            width * plan.n_out, width * plan.k)
+        lifted = gather_plan(bit_idx, width * plan.n_in, semiring=sr_mod.GF2)
+    else:
+        # in bit width·i+j lands on out bits {width·o+b : M[b,j]=1}.
+        dst = (width * safe)[:, :, None, None] + lanes[None, None, :, None]
+        bit_idx = torch.where(keep, dst, _t.DROP)       # (n_in, k, b, j)
+        bit_idx = bit_idx.permute(0, 3, 1, 2).reshape(
+            width * plan.n_in, width * plan.k)
+        lifted = scatter_plan(bit_idx, width * plan.n_out,
+                              semiring=sr_mod.GF2)
+    _integrity.LIFT_GUARD.seal(key, (lifted.idx, lifted.weights))
+    _LIFT_CACHE[key] = (lifted, plan.idx, plan.weights)
+    while len(_LIFT_CACHE) > _LIFT_CACHE_CAPACITY:
+        evicted_key, _ = _LIFT_CACHE.popitem(last=False)
+        _integrity.LIFT_GUARD.drop(evicted_key)
+    return lifted
+
+
+def lift_gf2_8(plan: PermutePlan) -> PermutePlan:
+    """The GF(2^8) entry point: the width-8 instance of ``lift_gf2_k``."""
+    if plan.semiring is not sr_mod.GF2_8:
+        raise ValueError(f"lift_gf2_8 needs a GF2_8 plan, got "
+                         f"{plan.semiring.name!r}")
+    return lift_gf2_k(plan)
+
+
+def _run_lifted(lifted: PermutePlan, bits: torch.Tensor,
+                backend: str) -> torch.Tensor:
+    """Execute a lifted GF(2) bit plan on the chosen backend; the
+    tile-skipping kernel's unwritten rows are pinned to zero from the
+    lifted plan's own schedule."""
+    if backend == "einsum":
+        return _apply_einsum(lifted, bits)
+    if backend == "kernel":
+        from repro_torch.kernels import ops as _kops
+        return _kops.crossbar_permute(lifted, bits)
+    if backend == "sparse":
+        return _apply_sparse(lifted, bits, pin_zeros=True)
+    raise ValueError(f"no GF(2^k) path for backend {backend!r}")
+
+
+def _apply_gf2k(plan: PermutePlan, x2: torch.Tensor,
+                backend: str) -> torch.Tensor:
+    """Unpack elements to LSB-first bit rows, run the lifted GF2 plan,
+    pack back."""
+    width = plan.semiring.width
+    lifted = lift_gf2_k(plan)
+    shifts = torch.arange(width, dtype=torch.int32, device=x2.device)
+    bits = (x2.to(torch.int32)[:, None, :] >> shifts[None, :, None]) & 1
+    bits = bits.reshape(width * plan.n_in, x2.shape[1])
+    out_bits = _run_lifted(lifted, bits, backend)
+    out_bits = out_bits.to(torch.int32).reshape(plan.n_out, width, -1)
+    out = torch.sum(out_bits << shifts[None, :, None], dim=1)
     return out.to(x2.dtype)
 
 

@@ -1,7 +1,8 @@
 """Corruption-aware cache integrity (port of ``repro.core.integrity``).
 
 Guarded caches of control information — pinned and LRU tile schedules,
-megakernel control tables, registry program constants — are sealed
+megakernel control tables, registry program constants, GF(2) bit lifts
+of GF(2^k) plans — are sealed
 with a content digest at insert and re-verified on sampled hits: the
 first hit of an entry and every ``sample_every``-th after it (16 by
 default).  A mismatch evicts the entry, counts an ``integrity_faults``
@@ -146,8 +147,9 @@ def _telemetry_incr(name: str) -> None:
 SCHEDULE_GUARD = CacheGuard("schedule")    # pinned + LRU tile schedules
 PROGRAM_GUARD = CacheGuard("program")      # megakernel control tables
 CONST_GUARD = CacheGuard("const")          # registry program const blocks
+LIFT_GUARD = CacheGuard("lift")            # GF(2^k) -> GF(2) lifted plans
 
-GUARDS = (SCHEDULE_GUARD, PROGRAM_GUARD, CONST_GUARD)
+GUARDS = (SCHEDULE_GUARD, PROGRAM_GUARD, CONST_GUARD, LIFT_GUARD)
 
 
 def reset() -> None:

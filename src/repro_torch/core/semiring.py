@@ -1,12 +1,14 @@
 """Weight semirings: the algebra a crossbar pass accumulates in.
 
-Port of ``repro.core.semiring`` for the slice that carries SHA-3:
-``REAL`` (multiply-add), ``GF2`` (XOR/AND; a sum of 0/1 products
-reduced mod 2 is the XOR accumulation) and ``GF2_8`` (the AES field),
-with the flags ``apply_plan`` dispatches on.  ``GF2_8`` plans can be
-built and composed here, but executing them needs the GF(2) bit lift,
-which comes with the AES/GCM slice together with the ``gf2_k`` family
-and its limb arithmetic.
+Port of ``repro.core.semiring``: ``REAL`` (multiply-add), ``GF2``
+(XOR/AND; a sum of 0/1 products reduced mod 2 is the XOR accumulation),
+``GF2_8`` (the AES field) and the scalar ``gf2_k(width, poly)`` family
+(widths 2..31, elements carried as int32), with the flags ``apply_plan``
+dispatches on.  GF(2^k) plans execute through the GF(2) bit lift
+(``core.crossbar.lift_gf2_k``), whose tables are built here on the host
+in numpy: they are control information.  The field arithmetic takes
+numpy arrays, Python ints or tensors alike.  Widths above 31 (GHASH's
+GF(2^128), carried as byte limbs) come with the GCM slice.
 
 Semirings are interned singletons: identity and ``name`` are cache-key
 material, exactly as in the reference.
@@ -15,28 +17,150 @@ material, exactly as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 AES_POLY = 0x11B
 
+# Default reduction polynomials per width (x^4 + x + 1; Rijndael;
+# x^16 + x^12 + x^3 + x + 1; GHASH's x^128 + x^7 + x^2 + x + 1).
+DEFAULT_POLYS = {
+    4: 0x13,
+    8: AES_POLY,
+    16: 0x1100B,
+    128: (1 << 128) | 0x87,
+}
 
-def gf2_8_xtime(a: torch.Tensor) -> torch.Tensor:
+_WIDE_SLICE = ("GF(2^k) widths above 31 carry elements as byte limbs, "
+               "which come with the GCM slice of the port")
+
+
+def _int32_operands(a, b):
+    """Both operands as int32 tensors when either is one (on its device),
+    else as numpy int32 arrays; and the ``where`` that fits them."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        like = a if isinstance(a, torch.Tensor) else b
+        a = torch.as_tensor(a, device=like.device).to(torch.int32)
+        b = torch.as_tensor(b, device=like.device).to(torch.int32)
+        return a, b, lambda c, v: torch.where(c, v, torch.zeros_like(v))
+    return (np.asarray(a, np.int32), np.asarray(b, np.int32),
+            lambda c, v: np.where(c, v, 0))
+
+
+def _as_int32(a):
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.int32)
+    return np.asarray(a, np.int32)
+
+
+def gf2_8_xtime(a):
     """Multiply by x (i.e. 2) in GF(2^8)."""
-    a = a.to(torch.int32)
+    a = _as_int32(a)
     return ((a << 1) ^ ((a >> 7) * (AES_POLY & 0xFF))) & 0xFF
 
 
-def gf2_8_mul(a, b) -> torch.Tensor:
-    """Elementwise GF(2^8) product via the xtime chain (8 fixed steps)."""
-    a = torch.as_tensor(a).to(torch.int32)
-    b = torch.as_tensor(b, device=a.device).to(torch.int32)
+def gf2_8_mul(a, b):
+    """Elementwise GF(2^8) product via the xtime chain (8 fixed steps).
+    Tensors, numpy arrays and Python ints; broadcasting follows the
+    operands."""
+    a, b, where = _int32_operands(a, b)
     acc = a * 0 + b * 0
     for i in range(8):
-        acc = acc ^ torch.where(((b >> i) & 1) != 0, a, torch.zeros_like(a))
+        acc = acc ^ where(((b >> i) & 1) != 0, a)
         a = gf2_8_xtime(a)
     return acc
+
+
+def gf2_8_pow(a: int, e: int) -> int:
+    """Scalar GF(2^8) exponentiation (host-side table generation)."""
+    acc, base = 1, a & 0xFF
+    while e:
+        if e & 1:
+            acc = int(gf2_8_mul(np.int32(acc), np.int32(base)))
+        base = int(gf2_8_mul(np.int32(base), np.int32(base)))
+        e >>= 1
+    return acc
+
+
+def gf2_8_inv(a: int) -> int:
+    """Multiplicative inverse in GF(2^8) (0 maps to 0, as the S-box)."""
+    return 0 if a == 0 else gf2_8_pow(a, 254)
+
+
+@functools.lru_cache(maxsize=None)
+def gf2_8_bit_matrix_table() -> np.ndarray:
+    """(256, 8, 8) int8: ``T[w, b, j]`` = bit ``b`` of ``w · 2^j``, the
+    GF(2)-linear form of multiplication by each constant."""
+    w = np.arange(256, dtype=np.int32)
+    cols = np.empty((8, 256), np.int32)
+    cur = w.copy()
+    for j in range(8):
+        cols[j] = cur
+        cur = gf2_8_xtime(cur)
+    bits = (cols[:, :, None] >> np.arange(8)) & 1      # (j, w, b)
+    return bits.transpose(1, 2, 0).astype(np.int8)     # (w, b, j)
+
+
+def _check_scalar_width(width: int) -> None:
+    if width > 31:
+        raise NotImplementedError(f"GF(2^{width}): {_WIDE_SLICE}")
+
+
+def gf2k_xtime(a, width: int, poly: int):
+    """Multiply by x in GF(2^width), scalar carriers (width <= 31)."""
+    _check_scalar_width(width)
+    mask = (1 << width) - 1
+    a = _as_int32(a)
+    return ((a << 1) ^ (((a >> (width - 1)) & 1) * (poly & mask))) & mask
+
+
+def gf2k_mul(a, b, width: int, poly: int):
+    """Elementwise GF(2^width) product, scalar carriers (width <= 31):
+    a branch-free xtime chain of ``width`` steps."""
+    _check_scalar_width(width)
+    a, b, where = _int32_operands(a, b)
+    acc = a * 0 + b * 0
+    for i in range(width):
+        acc = acc ^ where(((b >> i) & 1) != 0, a)
+        a = gf2k_xtime(a, width, poly)
+    return acc
+
+
+def gf2k_mul_int(a: int, b: int, width: int, poly: int) -> int:
+    """Exact Python-int GF(2^width) product (the host-side oracle)."""
+    mask = (1 << width) - 1
+    a &= mask
+    b &= mask
+    acc = 0
+    while b:
+        if b & 1:
+            acc ^= a
+        b >>= 1
+        a <<= 1
+        if a >> width:
+            a ^= poly
+    return acc & mask
+
+
+@functools.lru_cache(maxsize=8)
+def gf2k_tile_table(width: int, poly: int) -> np.ndarray:
+    """(256, width, width + 8·(L-1)) int8 tiled bit-lift table, L the
+    8-bit tiles of a constant: ``E[v, b, m]`` = bit ``b`` of ``v · x^m
+    mod P``.  A constant ``w = Σ_t limb_t · x^(8t)`` has the bit matrix
+    ``M_w[b, j] = XOR_t E[limb_t, b, j + 8t]``; for width 8 this is
+    ``gf2_8_bit_matrix_table``."""
+    _check_scalar_width(width)
+    limbs = max(1, (width + 7) // 8)
+    n_cols = width + 8 * (limbs - 1)
+    out = np.empty((256, width, n_cols), np.int8)
+    cur = np.arange(256, dtype=np.int32) & ((1 << width) - 1)
+    for m in range(n_cols):
+        out[:, :, m] = (cur[:, None] >> np.arange(width)) & 1
+        cur = gf2k_xtime(cur, width, poly)
+    return out
 
 
 def _xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -107,14 +231,54 @@ GF2_8 = Semiring(
 _BY_NAME = {s.name: s for s in (REAL, GF2, GF2_8)}
 
 
+@functools.lru_cache(maxsize=None)
+def gf2_k(width: int, poly: int | None = None) -> Semiring:
+    """The interned GF(2^width) semiring (default polynomial per width).
+
+    ``gf2_k(8)`` with the Rijndael polynomial is ``GF2_8`` and
+    ``gf2_k(1)`` is ``GF2``: one interning for the whole family, so
+    identity comparison and cache keys stay sound.  Widths 2..31 carry
+    elements and weights as int32 scalars.
+    """
+    if width == 1:
+        return GF2
+    if poly is None:
+        poly = DEFAULT_POLYS.get(width)
+        if poly is None:
+            raise ValueError(
+                f"no default polynomial for width {width}; pass poly=")
+    if poly >> width == 0 or poly >> (width + 1):
+        raise ValueError(f"polynomial {poly:#x} is not degree-{width}")
+    if width == 8 and poly == AES_POLY:
+        return GF2_8
+    _check_scalar_width(width)
+    sr = Semiring(
+        name=f"gf2_{width}" + (
+            "" if poly == DEFAULT_POLYS.get(width) else f"_p{poly:x}"),
+        add=torch.bitwise_xor,
+        mul=functools.partial(gf2k_mul, width=width, poly=poly),
+        zero=0, one=1, weight_dtype=torch.int32,
+        integer_carrier=True, carrier_mask=(1 << width) - 1,
+        width=width, poly=poly)
+    _BY_NAME.setdefault(sr.name, sr)
+    return sr
+
+
 def get(name: str) -> Semiring:
-    """Look a semiring up by its stable name."""
+    """Look a semiring up by its stable name; ``"gf2_<w>"`` materialises
+    the family member of width w with its default polynomial."""
     try:
         return _BY_NAME[name]
     except KeyError:
-        raise ValueError(
-            f"unknown semiring {name!r} (have {sorted(_BY_NAME)}; the "
-            "gf2_k family comes with the AES/GCM slice)") from None
+        pass
+    if name.startswith("gf2_"):
+        try:
+            width = int(name.split("_")[1])
+        except (IndexError, ValueError):
+            width = -1
+        if width > 1 and DEFAULT_POLYS.get(width) is not None:
+            return gf2_k(width)
+    raise ValueError(f"unknown semiring {name!r} (have {sorted(_BY_NAME)})")
 
 
 def join(s1: Semiring, s2: Semiring, *, neutral1: bool = False,

@@ -9,8 +9,10 @@ on first execution per (op, payload shapes, backend) and raises
 ``FixedLatencyError`` when a later call differs.  Payload values never
 enter the signature.
 
-Waiting for later slices: the drift-monitor feed (``obs``),
-``audit_constant_time`` and the host-sync audit, and ``execute``.
+``execute`` runs one pass of a registered plan, observed under the
+contract when asked.  Waiting for later slices: the drift-monitor feed
+(``obs``), ``quarantine_count``, ``audit_constant_time`` and the
+host-sync audit (ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -32,15 +34,20 @@ class FixedLatencyError(AssertionError):
 def schedule_fingerprint(plan: xb.PermutePlan, *, block_o: int = 128,
                          block_n: int = 128) -> tuple:
     """Value-level identity of a plan's compiled schedule (geometry,
-    selects, occupied-tile count) — a pinned-cache hit when steady."""
-    if plan.semiring.is_gf2k:
-        raise NotImplementedError(
-            f"semiring {plan.semiring.name!r}: the GF(2^k) bit lift "
-            "comes with the AES/GCM slice of the port")
+    selects, occupied-tile count) — a pinned-cache hit when steady.  A
+    GF(2^k) plan executes as its GF(2) bit lift, so the lifted plan's
+    schedule is pinned and fingerprinted too."""
     compiled = xb.compile_plan(plan, block_o=block_o, block_n=block_n,
                                pin=True)
-    return (plan.mode, plan.n_in, plan.n_out, plan.k, plan.semiring.name,
-            compiled.n_o_tiles, compiled.n_n_tiles, compiled.num_active)
+    fp = (plan.mode, plan.n_in, plan.n_out, plan.k, plan.semiring.name,
+          compiled.n_o_tiles, compiled.n_n_tiles, compiled.num_active)
+    if plan.semiring.is_gf2k:
+        lifted = xb.lift_gf2_k(plan)
+        lc = xb.compile_plan(lifted, block_o=block_o, block_n=block_n,
+                             pin=True)
+        fp = fp + (("lift", lifted.n_in, lifted.n_out, lifted.k,
+                    lc.n_o_tiles, lc.n_n_tiles, lc.num_active),)
+    return fp
 
 
 def program_step_fingerprint(program: pp.PlanProgram, step) -> tuple:
@@ -77,6 +84,9 @@ class StaticPlanRegistry:
         self._plans[key] = plan
         if precompile:
             xb.compile_plan(plan, pin=True)
+            if plan.semiring.is_gf2k:
+                # pin the executed (bit-lifted) schedule as well
+                xb.compile_plan(xb.lift_gf2_k(plan), pin=True)
         return plan
 
     def get_or_register(self, key: str,
@@ -98,6 +108,9 @@ class StaticPlanRegistry:
             raise KeyError(
                 f"no plan {key!r} in static registry {self.name!r} "
                 f"(registered: {sorted(self._plans)})") from None
+
+    def keys(self):
+        return self._plans.keys()
 
     def batch_variant(self, key: str, b: int) -> Tuple[xb.PermutePlan, str]:
         """The width-``b`` block-diagonal variant of a registered plan,
@@ -178,6 +191,12 @@ class StaticPlanRegistry:
                 tuple(program_step_fingerprint(program, s)
                       for s in program.steps))
 
+    def info(self) -> dict:
+        return {"name": self.name, "plans": len(self._plans),
+                "programs": len(self._programs),
+                "observed_signatures": len(self._observed),
+                "quarantines": sum(self._quarantined.values())}
+
     # -- quarantine ---------------------------------------------------------
 
     def quarantine(self, key: str) -> int:
@@ -243,3 +262,30 @@ class StaticPlanRegistry:
                 f"{self.name}:{name} violated the fixed-latency contract "
                 f"for shapes={tuple(shapes)} backend={backend!r}: first "
                 f"call signature {prev} != this call {sig}")
+
+    # -- execution ----------------------------------------------------------
+
+    def execute(self, key: str, x, *, merge=None, backend: str = "einsum",
+                out_mask=None, fixed_latency: bool = False,
+                audit_host_syncs: bool = False):
+        """One crossbar pass of a registered plan over ``x``.
+
+        With ``fixed_latency=True`` the pass is observed: exactly one
+        ``apply_plan`` call, schedule fingerprint invariant across calls
+        for this (key, payload shape/dtype, backend).
+        """
+        if audit_host_syncs:
+            raise NotImplementedError(
+                "audit_host_syncs needs telemetry.no_host_sync, which "
+                "comes with ROADMAP item 9 of the port")
+        plan = self[key]
+        if not fixed_latency:
+            return xb.apply_plan(plan, x, merge=merge, backend=backend,
+                                 out_mask=out_mask)
+        with self.observe(("execute", key),
+                          shapes=(tuple(x.shape), str(x.dtype)),
+                          backend=backend, plan_keys=(key,),
+                          expect_apply_calls=1):
+            out = xb.apply_plan(plan, x, merge=merge, backend=backend,
+                                out_mask=out_mask)
+        return out

@@ -46,6 +46,7 @@ def snapshot() -> dict:
         plan_info = pa.plan_cache_info()
         by_backend = xb.apply_calls_by_backend()
         program_info = pp.program_cache_info()
+        lift_info = xb.lift_cache_info()
         out = {
             "apply_calls": xb.apply_call_count(),
             "compile_cache_hits": compile_info["hits"],
@@ -59,6 +60,9 @@ def snapshot() -> dict:
             "program_cache_hits": program_info["hits"],
             "program_cache_misses": program_info["misses"],
             "program_cache_size": program_info["size"],
+            "lift_cache_hits": lift_info["hits"],
+            "lift_cache_misses": lift_info["misses"],
+            "lift_cache_size": lift_info["size"],
         }
         for b in _BACKENDS:
             out[f"apply_calls_{b}"] = by_backend.get(b, 0)
@@ -72,6 +76,7 @@ def reset() -> None:
     """Zero every counter and drop the caches (test isolation)."""
     with LOCK:
         xb.clear_compile_cache()
+        xb.clear_lift_cache()
         xb.reset_apply_call_count()
         pa.clear_plan_cache()
         pp.reset_program_counters()

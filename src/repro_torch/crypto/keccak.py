@@ -24,7 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch._device import resolve
+from repro_torch._device import place, resolve
 from repro_torch.core import crossbar as xb
 from repro_torch.core import plan_algebra as pa
 from repro_torch.core import plan_program as pp
@@ -213,15 +213,6 @@ def _chi(a: torch.Tensor) -> torch.Tensor:
     return a ^ ((a1 ^ 1) & a2)
 
 
-def _as_state(bits, device) -> torch.Tensor:
-    if isinstance(bits, torch.Tensor):
-        if device is not None and resolve(device) != bits.device:
-            raise ValueError(f"state lies on {bits.device}, device="
-                             f"{device!r} requested")
-        return bits
-    return torch.as_tensor(np.asarray(bits), device=resolve(device))
-
-
 def keccak_f1600(bits, *, backend: str = "einsum", fuse_rho_pi: bool = True,
                  batch_mode: str = "block_diag", fixed_latency: bool = False,
                  device=None) -> torch.Tensor:
@@ -237,7 +228,7 @@ def keccak_f1600(bits, *, backend: str = "einsum", fuse_rho_pi: bool = True,
     """
     if batch_mode not in ("block_diag", "payload"):
         raise ValueError(f"unknown batch_mode {batch_mode!r}")
-    bits = _as_state(bits, device)
+    bits = place(bits, device)
     dev = bits.device
     reg = registry(dev)
     single = bits.dim() == 1

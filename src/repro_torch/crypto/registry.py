@@ -13,6 +13,10 @@ from repro_torch.core.static_registry import StaticPlanRegistry
 
 _REGISTRIES: "dict[str, StaticPlanRegistry]" = {}
 
+# The reference's single ``REGISTRY`` becomes one registry a device: this
+# is the table of them, keyed by device name (``"cuda:0"``, ``"cpu"``).
+REGISTRY = _REGISTRIES
+
 
 def registry(device=None) -> StaticPlanRegistry:
     """The registry of ``device`` (``None`` -> the card)."""

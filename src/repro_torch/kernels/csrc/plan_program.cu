@@ -75,6 +75,11 @@
 // r's lanes contiguous.  A thread takes up to 4 lanes of one row as one
 // 16-byte shared-memory vector, so each select's control (plan row,
 // weight) is read from global memory once per 4 lanes, not once a lane.
+// A program's steps are a chain of dependent latencies (a control load,
+// a plan-row load, a shared-memory gather, a barrier), so the host gives
+// a CTA no more lanes than keep the grid as large as the card's SM count
+// and one thread a 4-lane group of a row (lanes_per_cta, word_threads):
+// ChaCha20 at 16384 lanes runs 256 CTAs of 256 threads, not 16 of 1024.
 // Everything computes in uint32: ADD wraps without signed-overflow UB and
 // ROTLV's right shift is logical.  int32 states are bit-cast through the
 // launch.  Invalid sources (< 0 or >= n) contribute 0; the XOR fold
@@ -125,6 +130,7 @@ __global__ void __launch_bounds__(kThreads)
                    int out_reg) {
   extern __shared__ uint4 smem_w[];
   uint32_t* regs = reinterpret_cast<uint32_t*>(smem_w);
+  const int nthr = blockDim.x;
   const int lanes = 1 << lanes_log2;
   const int l0 = blockIdx.x << lanes_log2;
   const int live = min(lanes, d - l0);  // lanes of this CTA inside d
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
   const int glog2 = lanes_log2 - kVlog2;  // V-word groups a row, log2
   const int n_el = n << glog2;            // V-word groups a register
 
-  for (int e = threadIdx.x; e < per; e += kThreads) {
+  for (int e = threadIdx.x; e < per; e += nthr) {
     const int r = e >> lanes_log2;
     const int l = e & (lanes - 1);
     regs[e] = l < live ? state[(size_t)r * d + l0 + l] : 0u;
@@ -156,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
       if (op == kPermute) {  // the host guarantees dst != a
         const int base = koff[p], cnt = kcnt[p], wb = woff[p];
         const bool xor_fold = folds[p] != 0;
-        for (int el = threadIdx.x; el < n_el; el += kThreads) {
+        for (int el = threadIdx.x; el < n_el; el += nthr) {
           const int r = el >> glog2;
           const int q = el & ((1 << glog2) - 1);
           uint32_t acc_add[V] = {}, acc_xor[V] = {};
@@ -184,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       } else if (op == kRotlv || op == kXorConst || op == kEqConst) {
         const int* crow = consts + (size_t)(c + rnd * const_stride) * n;
-        for (int el = threadIdx.x; el < n_el; el += kThreads) {
+        for (int el = threadIdx.x; el < n_el; el += nthr) {
           const uint32_t k = (uint32_t)__ldg(crow + (el >> glog2));
           const Words<V> v = A[el];
           Words<V> res;
@@ -203,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
           D[el] = res;
         }
       } else {
-        for (int el = threadIdx.x; el < n_el; el += kThreads) {
+        for (int el = threadIdx.x; el < n_el; el += nthr) {
           const Words<V> av = A[el], bv = B[el];
           Words<V> res;
 #pragma unroll
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const uint32_t* R = regs + (size_t)out_reg * per;
-  for (int e = threadIdx.x; e < per; e += kThreads) {
+  for (int e = threadIdx.x; e < per; e += nthr) {
     const int r = e >> lanes_log2;
     const int l = e & (lanes - 1);
     if (l < live) out[(size_t)r * d + l0 + l] = R[e];
@@ -235,15 +241,15 @@ int launch_word(const void* state, void* out, const int* steps, int n_steps,
                 int period, const int* plan_tbl, const int* koff,
                 const int* kcnt, const int* folds, const int* w_flat,
                 const int* woff, const int* consts, int n, int d, int n_phys,
-                int rounds, int const_stride, int lanes_log2, int out_reg,
-                cudaStream_t s) {
+                int rounds, int const_stride, int lanes_log2, int threads,
+                int out_reg, cudaStream_t s) {
   const size_t smem = ((size_t)n_phys * n * sizeof(uint32_t)) << lanes_log2;
   cudaError_t err = cudaFuncSetAttribute(
       pp_word_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (d + (1 << lanes_log2) - 1) >> lanes_log2;
-  pp_word_kernel<V><<<grid, kThreads, smem, s>>>(
+  pp_word_kernel<V><<<grid, threads, smem, s>>>(
       static_cast<const uint32_t*>(state), static_cast<uint32_t*>(out), steps,
       n_steps, period, plan_tbl, koff, kcnt, folds, w_flat, woff, consts, n,
       d, n_phys, rounds, const_stride, lanes_log2, out_reg);
@@ -427,26 +433,31 @@ int pp_smem_optin(int device, int* bytes) {
 // 7) int32 rows of (opcode, dst, a, b, plan, const, barrier) over n_phys
 // physical registers, renamed by the host; plan_tbl: (K_total, n); koff/kcnt/
 // folds/woff: (n_plans,); w_flat: (KW_total, n) or null; consts:
-// (n_consts, n).  1 << lanes_log2 payload columns per CTA; register 0 is
-// physical register out_reg at the end.
+// (n_consts, n).  1 << lanes_log2 payload columns per CTA of `threads`
+// threads (a multiple of 32, at most 1024); register 0 is physical
+// register out_reg at the end.
 int pp_megakernel(const void* state, void* out, const int* steps,
                   int n_steps, int period, const int* plan_tbl,
                   const int* koff, const int* kcnt, const int* folds,
                   const int* w_flat, const int* woff, const int* consts,
                   int n, int d, int n_phys, int rounds, int const_stride,
-                  int lanes_log2, int out_reg, void* stream) {
+                  int lanes_log2, int threads, int out_reg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (threads < 32 || threads > kThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
   if (lanes_log2 >= 2)
     return launch_word<4>(state, out, steps, n_steps, period, plan_tbl, koff,
                           kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                          rounds, const_stride, lanes_log2, out_reg, s);
+                          rounds, const_stride, lanes_log2, threads, out_reg,
+                          s);
   if (lanes_log2 == 1)
     return launch_word<2>(state, out, steps, n_steps, period, plan_tbl, koff,
                           kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                          rounds, const_stride, lanes_log2, out_reg, s);
+                          rounds, const_stride, lanes_log2, threads, out_reg,
+                          s);
   return launch_word<1>(state, out, steps, n_steps, period, plan_tbl, koff,
                         kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                        rounds, const_stride, lanes_log2, out_reg, s);
+                        rounds, const_stride, lanes_log2, threads, out_reg, s);
 }
 
 // Packed layout.  state/out: (n, d) 32-bit words (bit 0 read, 0/1

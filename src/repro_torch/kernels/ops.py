@@ -16,6 +16,10 @@ Port of ``repro/kernels/ops.py``.  For the two crossbar kernels:
 
 ``moe_route_transform`` and ``fused_vcompress`` follow the same device
 rule.  Neither pads: the CUDA kernels take any T and any N.
+
+``unpack_bits`` / ``pack_bits`` / ``bits_roundtrip`` are the
+sub-element-width helpers (plain shift/mask arithmetic, not kernels):
+words narrower than a payload element split into 0/1 rows and fold back.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ DROP = -1
 
 _F32_EXACT_INT_BOUND = 1 << 24
 
-__all__ = ["KernelLaunchError", "crossbar_permute", "crossbar_permute_sparse",
-           "fused_vcompress", "moe_route_transform"]
+__all__ = ["KernelLaunchError", "bits_roundtrip", "crossbar_permute",
+           "crossbar_permute_sparse", "fused_vcompress",
+           "moe_route_transform", "pack_bits", "unpack_bits"]
 
 
 @contextlib.contextmanager
@@ -229,3 +234,62 @@ def fused_vcompress(mask, x, *, tail="zero"):
     if x.is_cuda:
         return fused_vcompress_cuda(mask, x.contiguous(), tail=tail)
     return ref.fused_vcompress(mask, x, tail=tail)
+
+
+# -- sub-element-width pack/unpack ------------------------------------------
+# Elements narrower than a payload word (bit permutations of PRESENT- or
+# GIFT-style ciphers) are exposed by unpacking each word into `width` 0/1
+# rows, permuting at bit granularity, and packing back.  Both directions
+# are branch-free shift/mask arithmetic, exact for values in [0, 2**width).
+
+_MAX_PACK_WIDTH = 31  # packed words accumulate in int32
+
+
+def _check_width(width: int, what: str) -> None:
+    if not 1 <= width <= _MAX_PACK_WIDTH:
+        raise ValueError(f"{what} width must be in [1, {_MAX_PACK_WIDTH}], "
+                         f"got {width}")
+
+
+def _bit_axis(width: int, axis: int, ndim: int, device) -> torch.Tensor:
+    """0..width-1 shaped to broadcast on the new axis after ``axis``."""
+    return torch.arange(width, dtype=torch.int32, device=device).reshape(
+        (1,) * (axis + 1) + (width,) + (1,) * (ndim - axis - 1))
+
+
+def unpack_bits(x, width, *, axis=0):
+    """Split each integer element into ``width`` 0/1 int32 rows (LSB-first).
+
+    ``(..., N, ...) -> (..., N*width, ...)`` along ``axis``: element i's
+    bits occupy rows ``[i*width, (i+1)*width)``, least significant first.
+    """
+    _check_width(width, "unpack")
+    if x.dtype.is_floating_point or x.dtype.is_complex:
+        raise ValueError(f"unpack_bits needs an integer payload, got "
+                         f"{x.dtype}")
+    axis = axis % x.dim()
+    xe = x.to(torch.int32).unsqueeze(axis + 1)
+    bits = (xe >> _bit_axis(width, axis, x.dim(), x.device)) & 1
+    shape = x.shape[:axis] + (x.shape[axis] * width,) + x.shape[axis + 1:]
+    return bits.reshape(shape)
+
+
+def pack_bits(bits, width, *, axis=0, dtype=torch.int32):
+    """Inverse of :func:`unpack_bits`: fold ``width`` 0/1 rows per word,
+    ``(..., N*width, ...) -> (..., N, ...)`` along ``axis``."""
+    _check_width(width, "pack")
+    axis = axis % bits.dim()
+    n = bits.shape[axis]
+    if n % width:
+        raise ValueError(f"pack_bits: axis length {n} is not a multiple "
+                         f"of width {width}")
+    shape = bits.shape[:axis] + (n // width, width) + bits.shape[axis + 1:]
+    grouped = bits.to(torch.int32).reshape(shape)
+    weights = 1 << _bit_axis(width, axis, bits.dim(), bits.device)
+    return torch.sum(grouped * weights, dim=axis + 1).to(dtype)
+
+
+def bits_roundtrip(x, width, *, axis=0):
+    """``pack_bits(unpack_bits(x))``: the identity for in-range payloads."""
+    return pack_bits(unpack_bits(x, width, axis=axis), width, axis=axis,
+                     dtype=x.dtype)

@@ -42,13 +42,17 @@ def control_digest(steps, consts, plan_parts=()) -> str:
         ("|".join(OPCODES), steps, consts) + tuple(plan_parts))
 
 
-def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int) -> int:
+def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int, *,
+                  sms: int = 1) -> int:
     """Lanes each CTA owns in the word layout: whole lanes whose register
     file — n_regs registers plus one scratch register, n uint32 rows
     each — fits the shared memory a block may opt in to.  A power of two
     (the kernel finds a thread's lane by shifts): the largest that fits,
-    capped at the power of two that covers ``d``.  Raises when not even
-    one lane fits."""
+    capped at the power of two that covers ``d`` and at the most that
+    still gives ``sms`` CTAs (the card's SMs: a program's steps are a
+    chain of dependent latencies, so the grid should cover the card
+    before a CTA takes more lanes).  Raises when not even one lane
+    fits."""
     per_lane = (n_regs + 1) * n * 4
     fit = smem_bytes // per_lane
     if fit < 1:
@@ -57,9 +61,30 @@ def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int) -> int:
             f"{per_lane} bytes of shared memory; the card allows "
             f"{smem_bytes} per block")
     lanes = 1
-    while lanes * 2 <= fit and lanes < d:
+    while lanes * 2 <= fit and lanes < d and -(-d // (lanes * 2)) >= sms:
         lanes *= 2
     return lanes
+
+
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
+def word_threads(n: int, lanes: int) -> int:
+    """Threads of a word-layout CTA: one a V-word group of a row (V = 4
+    lanes, or fewer when the CTA has fewer), in whole warps, at most
+    1024."""
+    groups = n * lanes // min(lanes, 4)
+    return min(1024, 32 * -(-max(groups, 1) // 32))
 
 
 def packed_threads(n: int) -> int:
@@ -103,14 +128,17 @@ def smem_optin(device: torch.device) -> int:
     return _SMEM_OPTIN[index]
 
 
-def plan_program_cuda(state, ctl, *, layout=None):
+def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None):
     """Launch the megakernel on a CUDA state.
 
     state: (n, D) int32 or uint32 (bit-cast to uint32 through the
     launch); ctl: the program's control tables
     (``core.plan_program.build_control``) on the state's device; layout:
     ``"packed"`` or ``"word"``, by default the one ``build_control``
-    chose.  Returns (n, D) in state's dtype.
+    chose; lanes, threads: the word layout's lanes a CTA (a power of two
+    whose register file fits) and threads a CTA (a multiple of 32, at
+    most 1024), by default ``lanes_per_cta``'s and ``word_threads``'s
+    (for timing alternatives).  Returns (n, D) in state's dtype.
     """
     if not state.is_cuda:
         raise ValueError(f"megakernel needs a CUDA state, got {state.device}")
@@ -154,8 +182,19 @@ def plan_program_cuda(state, ctl, *, layout=None):
             ctl["out_reg"], packed_threads(n), chunk,
             int(d % 4 == 0 and state.data_ptr() % 16 == 0), stream)
     else:
-        lanes = lanes_per_cta(n, ctl["n_phys"] - 1, d,
-                              smem_optin(state.device))
+        smem = smem_optin(state.device)
+        if lanes is None:
+            lanes = lanes_per_cta(n, ctl["n_phys"] - 1, d, smem,
+                                  sms=sm_count(state.device))
+        elif (lanes < 1 or lanes & (lanes - 1)
+              or ctl["n_phys"] * n * 4 * lanes > smem):
+            raise ValueError(f"lanes={lanes}: need a power of two whose "
+                             f"register file fits {smem} bytes")
+        if threads is None:
+            threads = word_threads(n, lanes)
+        elif not (32 <= threads <= 1024 and threads % 32 == 0):
+            raise ValueError(f"threads={threads}: need a multiple of 32 "
+                             "up to 1024")
         w_flat = ctl["w_flat"]
         err = lib.pp_megakernel(
             state.data_ptr(), out.data_ptr(), ctl["phys_steps"].data_ptr(),
@@ -165,7 +204,7 @@ def plan_program_cuda(state, ctl, *, layout=None):
             None if w_flat is None else w_flat.data_ptr(),
             ctl["woff"].data_ptr(), ctl["consts"].data_ptr(), n, d,
             ctl["n_phys"], ctl["rounds"], ctl["const_stride"],
-            lanes.bit_length() - 1, ctl["out_reg"], stream)
+            lanes.bit_length() - 1, threads, ctl["out_reg"], stream)
     with _LOCK:
         LAUNCHES["plan_program"] += 1
         LAYOUT_LAUNCHES[layout] += 1

@@ -211,8 +211,11 @@ def test_integer_bound_and_semiring_checks():
     with pytest.raises(ValueError, match="integer"):
         txb.apply_plan(gf, torch.ones(2, 1), backend="einsum")
     g8 = txb.gather_plan(plan.idx, 2, semiring=tsr.GF2_8)
-    with pytest.raises(NotImplementedError, match="AES/GCM slice"):
-        txb.apply_plan(g8, torch.ones(2, 1, dtype=torch.int32))
+    small = torch.tensor([[0x1FF], [3]], dtype=torch.int32)
+    assert_bitexact(txb.apply_plan(g8, small),
+                    np.array([[3], [0xFF]], np.int32))
+    with pytest.raises(NotImplementedError, match="GCM slice"):
+        tsr.gf2_k(128)
     with pytest.raises(ValueError, match="device"):
         txb.apply_plan(plan, torch.ones(2, 1, dtype=torch.int32,
                                         device="meta"))

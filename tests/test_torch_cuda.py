@@ -357,3 +357,93 @@ def test_moe_layer_and_greedy_serving_match_the_cpu(dev):
                                max_seq=16)
         outs.append(engine.generate(p, prompts))
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("key", ["aes/shift_rows_mix_columns",
+                                 "aes/inv_shift_rows_inv_mix_columns",
+                                 "aes/mix_columns"])
+@pytest.mark.parametrize("d", [1, 3, 4096])
+def test_lifted_gf2_plans_on_both_crossbars(dev, key, d):
+    """The GF(2^8) plans' bit lifts (128 bit rows, k = 32 selects, mostly
+    DROP, GF(2) fold) through both kernels against their plain versions,
+    and through apply_plan against the reference backend's field
+    arithmetic; bit-exact."""
+    from repro_torch.core import crossbar as txb
+    from repro_torch.crypto import aes
+    from repro_torch.crypto.registry import registry
+    from repro_torch.kernels import crossbar_permute as xbk
+    from repro_torch.kernels import ops, ref
+    aes._ensure_plans(False, True, dev)
+    aes._ensure_plans(True, True, dev)
+    plan = registry(dev)[key]
+    lifted = txb.lift_gf2_8(plan)
+    assert (lifted.n_out, lifted.k) == (128, 32)
+    rng = np.random.default_rng(d)
+    bits = torch.as_tensor(rng.integers(0, 2, (128, d)).astype(np.int32),
+                           device=dev)
+    idxp, xf, kw = ops.dense_operands(lifted, bits)
+    assert_bitexact(xbk.crossbar_permute_cuda(idxp, xf, **kw),
+                    ref.crossbar_dense(idxp, xf, **kw))
+    args, kws = ops.sparse_operands(lifted, bits)
+    kws["out"].fill_(-7.0)
+    kw_p = dict(kws, out=kws["out"].clone())
+    assert_bitexact(xbk.crossbar_permute_sparse_cuda(*args, **kws),
+                    ref.crossbar_sparse(*args, **kw_p))
+    st = torch.as_tensor(rng.integers(0, 256, (16, d)).astype(np.int32),
+                         device=dev)
+    want = txb.apply_plan(plan, st, backend="reference")
+    for backend in ("kernel", "sparse", "einsum"):
+        assert_bitexact(txb.apply_plan(plan, st, backend=backend), want)
+
+
+def test_aes_ctr_on_both_crossbars_matches_einsum(dev):
+    """AES-128-CTR on the dense and the tile-skipping kernels equals the
+    einsum path and SP 800-38A F.5.1, 20 crossbar passes a call."""
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import aes
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    key = bytes.fromhex("2b7e151628aed2a6abf7158809cf4f3c")
+    iv = bytes.fromhex("f0f1f2f3f4f5f6f7f8f9fafbfcfdfeff")
+    plain = bytes.fromhex("6bc1bee22e409f96e93d7e117393172a")
+    assert aes.aes128_ctr_xor(key, iv, plain, backend="kernel", device=dev) \
+        == bytes.fromhex("874d6191b620e3261bef6864990db6ce")
+    data = bytes(np.random.default_rng(0).integers(0, 256, 16 * 1000,
+                                                   dtype=np.uint8))
+    want = aes.aes128_ctr_xor(key, iv, data, backend="einsum", device=dev)
+    reset_launch_counts()
+    for backend, kernel in (("kernel", "crossbar_dense"),
+                            ("sparse", "crossbar_sparse")):
+        with telemetry.delta() as d:
+            got = aes.aes128_ctr_xor(key, iv, data, backend=backend,
+                                     fixed_latency=True, device=dev)
+        assert got == want
+        assert d()[f"apply_calls_{backend}"] == 20
+        assert launch_counts()[kernel] == 20
+
+
+def test_chacha20_word_layout_matches_plain_vm(dev):
+    """ChaCha20's program (ADD/XOR/ROTLV/PERMUTE, n_regs 2) in the word
+    layout at its default and narrower lanes a CTA against the plain VM,
+    and through the entry point against RFC 8439 §2.3.2."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import chacha
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import reset_launch_counts
+    nonce = bytes.fromhex("000000090000004a00000000")
+    host = chacha._setup_states(bytes(range(32)), 1, nonce, 3000).view(
+        np.int32)
+    words = torch.as_tensor(np.ascontiguousarray(host.T),
+                            device=dev).view(torch.uint32)
+    ctl = pp.control_for(chacha.megakernel_program(dev), dev)
+    assert ctl["layout"] == "word"
+    want = _vm(words, ctl).view(torch.int32)
+    for lanes in (None, 32, 256):
+        got = ppk.plan_program_cuda(words, ctl, lanes=lanes)
+        assert_bitexact(got.view(torch.int32), want)
+    reset_launch_counts()
+    out = chacha.chacha20_blocks(bytes(range(32)), 1, nonce, 3000,
+                                 backend="megakernel", device=dev)
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1}
+    assert out[:8] == bytes.fromhex("10f1e7e4d13b5915")
+    assert out == chacha.chacha20_blocks(bytes(range(32)), 1, nonce, 3000,
+                                         backend="einsum", device=dev)

@@ -145,6 +145,23 @@ def test_lanes_per_cta_derivation():
         ppk.lanes_per_cta(100_000, 4, 8, 232448)
 
 
+def test_word_geometry_covers_the_card():
+    # ChaCha20 (n = 16, 2 registers + scratch): 1210 lanes fit a CTA, but
+    # 16384 lanes over 132 SMs take 64 a CTA (256 CTAs), each CTA a
+    # thread per 4-lane group of a row.
+    assert ppk.lanes_per_cta(16, 2, 16384, 232448) == 1024
+    assert ppk.lanes_per_cta(16, 2, 16384, 232448, sms=132) == 64
+    assert ppk.word_threads(16, 64) == 256
+    assert ppk.word_threads(16, 1024) == 1024
+    assert ppk.word_threads(16, 2) == 32 and ppk.word_threads(16, 1) == 32
+    # Keccak (25.6 KB a lane): 1024 lanes take 4 a CTA, not the 8 that fit.
+    assert ppk.lanes_per_cta(1600, 3, 1024, 232448, sms=132) == 4
+    assert ppk.word_threads(1600, 4) == 1024
+    # fewer lanes than SMs: one lane a CTA
+    assert ppk.lanes_per_cta(256, 4, 77, 232448, sms=132) == 1
+    assert ppk.word_threads(256, 1) == 256
+
+
 def test_control_cache_seals_and_catches_corruption():
     tprog = _port_of(_all_ops_jax_program())
     x = torch.as_tensor(_u32_payload(4, 2).view(np.int32)).view(torch.uint32)
