@@ -29,7 +29,22 @@ set to 0 just before and read just after:
 * AES-128-CTR over 1 MiB on the dense and tile-skipping crossbars
   (``aes_phase``): the S-box, lifted ShiftRows∘MixColumns and ShiftRows
   passes against the kernels' plain versions, 20 passes a call, SP
-  800-38A and FIPS-197 fused and chained.
+  800-38A and FIPS-197 fused and chained;
+* AES-128-GCM seal/open (``gcm_phase``) at three record geometries — (a)
+  1024 records of 64 B with 16 B AAD, (b) 256 of 1 KiB with 16 B AAD,
+  (c) 64 of 1500 B with 13 B AAD — each batch one word-layout
+  megakernel launch, (a) and (b) with the register file in shared
+  memory, (c) in global memory: the kernel against the plain VM on a
+  prefix of each program, seal under the fixed-latency contract against
+  a host oracle and the chained path, open, tamper, NIST CAVP vectors on
+  every backend, GHASH's wide lift on both crossbars; each launch's
+  device ms, its bound and the global placement's cost a step, the host
+  clock of a seal call (records/s, ms per MiB) and a profiled call; the
+  chained path's host clock at (a) for 16 records;
+* the obs phase (``obs_phase``): with tracing on, one SHA-3 call and one
+  GCM seal export a Chrome trace and Prometheus text that the port's
+  validators accept, with the reference's span and metric names; the
+  host clock of the same calls with tracing off and on.
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
@@ -42,7 +57,8 @@ E = 1024 shapes beside an empty kernel on the same geometry, with its
 cluster-form alternatives (``route_timing``); ``--parent CHECKOUT``
 builds another checkout's routing kernel and times it there in turns.
 
-Any failed check raises and the run exits non-zero.  The second-to-last
+Any failed check raises and the run exits non-zero; a failed MoE layer
+comparison first prints each stage's max |diff| (``moe_stage_diffs``).  The second-to-last
 line is the ``kernels`` JSON object; the last line is the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device (or without the
 rest of the repository beside it) the script exits non-zero and prints
@@ -557,6 +573,57 @@ def route_timing(dev, rng, parent):
                 f"{vms:.5f} ms (bit-exact)")
 
 
+def moe_stage_diffs(li, blk, h, cfgs, layer):
+    """Bisect a failed layer comparison: run ``block_apply``'s stages
+    again on each backend from the same layer input and print, against
+    the reference backend, the max |diff| of the attention output, the
+    router logits and the routing (positions, destinations, gates), the
+    dispatch buffer, the experts' output, the combine (of the backend's
+    own experts' output, and of the reference's, which isolates the
+    combine pass), the recomputed layer output, and the recomputed
+    output against the output that failed (a difference there is run to
+    run, not backend to backend)."""
+    import torch
+
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+
+    def diff(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    st = {}
+    for b, c in cfgs.items():
+        x1 = h + A.attn_apply(blk["attn"], L.apply_norm(blk["ln1"], h,
+                                                        c.norm), c)
+        u = L.apply_norm(blk["ln2"], x1, c.norm)
+        logits = L.dense(blk["moe"]["router"], u, torch.bfloat16).float()
+        rt = md.make_routing(logits, num_experts=c.num_experts,
+                             k=c.num_experts_per_tok,
+                             capacity=M.capacity_of(c, u.shape[1]))
+        buf = md.dispatch(u, rt, backend=b)
+        ex = M._experts_apply(blk["moe"], buf, u.dtype)
+        y = md.combine(ex, rt, backend=b)
+        st[b] = dict(attention=x1, router=logits, positions=rt.positions,
+                     dest=rt.dest, gates=rt.gates, dispatch=buf, experts=ex,
+                     combine=y, output=x1 + y.to(u.dtype))
+    ref_ = st.pop("reference")
+    log(f"  layer {li} failed: stage diffs against the reference backend")
+    for b, s_ in st.items():
+        rt_b = md.make_routing(ref_["router"], num_experts=cfgs[b].num_experts,
+                               k=cfgs[b].num_experts_per_tok,
+                               capacity=ref_["experts"].shape[2])
+        on_ref = md.combine(ref_["experts"], rt_b, backend=b)
+        parts = [f"{k} {diff(v, ref_[k])}" for k, v in s_.items()]
+        parts.append(f"combine of the reference's experts "
+                     f"{diff(on_ref, ref_['combine'])}")
+        parts.append(f"recomputed output vs the failed one "
+                     f"{diff(s_['output'], layer[b])}")
+        log(f"    {b}: " + "; ".join(parts))
+
+
 def moe_phases(dev, rng, compare):
     """Phi-3.5-MoE at full width and 4 layers on the card.
 
@@ -630,20 +697,25 @@ def moe_phases(dev, rng, compare):
             compare("moe_route", f"layer {li} routing {part}",
                     got.reshape(MOE_BATCH, -1), w)
         bufs = {b: md.dispatch(u, routing, backend=b) for b in backends}
-        for b in ("sparse", "kernel"):
-            compare(KERNEL_OF[b], f"layer {li} dispatch {tuple(bufs[b].shape)}"
-                    f" {b} vs reference backend", bufs[b], bufs["reference"])
         y = torch.as_tensor(rng.standard_normal(tuple(bufs["reference"].shape),
                                                 np.float32),
                             device=dev).to(dtype)
         outs = {b: md.combine(y, routing, backend=b) for b in backends}
-        for b in ("sparse", "kernel"):
-            close(f"layer {li} combine {b} vs reference backend", outs[b],
-                  outs["reference"], TOL_BF16)
         layer = {b: M.block_apply(blk, h, cfgs[b])[0] for b in backends}
-        for b in ("sparse", "kernel"):
-            close(f"layer {li} output {b} vs reference backend", layer[b],
-                  layer["reference"], TOL_BF16)
+        try:
+            for b in ("sparse", "kernel"):
+                compare(KERNEL_OF[b], f"layer {li} dispatch "
+                        f"{tuple(bufs[b].shape)} {b} vs reference backend",
+                        bufs[b], bufs["reference"])
+            for b in ("sparse", "kernel"):
+                close(f"layer {li} combine {b} vs reference backend",
+                      outs[b], outs["reference"], TOL_BF16)
+            for b in ("sparse", "kernel"):
+                close(f"layer {li} output {b} vs reference backend",
+                      layer[b], layer["reference"], TOL_BF16)
+        except AssertionError:
+            moe_stage_diffs(li, blk, h, cfgs, layer)
+            raise
         if li == 0:
             first = dict(u=u, routing=routing, y=y)
             log(f"  layer 0: {float(md.dropped_fraction(routing).mean()):.4f}"
@@ -1014,7 +1086,7 @@ def chacha_phase(dev, compare):
           f"chacha20 megakernel: {dd['program_launches']} launches, "
           f"{dd['apply_calls']} passes for two calls")
     layouts = dict(ppk.LAYOUT_LAUNCHES)
-    check(layouts == {"packed": 0, "word": 2},
+    check(layouts == {"packed": 0, "word": 2, "word_global": 0},
           f"chacha20 megakernel launches by layout: {layouts}")
     check(len(mk) == 64 * n and mk[:64] == CHACHA_BLOCK1,
           "chacha20 megakernel: block 1 differs from RFC 8439 §2.3.2")
@@ -1219,6 +1291,361 @@ def aes_phase(dev, compare):
             f"{rows.numel()} rows the selects read {lib:.4f} ms")
         del idxp, xf, args, kws
     return counts
+
+
+# AES-128-GCM: the NIST CAVP vectors (McGrew-Viega test cases 1-4: key,
+# IV, plaintext, AAD, ciphertext, tag) and three record geometries at
+# serving batches: (name, plaintext bytes, AAD bytes, records).  (a) is
+# the reference benchmark's geometry (4 blocks, 16 B AAD), (b) 1 KiB
+# records, (c) one Ethernet MTU with TLS 1.2's 13-byte AEAD header.
+_GCM_K = bytes.fromhex("feffe9928665731c6d6a8f9467308308")
+_GCM_IV = bytes.fromhex("cafebabefacedbaddecaf888")
+_GCM_PT = bytes.fromhex(
+    "d9313225f88406e5a55909c5aff5269a86a7a9531534f7da2e4c303d8a318a72"
+    "1c3c0c95956809532fcf0e2449a6b525b16aedf5aa0de657ba637b391aafd255")
+_GCM_CT = bytes.fromhex(
+    "42831ec2217774244b7221b784d0d49ce3aa212f2c02a4e035c17e2329aca12e"
+    "21d514b25466931c7d8f6a5aac84aa051ba30b396a0aac973d58e091473f5985")
+GCM_CAVP = (
+    (bytes(16), bytes(12), b"", b"", b"",
+     bytes.fromhex("58e2fccefa7e3061367f1d57a4e7455a")),
+    (bytes(16), bytes(12), bytes(16), b"",
+     bytes.fromhex("0388dace60b6a392f328c2b971b2fe78"),
+     bytes.fromhex("ab6e47d42cec13bdf53a67b21257bddf")),
+    (_GCM_K, _GCM_IV, _GCM_PT, b"", _GCM_CT,
+     bytes.fromhex("4d5c2af327cd64a62cf35abd2ba6fab4")),
+    (_GCM_K, _GCM_IV, _GCM_PT[:60],
+     bytes.fromhex("feedfacedeadbeeffeedfacedeadbeefabaddad2"),
+     _GCM_CT[:60], bytes.fromhex("5bc94fbc3221a5db94fae95ae7121a47")),
+)
+GCM_KEY = bytes(range(16))
+GCM_GEOMETRIES = (("a", 64, 16, 1024), ("b", 1024, 16, 256),
+                  ("c", 1500, 13, 64))
+GCM_CHAINED_RECORDS = 16
+GCM_PREFIX_STEPS = 130       # d1, d2, trip 0 and half of trip 1
+
+
+def gcm_oracle(key: bytes, iv: bytes, pt: bytes, aad: bytes) -> bytes:
+    """``ciphertext || tag`` by a plain-Python GCM on big-endian field
+    ints (the FIPS bit order) over the host AES block function."""
+    from repro_torch.crypto import aes as AE
+    from repro_torch.crypto import gcm as G
+
+    def aes(block):
+        return G._host_encrypt_block(AE.key_expansion(key), block)
+
+    def gmul(x, y):
+        z, v = 0, x
+        for i in range(127, -1, -1):
+            if (y >> i) & 1:
+                z ^= v
+            v = (v >> 1) ^ (0xE1 << 120 if v & 1 else 0)
+        return z
+
+    def pad(x):
+        return x + bytes((-len(x)) % 16)
+
+    h = int.from_bytes(aes(bytes(16)), "big")
+    ct = b"".join(
+        bytes(a ^ b for a, b in zip(pt[16 * t:16 * t + 16],
+                                    aes(iv + (t + 2).to_bytes(4, "big"))))
+        for t in range(-(-len(pt) // 16)))
+    data = (pad(aad) + pad(ct) + (8 * len(aad)).to_bytes(8, "big")
+            + (8 * len(pt)).to_bytes(8, "big"))
+    y = 0
+    for i in range(0, len(data), 16):
+        y = gmul(h, y ^ int.from_bytes(data[i:i + 16], "big"))
+    tag = bytes(a ^ b for a, b in zip(y.to_bytes(16, "big"),
+                                      aes(iv + b"\x00\x00\x00\x01")))
+    return ct + tag
+
+
+def gcm_phase(dev, compare):
+    """AES-128-GCM seal/open on the card at the three geometries.
+
+    Per geometry: the program's placement and size; the megakernel
+    against the plain VM on a prefix of the program (both placements
+    where the file fits shared memory); the counted path —
+    ``aes128_gcm_seal_batch`` twice under the fixed-latency contract (1
+    launch and 0 crossbar passes a call, in the geometry's placement),
+    against the host oracle and the chained path on the dense crossbar,
+    open round-tripping and naming a tampered tag and ciphertext; then
+    the launch's device ms by graph replay (eager beside it), the global
+    placement's cost a step against the shared one, the bound, the host
+    clock of a seal call (records/s, ms per MiB sealed) and a profiled
+    call.  Then the chained path at (a) for 16 records, the CAVP vectors
+    on every backend and GHASH on both crossbars."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import plan_program as pp
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import gcm as G
+    from repro_torch.kernels import launch_counts, ref, reset_launch_counts
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels.plan_program_kernel import PLACEMENTS
+
+    rng = np.random.default_rng(17)
+    smem = ppk.smem_optin(dev)
+    sms = ppk.sm_count(dev)
+    counts = {}
+    stats = {}
+
+    def vm(state, ctl_):
+        return ref.plan_program_vm(state, *pp.vm_operands(ctl_),
+                                   n_regs=ctl_["n_regs"],
+                                   rounds=ctl_["rounds"],
+                                   const_stride=ctl_["const_stride"])
+
+    def records(b, pt_len, aad_len):
+        def draw(n):
+            return [bytes(r) for r in rng.integers(0, 256, (b, n),
+                                                   dtype=np.uint8)]
+        return draw(12), draw(pt_len), draw(aad_len)
+
+    for name, pt_len, aad_len, b in GCM_GEOMETRIES:
+        t = time.perf_counter()
+        key_p, prog, lay = G.gcm_program(GCM_KEY, pt_len, aad_len,
+                                         device=dev)
+        ctl = pp.control_for(prog, dev)
+        build_s = time.perf_counter() - t
+        n = prog.n
+        placement = ppk.register_file(n, prog.n_regs, smem)
+        lanes = ppk.lanes_per_cta(n, prog.n_regs, b, smem, sms=sms)
+        n_perm = sum(1 for s in prog.steps if s.op == "permute")
+        selects = [int(((p.idx >= 0) & (p.idx < n)).sum())
+                   for p in prog.plans]
+        live = sum(selects[s.plan] for s in prog.steps if s.op == "permute")
+        kcnt = ctl["kcnt"].tolist()
+        slots = n * sum(kcnt[s.plan] for s in prog.steps
+                        if s.op == "permute")
+        ctl_bytes = sum(ctl[k].numel() * 4 for k in
+                        ("plan_tbl", "consts", "phys_steps", "koff", "kcnt",
+                         "folds", "woff") + (("w_flat",) if ctl["w_flat"]
+                                             is not None else ()))
+        log(f"aes-128-gcm ({name}): {b} records of {pt_len} B, {aad_len} B "
+            f"AAD: n = {n} rows, {prog.n_regs} registers (+1), "
+            f"{len(prog.steps)} steps ({n_perm} PERMUTE), {len(prog.plans)} "
+            f"plans ({ctl['plan_tbl'].shape[0]} select columns, "
+            f"{ctl_bytes / 2**20:.1f} MiB of control); register file "
+            f"{ctl['n_phys'] * n * 4} B a lane -> {placement} placement, "
+            f"{lanes} lanes a CTA, {-(-b // lanes)} CTAs of "
+            f"{ppk.word_threads(n, lanes)} threads; program built and "
+            f"encoded in {build_s:.2f} s")
+        check(ctl["layout"] == "word", f"gcm ({name}) takes {ctl['layout']}")
+        ivs, pts, aads = records(b, pt_len, aad_len)
+        bits = torch.as_tensor(G._pack_records(lay, ivs, pts, aads, pt_len,
+                                               aad_len), device=dev)
+
+        pre = prog.prefix(min(GCM_PREFIX_STEPS, len(prog.steps)))
+        ctl_pre = pp.control_for(pre, dev)
+        want = vm(bits, ctl_pre)
+        for place in ((placement,) if placement == "global"
+                      else ("shared", "global")):
+            compare("plan_program", f"gcm ({name}) program's first "
+                    f"{len(pre.steps)} steps, {place} placement, {b} lanes",
+                    ppk.plan_program_cuda(bits, ctl_pre, placement=place),
+                    want)
+
+        log("  counted path (launch counters from 0)")
+        reset_launch_counts()
+        sealed = None
+        for payload in range(2):
+            if payload:
+                ivs2, pts2, aads2 = records(b, pt_len, aad_len)
+            else:
+                ivs2, pts2, aads2 = ivs, pts, aads
+            with telemetry.delta() as d:
+                out = G.aes128_gcm_seal_batch(GCM_KEY, ivs2, pts2, aads2,
+                                              fixed_latency=True, device=dev)
+            dd = d()
+            check(dd["program_launches"] == 1 and dd["apply_calls"] == 0,
+                  f"gcm ({name}) seal: {dd['program_launches']} launches, "
+                  f"{dd['apply_calls']} passes")
+            if not payload:
+                sealed = out
+        layouts = dict(ppk.LAYOUT_LAUNCHES)
+        key_l = "word" if placement == "shared" else "word_global"
+        check(layouts[key_l] == 2 and sum(layouts.values()) == 2,
+              f"gcm ({name}) launches by layout: {layouts}")
+        for r in sorted({0, b // 2, b - 1}):
+            check(sealed[r] == gcm_oracle(GCM_KEY, ivs[r], pts[r], aads[r]),
+                  f"gcm ({name}) record {r} differs from the host oracle")
+        chained = G.aes128_gcm_seal_batch(GCM_KEY, ivs[:2], pts[:2], aads[:2],
+                                          backend="kernel", device=dev)
+        check(chained == sealed[:2],
+              f"gcm ({name}) fused seal differs from the chained path")
+        with telemetry.delta() as d:
+            opened = G.aes128_gcm_open_batch(GCM_KEY, ivs, sealed, aads,
+                                             device=dev)
+        check(opened == pts and d()["program_launches"] == 1,
+              f"gcm ({name}) open does not round-trip in one launch")
+        bad = list(sealed)
+        bad[1] = bad[1][:-1] + bytes([bad[1][-1] ^ 1])       # tag bit
+        bad[-1] = bytes([bad[-1][0] ^ 0x80]) + bad[-1][1:]   # ciphertext bit
+        try:
+            G.aes128_gcm_open_batch(GCM_KEY, ivs, bad, aads, device=dev)
+            raise AssertionError(f"gcm ({name}): tampered batch opened")
+        except G.InvalidTagError as e:
+            check(e.indices == (1, b - 1),
+                  f"gcm ({name}) tamper named records {e.indices}")
+        add_counts(counts, launch_counts())
+        log(f"  seal x2 (fixed latency: 1 launch, 0 passes a call, "
+            f"{placement} placement) equals the host oracle (records "
+            f"{sorted({0, b // 2, b - 1})}) and the chained path on the "
+            f"dense crossbar (2 records); open round-trips; a flipped tag "
+            f"bit and ciphertext bit name records (1, {b - 1}); launches "
+            f"{dict(launch_counts())}")
+
+        iters = 20 if n < 4000 else 3
+        ms, eager = timed(lambda: ppk.plan_program_cuda(bits, ctl), iters)
+        line = (f"  megakernel, gcm ({name}) x {b} lanes: {ms:.4f} ms by "
+                f"graph replay [{eager:.4f} eager], "
+                f"{ms / len(prog.steps) * 1e3:.3f} us a step")
+        ms_glob = None
+        if placement == "shared":
+            ms_glob = graph_ms(lambda: ppk.plan_program_cuda(
+                bits, ctl, placement="global"), iters)
+            line += (f"; the same launch with its file in global memory "
+                     f"{ms_glob:.4f} ms ({ms_glob / len(prog.steps) * 1e3:.3f}"
+                     f" us a step, {ms_glob / ms:.2f}x)")
+            # one wave in both placements (128 CTAs on the card's SMs), so
+            # the ratio is the cost of the file's accesses alone
+            one = bits[:, :128 * lanes].contiguous()
+            wave = [graph_ms(lambda: ppk.plan_program_cuda(
+                one, ctl, placement=p_), iters) for p_ in PLACEMENTS]
+            line += (f"; one wave of 128 CTAs ({one.shape[1]} lanes): shared "
+                     f"{wave[0]:.4f}, global {wave[1]:.4f} ms "
+                     f"({wave[1] / wave[0]:.2f}x)")
+        nb = 2 * n * b * 4 + ctl_bytes
+        ops_ = b * (live + n * (len(prog.steps) - n_perm))
+        bms, by = bound(nb, ops_)
+        log(line + f"; bound {bms:.5f} ms ({by}: {nb} B, {ops_} operations:"
+            f" {live} live selects and {len(prog.steps) - n_perm} "
+            f"elementwise steps of {n} rows a lane; the kernel walks "
+            f"{slots} select slots a lane, DROP padding included)")
+
+        def seal():
+            return G.aes128_gcm_seal_batch(GCM_KEY, ivs, pts, aads,
+                                           device=dev)
+        secs = [host_s(seal)[0] for _ in range(3)]
+        mib = b * pt_len / 2**20
+        best = min(secs)
+        log(f"  aes128_gcm_seal_batch ({name}), host clock: "
+            f"{[round(s_ * 1e3, 2) for s_ in secs]} ms; best "
+            f"{b / best:.1f} records/s, {best * 1e3 / mib:.2f} ms per MiB "
+            f"sealed ({mib:.4f} MiB a call)")
+        prof = profile_call(f"aes128_gcm_seal_batch ({name})", seal, rows=6)
+        copies = {k: v for k, v in prof["kernels"].items() if "Memcpy" in k}
+        log(f"    copies: " + "; ".join(
+            f"{k} x{c} {t_:.3f} ms" for k, (c, t_) in copies.items()))
+        stats[name] = dict(ms=ms, eager=eager, bound=bms, by=by,
+                           placement=placement, lanes=lanes, steps=len(
+                               prog.steps), global_ms=ms_glob,
+                           records_s=b / best,
+                           ms_per_mib=best * 1e3 / mib)
+        del bits, want
+
+    name, pt_len, aad_len, _ = GCM_GEOMETRIES[0]
+    ivs, pts, aads = records(GCM_CHAINED_RECORDS, pt_len, aad_len)
+    fused = G.aes128_gcm_seal_batch(GCM_KEY, ivs, pts, aads, device=dev)
+    for backend in ("kernel", "sparse"):
+        secs, out = host_s(lambda: G.aes128_gcm_seal_batch(
+            GCM_KEY, ivs, pts, aads, backend=backend, device=dev))
+        check(out == fused, f"gcm chained ({backend}) != fused at ({name})")
+        log(f"  chained path ({backend}), ({name}) geometry, "
+            f"{GCM_CHAINED_RECORDS} records: {secs * 1e3:.1f} ms host clock "
+            f"({GCM_CHAINED_RECORDS / secs:.1f} records/s; fused, "
+            f"{GCM_GEOMETRIES[0][3]} records: "
+            f"{stats[name]['records_s']:.1f} records/s)")
+
+    for backend in ("fused", "einsum", "kernel", "sparse", "reference"):
+        for key, iv, pt, aad, ct, tag in GCM_CAVP:
+            sealed = G.aes128_gcm_seal(key, iv, pt, aad, backend=backend,
+                                       device=dev)
+            check(sealed == ct + tag and G.aes128_gcm_open(
+                key, iv, sealed, aad, backend=backend, device=dev) == pt,
+                f"gcm CAVP vector fails on {backend}")
+    h = G._hash_key(GCM_KEY)
+    data = bytes(rng.integers(0, 256, 16 * 24, dtype=np.uint8))
+    for mode in ("powers", "horner"):
+        want_h = G.ghash(h, data, mode=mode, backend="reference", device=dev)
+        for backend in ("kernel", "sparse"):
+            check(G.ghash(h, data, mode=mode, backend=backend, device=dev)
+                  == want_h, f"ghash {mode} on {backend} != reference")
+    log("  CAVP test cases 1-4 seal and open on fused, einsum, kernel, "
+        "sparse and reference; ghash (powers, horner) on kernel and sparse "
+        "equals reference")
+    return counts, stats
+
+
+def obs_phase(dev, msgs):
+    """Tracing on: one SHA-3 call on the tile-skipping crossbar (its
+    schedules compiled afresh) and one fixed-latency GCM seal export a
+    Chrome trace and Prometheus text that the port's validators accept,
+    with the reference's span and metric names; the host clock of the
+    same calls with tracing off and on."""
+    import json as json_
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import crossbar as xb
+    from repro_torch.crypto import gcm as G
+    from repro_torch.crypto import keccak as K
+
+    name, pt_len, aad_len, _ = GCM_GEOMETRIES[0]
+    rng = np.random.default_rng(19)
+    ivs = [bytes(r) for r in rng.integers(0, 256, (64, 12), dtype=np.uint8)]
+    pts = [bytes(r) for r in rng.integers(0, 256, (64, pt_len),
+                                          dtype=np.uint8)]
+    aads = [bytes(r) for r in rng.integers(0, 256, (64, aad_len),
+                                           dtype=np.uint8)]
+
+    def calls():
+        K.sha3_256(msgs[0], backend="sparse", device=dev)
+        G.aes128_gcm_seal_batch(GCM_KEY, ivs, pts, aads, fixed_latency=True,
+                                device=dev)
+
+    log("obs: tracing on for one SHA-3 call (sparse) and one GCM seal")
+    calls()
+    xb.clear_compile_cache()
+    obs.reset()
+    obs.enable()
+    try:
+        calls()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            obs.export_chrome_trace(str(path))
+            trace = json_.loads(path.read_text())
+        text = obs.prometheus_text()
+    finally:
+        obs.disable()
+    tsum = obs.validate_chrome_trace(trace)
+    psum = obs.validate_prometheus_text(text)
+    names = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    need = {"compile_plan", "apply_plan", "registry_observe", "gcm_seal"}
+    check(need <= names, f"trace spans {sorted(names)} lack "
+          f"{sorted(need - names)}")
+    for metric in ('repro_span_seconds_count{span="gcm_seal"} 1',
+                   "repro_gcm_seal_calls_total", "repro_ghash_lift_cache",
+                   "repro_compile_cache_size", "repro_integrity_verify_rate",
+                   "repro_kernel_launches_plan_program_total"):
+        check(metric in text, f"prometheus text lacks {metric}")
+    log(f"  chrome trace: {tsum}; span names {sorted(names)}; prometheus "
+        f"text: {psum}")
+    off, on = [], []
+    for _ in range(3):
+        off.append(host_s(calls)[0] * 1e3)
+        obs.enable()
+        try:
+            on.append(host_s(calls)[0] * 1e3)
+        finally:
+            obs.disable()
+    obs.reset()
+    log(f"  host clock of the two calls, tracing off {[round(t_, 2) for t_ in off]}"
+        f" ms, on {[round(t_, 2) for t_ in on]} ms")
 
 
 def main(argv) -> int:
@@ -1644,6 +2071,9 @@ def main(argv) -> int:
     add_counts(launches, moe["launches"])
     add_counts(launches, chacha_phase(dev, compare))
     add_counts(launches, aes_phase(dev, compare))
+    gcm_counts, gcm_stats = gcm_phase(dev, compare)
+    add_counts(launches, gcm_counts)
+    obs_phase(dev, msgs)
     log(f"  launches over every counted path: {launches}")
 
     # ---------------------------------------------------------- timing ---

@@ -28,11 +28,18 @@ Port of ``repro.core.crossbar``.  Output ``o`` receives
 
 On a CUDA payload 'kernel' and 'sparse' launch their CUDA kernels (or
 raise); on a CPU payload they run the kernels' plain versions.  Plans
-over a scalar GF(2^k) semiring (width 2..31: AES's GF(2^8)) run on
-'einsum', 'kernel' and 'sparse' as their GF(2) bit lift (``lift_gf2_k``,
-memoised in a sealed LRU): one crossbar evaluation over width x the
-rows, payloads unpacked to bit rows around it; 'reference' keeps direct
-field arithmetic.
+over a GF(2^k) semiring run on 'einsum', 'kernel' and 'sparse' as their
+GF(2) bit lift (``lift_gf2_k``, memoised in a sealed LRU): one crossbar
+evaluation over width x the rows, payloads unpacked to bit rows around
+it.  Scalar widths (2..31: AES's GF(2^8)) carry one int32 an element;
+wide ones (GHASH's GF(2^128)) carry a trailing axis of byte limbs
+(``_wide_unpack`` / ``_wide_pack``).  'reference' keeps direct field
+arithmetic.
+
+``compile_plan``'s schedule build and every ``apply_plan`` run inside
+``obs`` spans (``compile_plan``, ``apply_plan``; host values only), and
+the schedule caches' sizes are lazy gauges (``compile_cache_size``,
+``compile_cache_pinned``), as in the reference.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch._device import no_tf32, resolve
 from repro_torch.core import integrity as _integrity
 from repro_torch.core import semiring as sr_mod
@@ -53,9 +61,6 @@ from repro_torch.core.semiring import REAL, Semiring
 
 GATHER = "gather"    # output-driven: idx[o, k] = source of output o
 SCATTER = "scatter"  # input-driven:  idx[i, k] = destination of input i
-
-_WIDE_SLICE = ("wide GF(2^k) plans (byte-limb carriers, GHASH's "
-               "GF(2^128)) come with the GCM slice of the port")
 
 
 @dataclasses.dataclass(eq=False)
@@ -282,6 +287,11 @@ def compile_cache_info() -> dict:
                 capacity=_COMPILE_CACHE_CAPACITY, pinned=len(_PINNED_COMPILE))
 
 
+# Cache occupancy as export-time gauges (read lazily at metrics dump).
+_obs.metrics.gauge_fn("compile_cache_size", lambda: len(_COMPILE_CACHE))
+_obs.metrics.gauge_fn("compile_cache_pinned", lambda: len(_PINNED_COMPILE))
+
+
 def _schedule_parts(compiled: CompiledPlan) -> tuple:
     """Digest-relevant content of a cached schedule: everything the
     sparse kernel's launch geometry and tile routing derive from."""
@@ -346,15 +356,17 @@ def compile_plan(plan: PermutePlan, *, block_o: int = 128,
     _COMPILE_CACHE_STATS["misses"] += 1
 
     from repro_torch.kernels.ref import schedule_runs
-    occ, pair_o, pair_n, active, num = _compile_schedule(
-        plan, block_o, block_n)
-    run_o, run_ptr = schedule_runs(pair_o[:num])
     n_o_tiles = -(-plan.n_out // block_o)
+    with _obs.span("compile_plan", mode=plan.mode, n_out=plan.n_out,
+                   n_in=plan.n_in, block_o=block_o, block_n=block_n,
+                   pin=pin):
+        occ, pair_o, pair_n, active, num = _compile_schedule(
+            plan, block_o, block_n)
+        run_o, run_ptr = schedule_runs(pair_o[:num])
+        idle = _idle_rows(run_o, n_o_tiles, block_o, plan.n_out)
     compiled = CompiledPlan(plan, block_o, block_n, n_o_tiles,
                             -(-plan.n_in // block_n), occ, pair_o, pair_n,
-                            active, num, run_o, run_ptr,
-                            _idle_rows(run_o, n_o_tiles, block_o,
-                                       plan.n_out))
+                            active, num, run_o, run_ptr, idle)
     _integrity.SCHEDULE_GUARD.seal(key, _schedule_parts(compiled))
     if pin:
         _PINNED_COMPILE[key] = compiled
@@ -454,6 +466,7 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
     n_out = plan.n_out
     merge2 = None if merge is None else _canon_2d(merge)[0]
 
+    requested = backend
     if backend == "auto":
         backend = _choose_backend(plan)
     if backend in ("einsum", "kernel", "sparse", "reference"):
@@ -464,8 +477,6 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
         raise ValueError(f"unknown backend {backend!r}")
 
     sr = plan.semiring
-    if sr.limbs:
-        raise NotImplementedError(f"semiring {sr.name!r}: {_WIDE_SLICE}")
     if sr.integer_carrier and not _is_int(x2):
         raise ValueError(
             f"semiring {sr.name!r} carries small integers; got payload "
@@ -474,22 +485,30 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
     need_cov = merge2 is not None or out_mask is not None
     cov = coverage(plan) if need_cov else None
 
-    if backend == "reference":
-        out2 = _apply_reference(plan, x2)
-    elif sr.is_gf2k:
-        # The GF(2) bit lift on the chosen backend; the take lowering
-        # substitutes only for einsum — an explicitly requested kernel
-        # backend runs its kernel.
-        fast = _take_fastpath(plan, x2) if backend == "einsum" else None
-        out2 = fast if fast is not None else _apply_gf2k(plan, x2, backend)
-    elif backend == "kernel":
-        from repro_torch.kernels import ops as _kops
-        out2 = _kops.crossbar_permute(plan, x2)
-    elif backend == "sparse":
-        # merge overwrites the unwritten rows below anyway
-        out2 = _apply_sparse(plan, x2, pin_zeros=merge2 is None)
-    else:
-        out2 = _apply_einsum(plan, x2)
+    with _obs.span("apply_plan", backend=backend, requested=requested,
+                   mode=plan.mode, n_out=plan.n_out, n_in=plan.n_in,
+                   semiring=sr.name):
+        if backend == "reference":
+            out2 = _apply_reference(plan, x2)
+        elif sr.limbs:
+            # Wide GF(2^width): ONE lifted GF(2) crossbar evaluation over
+            # width x n bit rows.
+            out2 = _apply_gf2k_wide(plan, x2, backend)
+        elif sr.is_gf2k:
+            # The GF(2) bit lift on the chosen backend; the take lowering
+            # substitutes only for einsum — an explicitly requested
+            # kernel backend runs its kernel.
+            fast = _take_fastpath(plan, x2) if backend == "einsum" else None
+            out2 = fast if fast is not None else _apply_gf2k(plan, x2,
+                                                            backend)
+        elif backend == "kernel":
+            from repro_torch.kernels import ops as _kops
+            out2 = _kops.crossbar_permute(plan, x2)
+        elif backend == "sparse":
+            # merge overwrites the unwritten rows below anyway
+            out2 = _apply_sparse(plan, x2, pin_zeros=merge2 is None)
+        else:
+            out2 = _apply_einsum(plan, x2)
 
     if out_mask is not None:
         keep = out_mask.to(torch.bool)
@@ -593,6 +612,8 @@ def _apply_reference(plan: PermutePlan, x2: torch.Tensor) -> torch.Tensor:
     float32; GF2 gathers XOR-accumulate semiring products and GF2
     scatters scatter-add bit planes and fold mod 2."""
     k, w, sr = plan.k, plan.weights, plan.semiring
+    if sr.limbs:
+        return _apply_gf2k_wide_reference(plan, x2)
     dev = x2.device
     n_in_c = max(plan.n_in - 1, 0)
     n_out_c = max(plan.n_out - 1, 0)
@@ -685,14 +706,13 @@ def lift_gf2_k(plan: PermutePlan) -> PermutePlan:
     XOR_t E[limb_t, b, j + 8t]``).  The lift keeps the plan's mode: a
     scatter lifts to a scatter (input bit ``width·i+j`` lands on output
     bits ``{width·o+b : M_w[b,j]=1}``), which accumulates colliding
-    destinations exactly (XOR is per-bit parity).
+    destinations exactly (XOR is per-bit parity).  Wide widths read the
+    limbs from the weights' trailing axis, (n_ctrl, k, width // 8).
     """
     sr = plan.semiring
     if not sr.is_gf2k:
         raise ValueError(f"lift_gf2_k needs a GF(2^k) plan (width >= 2), "
                          f"got {sr.name!r}")
-    if sr.limbs:
-        raise NotImplementedError(f"semiring {sr.name!r}: {_WIDE_SLICE}")
     width = sr.width
     # The semiring name is part of the key: two plans sharing the same
     # tensors under different widths must never collide.
@@ -716,11 +736,19 @@ def lift_gf2_k(plan: PermutePlan) -> PermutePlan:
     dev = idx.device
     bound = plan.n_in if plan.mode == GATHER else plan.n_out
     valid = (idx >= 0) & (idx < bound)
-    n_tiles = (width + 7) // 8
+    n_tiles = sr.limbs if sr.limbs else (width + 7) // 8
     if plan.weights is None:
         limbs = [torch.full(idx.shape, 1 if t == 0 else 0,
                             dtype=torch.int64, device=dev)
                  for t in range(n_tiles)]
+    elif sr.limbs:
+        w = plan.weights
+        if w.dim() != 3 or tuple(w.shape) != tuple(idx.shape) + (sr.limbs,):
+            raise ValueError(
+                f"wide {sr.name} weights must be shaped "
+                f"{tuple(idx.shape) + (sr.limbs,)} (idx + limb axis), got "
+                f"{tuple(w.shape)}")
+        limbs = [w[..., t].to(torch.int64) & 0xFF for t in range(n_tiles)]
     else:
         w = plan.weights.to(torch.int64) & sr.carrier_mask
         limbs = [(w >> (8 * t)) & 0xFF for t in range(n_tiles)]
@@ -792,6 +820,72 @@ def _apply_gf2k(plan: PermutePlan, x2: torch.Tensor,
     out_bits = out_bits.to(torch.int32).reshape(plan.n_out, width, -1)
     out = torch.sum(out_bits << shifts[None, :, None], dim=1)
     return out.to(x2.dtype)
+
+
+def _wide_unpack(x2: torch.Tensor, n: int, limbs: int) -> torch.Tensor:
+    """(n, D·L) canonical payload -> (width·n, D) bit rows.  The trailing
+    payload axis is the limb axis (length L, fastest-varying), so bit row
+    ``width·i + 8r + b`` is bit ``b`` of limb ``r`` of element ``i``."""
+    d = x2.shape[1] // limbs
+    x3 = x2.to(torch.int32).reshape(n, d, limbs)
+    shifts = torch.arange(8, dtype=torch.int32, device=x2.device)
+    bits = (x3.permute(0, 2, 1)[:, :, None, :]
+            >> shifts[None, None, :, None]) & 1           # (n, L, 8, D)
+    return bits.reshape(8 * limbs * n, d)
+
+
+def _wide_pack(bits: torch.Tensor, n_out: int, limbs: int,
+               dtype) -> torch.Tensor:
+    """(width·n_out, D) bit rows -> (n_out, D·L) canonical payload."""
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    b4 = bits.to(torch.int32).reshape(n_out, limbs, 8, -1)
+    packed = torch.sum(b4 << shifts[None, None, :, None], dim=2)
+    return packed.permute(0, 2, 1).reshape(n_out, -1).to(dtype)
+
+
+def _apply_gf2k_wide(plan: PermutePlan, x2: torch.Tensor,
+                     backend: str) -> torch.Tensor:
+    """Wide (limbed) GF(2^width): elements ride as trailing byte-limb
+    axes; one lifted GF(2) crossbar evaluation over width·n bit rows."""
+    sr = plan.semiring
+    if x2.shape[1] % sr.limbs:
+        raise ValueError(
+            f"wide {sr.name} payloads need a trailing limb axis of "
+            f"{sr.limbs}; flattened payload width {x2.shape[1]} is not "
+            "divisible by it")
+    bits = _wide_unpack(x2, plan.n_in, sr.limbs)
+    out_bits = _run_lifted(lift_gf2_k(plan), bits, backend)
+    return _wide_pack(out_bits, plan.n_out, sr.limbs, x2.dtype)
+
+
+def _apply_gf2k_wide_reference(plan: PermutePlan,
+                               x2: torch.Tensor) -> torch.Tensor:
+    """Direct limbed-arithmetic oracle for wide gather plans (no lift
+    involved); wide scatters run the lifted plan's reference path (a
+    per-bit parity scatter-add, itself independent of the lift's
+    backends)."""
+    sr = plan.semiring
+    limbs = sr.limbs
+    if plan.mode != GATHER:
+        bits = _wide_unpack(x2, plan.n_in, limbs)
+        out_bits = _apply_reference(lift_gf2_k(plan), bits)
+        return _wide_pack(out_bits, plan.n_out, limbs, x2.dtype)
+    d = x2.shape[1] // limbs
+    x3 = x2.to(torch.int32).reshape(plan.n_in, d, limbs) & 0xFF
+    acc = torch.zeros((plan.n_out, d, limbs), dtype=torch.int32,
+                      device=x2.device)
+    for j in range(plan.k):
+        src = plan.idx[:, j]
+        valid = (src >= 0) & (src < plan.n_in)
+        vals = x3[src.clamp(0, max(plan.n_in - 1, 0)).long()]
+        if plan.weights is None:
+            prod = vals
+        else:
+            wj = plan.weights[:, j].to(torch.int32) & 0xFF   # (n_out, L)
+            prod = sr.mul(wj[:, None, :], vals)
+        acc = acc ^ torch.where(valid[:, None, None], prod,
+                                torch.zeros_like(prod))
+    return acc.reshape(plan.n_out, -1).to(x2.dtype)
 
 
 # ---------------------------------------------------------------------------

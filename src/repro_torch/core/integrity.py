@@ -5,9 +5,12 @@ megakernel control tables, registry program constants, GF(2) bit lifts
 of GF(2^k) plans — are sealed
 with a content digest at insert and re-verified on sampled hits: the
 first hit of an entry and every ``sample_every``-th after it (16 by
-default).  A mismatch evicts the entry, counts an ``integrity_faults``
-tick and raises ``IntegrityError``.  (The reference's fault-armed
-``force_verify`` epoch comes with the resilience layer.)
+default), and after ``force_verify`` (an engine fault) the next hit of
+every entry.  A mismatch evicts the entry, counts an
+``integrity_faults`` tick, emits an ``integrity_fault`` obs event and
+raises ``IntegrityError``.  ``integrity_info`` aggregates the guards'
+stats; three lazy gauges export the sampling knob, the verified-hit
+rate and the sealed entries.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import obs as _obs
 
 
 class IntegrityError(RuntimeError):
@@ -66,7 +71,8 @@ def content_digest(parts: Iterable) -> str:
 
 
 _LOCK = threading.RLock()
-_SAMPLE_EVERY = 16
+_SAMPLE_EVERY = 16        # verify hit 1, N+1, 2N+1, ... of each entry
+_FORCE_EPOCH = 0          # bumped on every engine fault
 
 
 def set_sample_every(n: int) -> int:
@@ -79,6 +85,11 @@ def set_sample_every(n: int) -> int:
     return prev
 
 
+def sample_every() -> int:
+    with _LOCK:
+        return _SAMPLE_EVERY
+
+
 @contextlib.contextmanager
 def always_verify():
     """Scope with sampling forced to every hit (test helper)."""
@@ -89,13 +100,35 @@ def always_verify():
         set_sample_every(prev)
 
 
+def force_verify() -> int:
+    """Arm verify-on-next-hit for every guarded entry (after any engine
+    fault, the next touch of each cached schedule, lift or program
+    re-digests regardless of the sampling phase).  Returns the new
+    fault epoch."""
+    global _FORCE_EPOCH
+    with _LOCK:
+        _FORCE_EPOCH += 1
+        return _FORCE_EPOCH
+
+
+class _Entry:
+    __slots__ = ("digest", "hits", "epoch")
+
+    def __init__(self, digest: str, epoch: int) -> None:
+        self.digest = digest
+        self.hits = 0
+        self.epoch = epoch
+
+
 class CacheGuard:
-    """Digest ledger for one cache family: the digest sealed at insert
-    and the hit count of every key."""
+    """Digest ledger for one cache family: the digest sealed at insert,
+    the hit count and fault epoch of every key, and the family's
+    sealed / hits / checks / faults counts."""
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self._entries: dict = {}      # key -> [digest, hits]
+        self._entries: dict = {}
+        self._stats = {"sealed": 0, "hits": 0, "checks": 0, "faults": 0}
 
     def seal(self, key, parts: Optional[Iterable] = None, *,
              digest: Optional[str] = None) -> str:
@@ -103,40 +136,60 @@ class CacheGuard:
         if digest is None:
             digest = content_digest(parts if parts is not None else ())
         with _LOCK:
-            self._entries[key] = [digest, 0]
+            self._entries[key] = _Entry(digest, _FORCE_EPOCH)
+            self._stats["sealed"] += 1
         return digest
 
     def verify(self, key, parts_fn: Optional[Callable[[], Iterable]] = None,
                *, digest_fn: Optional[Callable[[], str]] = None,
                evict: Optional[Callable[[], None]] = None) -> bool:
-        """Check one cache hit against its seal (sampled).
+        """Check one cache hit against its seal (sampled, or forced by a
+        fault epoch newer than the entry's last check).
 
         True when a comparison ran and matched; False when the hit was
         unsampled or never sealed.  On mismatch: drop the seal, run
-        ``evict``, count, raise ``IntegrityError``.
+        ``evict``, count, emit an ``integrity_fault`` event and raise
+        ``IntegrityError``.
         """
         with _LOCK:
             entry = self._entries.get(key)
             if entry is None:
                 return False
-            want, hit_index = entry
-            entry[1] += 1
-            if hit_index % _SAMPLE_EVERY:
+            hit_index = entry.hits
+            entry.hits += 1
+            self._stats["hits"] += 1
+            if not (entry.epoch < _FORCE_EPOCH
+                    or hit_index % _SAMPLE_EVERY == 0):
                 return False
+            entry.epoch = _FORCE_EPOCH
+            self._stats["checks"] += 1
+            want = entry.digest
         _telemetry_incr("integrity_checks")
         got = digest_fn() if digest_fn is not None else content_digest(
             parts_fn() if parts_fn is not None else ())
         if got == want:
             return True
-        self.drop(key)
+        with _LOCK:
+            self._entries.pop(key, None)
+            self._stats["faults"] += 1
         if evict is not None:
             evict()
         _telemetry_incr("integrity_faults")
+        _obs.event("integrity_fault", guard=self.name, key=str(key))
         raise IntegrityError(self.name, key)
 
     def drop(self, key) -> None:
         with _LOCK:
             self._entries.pop(key, None)
+
+    def depth(self) -> int:
+        with _LOCK:
+            return len(self._entries)
+
+    def info(self) -> dict:
+        with _LOCK:
+            return dict(self._stats, size=len(self._entries),
+                        sample_every=_SAMPLE_EVERY)
 
 
 def _telemetry_incr(name: str) -> None:
@@ -152,8 +205,32 @@ LIFT_GUARD = CacheGuard("lift")            # GF(2^k) -> GF(2) lifted plans
 GUARDS = (SCHEDULE_GUARD, PROGRAM_GUARD, CONST_GUARD, LIFT_GUARD)
 
 
+def integrity_info() -> dict:
+    """Aggregated guard stats (tests, dashboards)."""
+    out = {g.name: g.info() for g in GUARDS}
+    hits = sum(v["hits"] for v in out.values())
+    checks = sum(v["checks"] for v in out.values())
+    out["verify_rate"] = (checks / hits) if hits else 0.0
+    return out
+
+
 def reset() -> None:
-    """Drop every seal (test isolation)."""
+    """Drop every seal and rewind the sampling state (test isolation)."""
+    global _FORCE_EPOCH
     with _LOCK:
         for g in GUARDS:
             g._entries.clear()
+            g._stats.update(sealed=0, hits=0, checks=0, faults=0)
+        _FORCE_EPOCH = 0
+
+
+# Export-time gauges: the sampling knob, the verified-hit fraction
+# (checks / hits over every guard) and the sealed entries.
+_obs.metrics.gauge_fn("integrity_sample_every", sample_every)
+_obs.metrics.gauge_ratio(
+    "integrity_verify_rate",
+    lambda: sum(g.info()["checks"] for g in GUARDS),
+    lambda: sum(g.info()["hits"] for g in GUARDS))
+_obs.metrics.gauge_fn(
+    "integrity_sealed_entries",
+    lambda: sum(g.depth() for g in GUARDS))

@@ -7,8 +7,11 @@ Port of ``repro.core.semiring``: ``REAL`` (multiply-add), ``GF2``
 dispatches on.  GF(2^k) plans execute through the GF(2) bit lift
 (``core.crossbar.lift_gf2_k``), whose tables are built here on the host
 in numpy: they are control information.  The field arithmetic takes
-numpy arrays, Python ints or tensors alike.  Widths above 31 (GHASH's
-GF(2^128), carried as byte limbs) come with the GCM slice.
+numpy arrays, Python ints or tensors alike.  Wider fields (multiples of
+8 up to 128: GHASH's GF(2^128)) carry elements as little-endian 8-bit
+LIMBS — a trailing axis of ``width // 8`` int32 values in [0, 256),
+limb ``r`` holding field bits ``8r .. 8r+7`` — and execute only through
+the bit lift (``limbs`` set on the semiring).
 
 Semirings are interned singletons: identity and ``name`` are cache-key
 material, exactly as in the reference.
@@ -33,9 +36,6 @@ DEFAULT_POLYS = {
     16: 0x1100B,
     128: (1 << 128) | 0x87,
 }
-
-_WIDE_SLICE = ("GF(2^k) widths above 31 carry elements as byte limbs, "
-               "which come with the GCM slice of the port")
 
 
 def _int32_operands(a, b):
@@ -104,14 +104,13 @@ def gf2_8_bit_matrix_table() -> np.ndarray:
     return bits.transpose(1, 2, 0).astype(np.int8)     # (w, b, j)
 
 
-def _check_scalar_width(width: int) -> None:
-    if width > 31:
-        raise NotImplementedError(f"GF(2^{width}): {_WIDE_SLICE}")
+def _limb_count(width: int) -> int:
+    """Limbs of a wide width (0 for scalar-carried widths <= 31)."""
+    return 0 if width <= 31 else width // 8
 
 
 def gf2k_xtime(a, width: int, poly: int):
     """Multiply by x in GF(2^width), scalar carriers (width <= 31)."""
-    _check_scalar_width(width)
     mask = (1 << width) - 1
     a = _as_int32(a)
     return ((a << 1) ^ (((a >> (width - 1)) & 1) * (poly & mask))) & mask
@@ -120,13 +119,67 @@ def gf2k_xtime(a, width: int, poly: int):
 def gf2k_mul(a, b, width: int, poly: int):
     """Elementwise GF(2^width) product, scalar carriers (width <= 31):
     a branch-free xtime chain of ``width`` steps."""
-    _check_scalar_width(width)
     a, b, where = _int32_operands(a, b)
     acc = a * 0 + b * 0
     for i in range(width):
         acc = acc ^ where(((b >> i) & 1) != 0, a)
         a = gf2k_xtime(a, width, poly)
     return acc
+
+
+def _poly_limbs(poly: int, limbs: int) -> np.ndarray:
+    """The low ``limbs`` bytes of the reduction polynomial (what is XORed
+    in on overflow), little-endian limb order."""
+    return np.asarray([(poly >> (8 * r)) & 0xFF for r in range(limbs)],
+                      np.int32)
+
+
+def gf2k_xtime_limbs(a, width: int, poly: int):
+    """Multiply by x for limbed carriers: a per-limb shift with carry
+    ripple, then the reduction where bit width-1 falls off."""
+    limbs = width // 8
+    pl = _poly_limbs(poly, limbs)
+    if isinstance(a, torch.Tensor):
+        a = a.to(torch.int32)
+        pl = torch.as_tensor(pl, device=a.device)
+        cat, where = torch.cat, torch.where
+    else:
+        a = np.asarray(a, np.int32)
+        cat, where = np.concatenate, np.where
+    carry = (a >> 7) & 1
+    shifted = (a << 1) & 0xFF
+    shifted = cat([shifted[..., :1], shifted[..., 1:] | carry[..., :-1]],
+                  -1)
+    overflow = carry[..., -1:]
+    return shifted ^ where(overflow != 0, pl, pl * 0)
+
+
+def gf2k_mul_limbs(a, b, width: int, poly: int):
+    """Elementwise GF(2^width) product over limbed carriers: ``a``, ``b``
+    (..., width // 8) int32 byte limbs, leading axes broadcasting.
+    ``width`` fixed xtime steps; host-side tables and weight folds, not a
+    payload hot path."""
+    a, b, where = _int32_operands(a, b)
+    acc = a * 0 + b * 0                         # the broadcast shape
+    cur = a + acc
+    for bit in range(width):
+        r, sh = divmod(bit, 8)
+        bbit = (b[..., r] >> sh) & 1
+        acc = acc ^ where(bbit[..., None] != 0, cur)
+        cur = gf2k_xtime_limbs(cur, width, poly)
+    return acc
+
+
+def gf2k_to_limbs(v: int, width: int) -> np.ndarray:
+    """Python int -> little-endian byte-limb vector (host helper)."""
+    limbs = max(1, width // 8)
+    return np.asarray([(v >> (8 * r)) & 0xFF for r in range(limbs)],
+                      np.int32)
+
+
+def gf2k_from_limbs(limbs_vec) -> int:
+    """Byte-limb vector -> Python int (host helper)."""
+    return sum(int(v) << (8 * r) for r, v in enumerate(np.asarray(limbs_vec)))
 
 
 def gf2k_mul_int(a: int, b: int, width: int, poly: int) -> int:
@@ -151,15 +204,23 @@ def gf2k_tile_table(width: int, poly: int) -> np.ndarray:
     8-bit tiles of a constant: ``E[v, b, m]`` = bit ``b`` of ``v · x^m
     mod P``.  A constant ``w = Σ_t limb_t · x^(8t)`` has the bit matrix
     ``M_w[b, j] = XOR_t E[limb_t, b, j + 8t]``; for width 8 this is
-    ``gf2_8_bit_matrix_table``."""
-    _check_scalar_width(width)
-    limbs = max(1, (width + 7) // 8)
+    ``gf2_8_bit_matrix_table``.  Wide widths build it on limbed
+    carriers."""
+    limbs = max(1, width // 8 if width > 31 else (width + 7) // 8)
     n_cols = width + 8 * (limbs - 1)
     out = np.empty((256, width, n_cols), np.int8)
-    cur = np.arange(256, dtype=np.int32) & ((1 << width) - 1)
+    if width <= 31:
+        cur = np.arange(256, dtype=np.int32) & ((1 << width) - 1)
+        for m in range(n_cols):
+            out[:, :, m] = (cur[:, None] >> np.arange(width)) & 1
+            cur = gf2k_xtime(cur, width, poly)
+        return out
+    cur = np.zeros((256, width // 8), np.int32)
+    cur[:, 0] = np.arange(256)
     for m in range(n_cols):
-        out[:, :, m] = (cur[:, None] >> np.arange(width)) & 1
-        cur = gf2k_xtime(cur, width, poly)
+        bits = (cur[:, :, None] >> np.arange(8)) & 1        # (256, L, 8)
+        out[:, :, m] = bits.reshape(256, width)
+        cur = gf2k_xtime_limbs(cur, width, poly)
     return out
 
 
@@ -210,6 +271,12 @@ class Semiring:
         return _xor_reduce(x, dim)
 
     def ones(self, shape, device=None) -> torch.Tensor:
+        if self.limbs:
+            # the identity of a wide field is the limb vector [1, 0, ...]
+            w = torch.zeros(tuple(shape) + (self.limbs,),
+                            dtype=self.weight_dtype, device=device)
+            w[..., 0] = 1
+            return w
         return torch.full(tuple(shape), self.one, dtype=self.weight_dtype,
                           device=device)
 
@@ -231,14 +298,14 @@ GF2_8 = Semiring(
 _BY_NAME = {s.name: s for s in (REAL, GF2, GF2_8)}
 
 
-@functools.lru_cache(maxsize=None)
 def gf2_k(width: int, poly: int | None = None) -> Semiring:
     """The interned GF(2^width) semiring (default polynomial per width).
 
     ``gf2_k(8)`` with the Rijndael polynomial is ``GF2_8`` and
     ``gf2_k(1)`` is ``GF2``: one interning for the whole family, so
     identity comparison and cache keys stay sound.  Widths 2..31 carry
-    elements and weights as int32 scalars.
+    elements and weights as int32 scalars; wider ones (multiples of 8 up
+    to 128) as (..., width // 8) byte limbs, executed through the lift.
     """
     if width == 1:
         return GF2
@@ -247,19 +314,36 @@ def gf2_k(width: int, poly: int | None = None) -> Semiring:
         if poly is None:
             raise ValueError(
                 f"no default polynomial for width {width}; pass poly=")
+    # one member per (width, poly), however the polynomial was named
+    return _gf2_k(width, poly)
+
+
+@functools.lru_cache(maxsize=None)
+def _gf2_k(width: int, poly: int) -> Semiring:
     if poly >> width == 0 or poly >> (width + 1):
         raise ValueError(f"polynomial {poly:#x} is not degree-{width}")
     if width == 8 and poly == AES_POLY:
         return GF2_8
-    _check_scalar_width(width)
-    sr = Semiring(
-        name=f"gf2_{width}" + (
-            "" if poly == DEFAULT_POLYS.get(width) else f"_p{poly:x}"),
-        add=torch.bitwise_xor,
-        mul=functools.partial(gf2k_mul, width=width, poly=poly),
-        zero=0, one=1, weight_dtype=torch.int32,
-        integer_carrier=True, carrier_mask=(1 << width) - 1,
-        width=width, poly=poly)
+    name = f"gf2_{width}" + (
+        "" if poly == DEFAULT_POLYS.get(width) else f"_p{poly:x}")
+    if width <= 31:
+        sr = Semiring(
+            name=name, add=torch.bitwise_xor,
+            mul=functools.partial(gf2k_mul, width=width, poly=poly),
+            zero=0, one=1, weight_dtype=torch.int32,
+            integer_carrier=True, carrier_mask=(1 << width) - 1,
+            width=width, poly=poly)
+    else:
+        if width > 128 or width % 8:
+            raise ValueError(
+                f"wide GF(2^k) widths must be multiples of 8 up to 128, "
+                f"got {width}")
+        sr = Semiring(
+            name=name, add=torch.bitwise_xor,
+            mul=functools.partial(gf2k_mul_limbs, width=width, poly=poly),
+            zero=0, one=1, weight_dtype=torch.int32,
+            integer_carrier=True, width=width, poly=poly,
+            limbs=width // 8)
     _BY_NAME.setdefault(sr.name, sr)
     return sr
 

@@ -10,8 +10,10 @@ on first execution per (op, payload shapes, backend) and raises
 enter the signature.
 
 ``execute`` runs one pass of a registered plan, observed under the
-contract when asked.  Waiting for later slices: the drift-monitor feed
-(``obs``), ``quarantine_count``, ``audit_constant_time`` and the
+contract when asked.  Each observation runs inside a
+``registry_observe`` span and feeds the streaming drift monitor
+(``obs.drift_monitor``) before its signature is compared.  Waiting for
+later slices: ``quarantine_count``, ``audit_constant_time`` and the
 host-sync audit (ROADMAP item 9).
 """
 
@@ -19,8 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+from repro_torch import obs as _obs
 from repro_torch.core import crossbar as xb
 from repro_torch.core import integrity as _integrity
 from repro_torch.core import plan_program as pp
@@ -234,7 +238,9 @@ class StaticPlanRegistry:
         """Assert the wrapped block's schedule signature is call-invariant
         for this (name, shapes, backend), and optionally its exact pass
         and program-launch counts."""
-        with telemetry.delta() as d:
+        t0 = time.perf_counter()
+        with _obs.span("registry_observe", op=str(name), registry=self.name,
+                       backend=backend or ""), telemetry.delta() as d:
             yield
         delta = d()
         calls = delta["apply_calls"]
@@ -253,6 +259,11 @@ class StaticPlanRegistry:
             sig = sig + (launches,
                          tuple(self.program_fingerprint(k)
                                for k in program_keys))
+        # The drift monitor sees every observation, the one about to
+        # raise FixedLatencyError included.
+        _obs.drift_monitor.observe(f"{self.name}:{name}", passes=calls,
+                                   fingerprint=sig[1:],
+                                   wall_s=time.perf_counter() - t0)
         key = (name, tuple(shapes), backend)
         prev = self._observed.get(key)
         if prev is None:

@@ -11,13 +11,15 @@ all; ``delta()`` measures a block:
         y = expr.apply()
     assert d()["apply_calls"] == 1
 
-(``no_host_sync``, the constant-time audit primitive, waits for a later
-slice.)
+``reset()`` also resets ``repro_torch.obs`` (spans, histograms, drift
+baselines) when that package is loaded.  (``no_host_sync``, the
+constant-time audit primitive, waits for a later slice.)
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 
 from repro_torch import kernels as _kernels
@@ -37,6 +39,11 @@ def incr(name: str, n: int = 1) -> int:
     with LOCK:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
         return _COUNTERS[name]
+
+
+def counter(name: str) -> int:
+    with LOCK:
+        return _COUNTERS.get(name, 0)
 
 
 def snapshot() -> dict:
@@ -84,6 +91,9 @@ def reset() -> None:
         _integrity.reset()
         _kernels.reset_launch_counts()
         _COUNTERS.clear()
+    obs = sys.modules.get("repro_torch.obs")
+    if obs is not None:
+        obs.reset()
 
 
 @contextlib.contextmanager

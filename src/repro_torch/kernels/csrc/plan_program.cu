@@ -9,10 +9,14 @@
 // and out (2 x n x 4 bytes a lane) plus the control tables; the work is
 // the PERMUTE gathers — for Keccak-f[1600], 24 rounds x 13 selects x 1600
 // rows — and the elementwise steps, all on a register file in shared
-// memory, with block-wide barriers between dependent steps.  At 1024
-// lanes the bytes take ~4 us; what the kernel takes beyond that is the
-// latency of 24 rounds of dependent steps and the shared-memory
-// instructions in them.
+// memory (or, for the word layout's largest programs, in global memory),
+// with block-wide barriers between dependent steps.  At 1024 lanes the
+// bytes take ~4 us; what the kernel takes beyond that is the latency of
+// 24 rounds of dependent steps and the shared-memory instructions in
+// them.  AES-128-GCM's programs (word layout, 424 to ~8000 steps) are
+// set by the select slots the PERMUTE loop walks: every row at its
+// plan's widest row (k = 142 for GHASH's absorb plan), one control load
+// a slot, 26x the live selects at 1500-byte records.
 //
 // Both layouts:
 //   * The step stream comes from the host already renamed: a PERMUTE
@@ -71,8 +75,20 @@
 // weighted plans, any register that may carry high bits).  One uint32
 // word a lane a row, as the reference: each CTA owns `lanes` whole lanes
 // (a PERMUTE may read any row, so a lane is never split), register file
-// in dynamic shared memory (above 48 KB after cudaFuncSetAttribute), row
-// r's lanes contiguous.  A thread takes up to 4 lanes of one row as one
+// laid out (register, row, lane), row r's lanes contiguous, in one of two
+// places:
+//   * shared: dynamic shared memory (above 48 KB after
+//     cudaFuncSetAttribute), where one lane's file, n_phys x n x 4 bytes,
+//     fits the 232448-byte opt-in (n <= 11622 at 5 physical registers);
+//   * global: a scratch tensor the wrapper allocates for the launch, one
+//     slab a CTA, for larger programs (AES-128-GCM over a 1500-byte
+//     record: n = 12640, 253 KB a lane).  The same VM over the same
+//     layout: a warp's neighbouring threads still read neighbouring
+//     words, the block barrier still orders the steps (it orders global
+//     as well as shared accesses within the block), and the files of the
+//     lanes in flight stay in the 50 MB L2 (64 lanes of GCM's 253 KB:
+//     16 MB).  Each register access is then an L1/L2 access, not a
+//     shared-memory one.  A thread takes up to 4 lanes of one row as one
 // 16-byte shared-memory vector, so each select's control (plan row,
 // weight) is read from global memory once per 4 lanes, not once a lane.
 // A program's steps are a chain of dependent latencies (a control load,
@@ -116,7 +132,7 @@ struct alignas(4 * V) Words {
   uint32_t w[V];
 };
 
-template <int V>
+template <int V, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
     pp_word_kernel(const uint32_t* __restrict__ state,
                    uint32_t* __restrict__ out, const int* __restrict__ steps,
@@ -127,14 +143,17 @@ __global__ void __launch_bounds__(kThreads)
                    const int* __restrict__ woff,
                    const int* __restrict__ consts, int n, int d, int n_phys,
                    int rounds, int const_stride, int lanes_log2,
-                   int out_reg) {
+                   int out_reg, uint32_t* file) {
   extern __shared__ uint4 smem_w[];
-  uint32_t* regs = reinterpret_cast<uint32_t*>(smem_w);
   const int nthr = blockDim.x;
   const int lanes = 1 << lanes_log2;
   const int l0 = blockIdx.x << lanes_log2;
   const int live = min(lanes, d - l0);  // lanes of this CTA inside d
   const int per = n << lanes_log2;      // words per register
+  // the register file: this CTA's slab of the global scratch, or shared
+  uint32_t* regs =
+      kGlobal ? file + (size_t)blockIdx.x * n_phys * per
+              : reinterpret_cast<uint32_t*>(smem_w);
   constexpr int kVlog2 = V == 4 ? 2 : (V == 2 ? 1 : 0);
   const int glog2 = lanes_log2 - kVlog2;  // V-word groups a row, log2
   const int n_el = n << glog2;            // V-word groups a register
@@ -236,24 +255,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <int V, bool kGlobal>
+int launch_word_at(const void* state, void* out, const int* steps,
+                   int n_steps, int period, const int* plan_tbl,
+                   const int* koff, const int* kcnt, const int* folds,
+                   const int* w_flat, const int* woff, const int* consts,
+                   int n, int d, int n_phys, int rounds, int const_stride,
+                   int lanes_log2, int threads, int out_reg, void* file,
+                   cudaStream_t s) {
+  const size_t smem =
+      kGlobal ? 0 : ((size_t)n_phys * n * sizeof(uint32_t)) << lanes_log2;
+  cudaError_t err = cudaFuncSetAttribute(
+      pp_word_kernel<V, kGlobal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (d + (1 << lanes_log2) - 1) >> lanes_log2;
+  pp_word_kernel<V, kGlobal><<<grid, threads, smem, s>>>(
+      static_cast<const uint32_t*>(state), static_cast<uint32_t*>(out), steps,
+      n_steps, period, plan_tbl, koff, kcnt, folds, w_flat, woff, consts, n,
+      d, n_phys, rounds, const_stride, lanes_log2, out_reg,
+      static_cast<uint32_t*>(file));
+  return (int)cudaGetLastError();
+}
+
 template <int V>
 int launch_word(const void* state, void* out, const int* steps, int n_steps,
                 int period, const int* plan_tbl, const int* koff,
                 const int* kcnt, const int* folds, const int* w_flat,
                 const int* woff, const int* consts, int n, int d, int n_phys,
                 int rounds, int const_stride, int lanes_log2, int threads,
-                int out_reg, cudaStream_t s) {
-  const size_t smem = ((size_t)n_phys * n * sizeof(uint32_t)) << lanes_log2;
-  cudaError_t err = cudaFuncSetAttribute(
-      pp_word_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (d + (1 << lanes_log2) - 1) >> lanes_log2;
-  pp_word_kernel<V><<<grid, threads, smem, s>>>(
-      static_cast<const uint32_t*>(state), static_cast<uint32_t*>(out), steps,
-      n_steps, period, plan_tbl, koff, kcnt, folds, w_flat, woff, consts, n,
-      d, n_phys, rounds, const_stride, lanes_log2, out_reg);
-  return (int)cudaGetLastError();
+                int out_reg, void* file, cudaStream_t s) {
+  if (file != nullptr)
+    return launch_word_at<V, true>(state, out, steps, n_steps, period,
+                                   plan_tbl, koff, kcnt, folds, w_flat, woff,
+                                   consts, n, d, n_phys, rounds, const_stride,
+                                   lanes_log2, threads, out_reg, file, s);
+  return launch_word_at<V, false>(state, out, steps, n_steps, period,
+                                  plan_tbl, koff, kcnt, folds, w_flat, woff,
+                                  consts, n, d, n_phys, rounds, const_stride,
+                                  lanes_log2, threads, out_reg, file, s);
 }
 
 // ---------------------------------------------------------- packed layout
@@ -435,13 +475,16 @@ int pp_smem_optin(int device, int* bytes) {
 // folds/woff: (n_plans,); w_flat: (KW_total, n) or null; consts:
 // (n_consts, n).  1 << lanes_log2 payload columns per CTA of `threads`
 // threads (a multiple of 32, at most 1024); register 0 is physical
-// register out_reg at the end.
+// register out_reg at the end.  file: null for the register file in
+// shared memory, else global scratch of grid x n_phys x (n << lanes_log2)
+// words (grid = ceil(d / lanes)), one slab a CTA.
 int pp_megakernel(const void* state, void* out, const int* steps,
                   int n_steps, int period, const int* plan_tbl,
                   const int* koff, const int* kcnt, const int* folds,
                   const int* w_flat, const int* woff, const int* consts,
                   int n, int d, int n_phys, int rounds, int const_stride,
-                  int lanes_log2, int threads, int out_reg, void* stream) {
+                  int lanes_log2, int threads, int out_reg, void* file,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (threads < 32 || threads > kThreads || threads % 32)
     return (int)cudaErrorInvalidValue;
@@ -449,15 +492,16 @@ int pp_megakernel(const void* state, void* out, const int* steps,
     return launch_word<4>(state, out, steps, n_steps, period, plan_tbl, koff,
                           kcnt, folds, w_flat, woff, consts, n, d, n_phys,
                           rounds, const_stride, lanes_log2, threads, out_reg,
-                          s);
+                          file, s);
   if (lanes_log2 == 1)
     return launch_word<2>(state, out, steps, n_steps, period, plan_tbl, koff,
                           kcnt, folds, w_flat, woff, consts, n, d, n_phys,
                           rounds, const_stride, lanes_log2, threads, out_reg,
-                          s);
+                          file, s);
   return launch_word<1>(state, out, steps, n_steps, period, plan_tbl, koff,
                         kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                        rounds, const_stride, lanes_log2, threads, out_reg, s);
+                        rounds, const_stride, lanes_log2, threads, out_reg,
+                        file, s);
 }
 
 // Packed layout.  state/out: (n, d) 32-bit words (bit 0 read, 0/1

@@ -2,12 +2,15 @@
 
 Port of ``repro/kernels/plan_program_kernel.py`` (``plan_program_pallas``);
 the kernel is ``csrc/plan_program.cu``, a bytecode VM over a register
-file held in shared memory, in one of two layouts: ``word`` (one uint32
-a lane a row, any program) and ``packed`` (32 lanes a word, for the
-programs ``core.plan_program.bit_sliceable`` admits).  Its plain
-versions are ``kernels.ref.plan_program_vm`` (the program's semantics)
-and ``kernels.ref.plan_program_packed`` (the packed layout's arithmetic
-on the same tables).  ``OPCODES`` numbers the step stream in the same
+file, in one of two layouts: ``word`` (one uint32 a lane a row, any
+program) and ``packed`` (32 lanes a word, for the programs
+``core.plan_program.bit_sliceable`` admits).  The packed layout keeps
+its file in shared memory; the word layout keeps it there where one
+lane's file fits the opt-in and in a global scratch tensor otherwise
+(``register_file``), which the TPU kernel, with its file in VMEM, never
+needed to choose.  Its plain versions are ``kernels.ref.plan_program_vm``
+(the program's semantics) and ``kernels.ref.plan_program_packed`` (the
+packed layout's arithmetic on the same tables).  ``OPCODES`` numbers the step stream in the same
 order as the reference, and ``control_digest`` salts the digest of a
 program's control state with that numbering.
 """
@@ -30,8 +33,14 @@ LAYOUTS = ("packed", "word")
 # footprint (control blob and register file) must fit it.
 PACKED_SMEM_BYTES = 232448
 
+# Where the word layout keeps its register file; ``LAYOUT_LAUNCHES``
+# counts a launch under "packed", "word" (shared) or "word_global".
+PLACEMENTS = ("shared", "global")
+# The global placement indexes one CTA's file with 32-bit word offsets.
+GLOBAL_FILE_WORDS = 2**31 - 1
+
 LAUNCHES = {"plan_program": 0}
-LAYOUT_LAUNCHES = {"packed": 0, "word": 0}
+LAYOUT_LAUNCHES = {"packed": 0, "word": 0, "word_global": 0}
 _LOCK = threading.Lock()
 
 
@@ -42,24 +51,40 @@ def control_digest(steps, consts, plan_parts=()) -> str:
         ("|".join(OPCODES), steps, consts) + tuple(plan_parts))
 
 
+def register_file(n: int, n_regs: int, smem_bytes: int) -> str:
+    """Where the word layout keeps a program's register file — n_regs
+    registers plus one scratch register, n uint32 rows each, a lane:
+    ``"shared"`` when one lane's file fits the shared memory a block may
+    opt in to, else ``"global"`` (a scratch tensor allocated for the
+    launch, one slab a CTA) while one lane's file stays within the
+    kernel's 32-bit word offsets.  Raises ``ValueError`` past both."""
+    words = (n_regs + 1) * n
+    if words * 4 <= smem_bytes:
+        return "shared"
+    if words <= GLOBAL_FILE_WORDS:
+        return "global"
+    raise ValueError(
+        f"one lane of an n={n}, n_regs={n_regs} program needs a "
+        f"{words * 4}-byte register file: over the {smem_bytes} bytes of "
+        f"shared memory a block may use and over the {GLOBAL_FILE_WORDS} "
+        "words a CTA's global file may index")
+
+
 def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int, *,
                   sms: int = 1) -> int:
-    """Lanes each CTA owns in the word layout: whole lanes whose register
-    file — n_regs registers plus one scratch register, n uint32 rows
-    each — fits the shared memory a block may opt in to.  A power of two
-    (the kernel finds a thread's lane by shifts): the largest that fits,
-    capped at the power of two that covers ``d`` and at the most that
-    still gives ``sms`` CTAs (the card's SMs: a program's steps are a
-    chain of dependent latencies, so the grid should cover the card
-    before a CTA takes more lanes).  Raises when not even one lane
-    fits."""
-    per_lane = (n_regs + 1) * n * 4
-    fit = smem_bytes // per_lane
-    if fit < 1:
-        raise ValueError(
-            f"one lane of an n={n}, n_regs={n_regs} program needs "
-            f"{per_lane} bytes of shared memory; the card allows "
-            f"{smem_bytes} per block")
+    """Lanes each CTA owns in the word layout: a power of two (the kernel
+    finds a thread's lane by shifts), the largest whose files fit the
+    placement ``register_file`` picks (the shared memory a block may opt
+    in to, or the global file's word offsets), capped at the power of two
+    that covers ``d`` and at the most that still gives ``sms`` CTAs (the
+    card's SMs: a program's steps are a chain of dependent latencies, so
+    the grid should cover the card before a CTA takes more lanes).
+    Raises where ``register_file`` does."""
+    words = (n_regs + 1) * n
+    if register_file(n, n_regs, smem_bytes) == "shared":
+        fit = smem_bytes // (words * 4)
+    else:
+        fit = GLOBAL_FILE_WORDS // words
     lanes = 1
     while lanes * 2 <= fit and lanes < d and -(-d // (lanes * 2)) >= sms:
         lanes *= 2
@@ -128,7 +153,8 @@ def smem_optin(device: torch.device) -> int:
     return _SMEM_OPTIN[index]
 
 
-def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None):
+def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None,
+                      placement=None):
     """Launch the megakernel on a CUDA state.
 
     state: (n, D) int32 or uint32 (bit-cast to uint32 through the
@@ -138,7 +164,10 @@ def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None):
     chose; lanes, threads: the word layout's lanes a CTA (a power of two
     whose register file fits) and threads a CTA (a multiple of 32, at
     most 1024), by default ``lanes_per_cta``'s and ``word_threads``'s
-    (for timing alternatives).  Returns (n, D) in state's dtype.
+    (for timing alternatives); placement: the word layout's register
+    file, ``"shared"`` or ``"global"``, by default ``register_file``'s
+    (``"global"`` runs any word program, for timing and tests).  Returns
+    (n, D) in state's dtype.
     """
     if not state.is_cuda:
         raise ValueError(f"megakernel needs a CUDA state, got {state.device}")
@@ -183,18 +212,29 @@ def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None):
             int(d % 4 == 0 and state.data_ptr() % 16 == 0), stream)
     else:
         smem = smem_optin(state.device)
+        n_phys = ctl["n_phys"]
+        if placement is None:
+            placement = register_file(n, n_phys - 1, smem)
+        elif placement not in PLACEMENTS:
+            raise ValueError(f"placement must be one of {PLACEMENTS}, got "
+                             f"{placement!r}")
+        room = smem // 4 if placement == "shared" else GLOBAL_FILE_WORDS
         if lanes is None:
-            lanes = lanes_per_cta(n, ctl["n_phys"] - 1, d, smem,
+            lanes = lanes_per_cta(n, n_phys - 1, d, smem,
                                   sms=sm_count(state.device))
-        elif (lanes < 1 or lanes & (lanes - 1)
-              or ctl["n_phys"] * n * 4 * lanes > smem):
+        if lanes < 1 or lanes & (lanes - 1) or n_phys * n * lanes > room:
             raise ValueError(f"lanes={lanes}: need a power of two whose "
-                             f"register file fits {smem} bytes")
+                             f"register files fit the {placement} "
+                             f"placement ({room} words)")
         if threads is None:
             threads = word_threads(n, lanes)
         elif not (32 <= threads <= 1024 and threads % 32 == 0):
             raise ValueError(f"threads={threads}: need a multiple of 32 "
                              "up to 1024")
+        file = None
+        if placement == "global":
+            file = torch.empty(-(-d // lanes) * n_phys * n * lanes,
+                               dtype=torch.int32, device=state.device)
         w_flat = ctl["w_flat"]
         err = lib.pp_megakernel(
             state.data_ptr(), out.data_ptr(), ctl["phys_steps"].data_ptr(),
@@ -203,8 +243,11 @@ def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None):
             ctl["folds"].data_ptr(),
             None if w_flat is None else w_flat.data_ptr(),
             ctl["woff"].data_ptr(), ctl["consts"].data_ptr(), n, d,
-            ctl["n_phys"], ctl["rounds"], ctl["const_stride"],
-            lanes.bit_length() - 1, threads, ctl["out_reg"], stream)
+            n_phys, ctl["rounds"], ctl["const_stride"],
+            lanes.bit_length() - 1, threads, ctl["out_reg"],
+            None if file is None else file.data_ptr(), stream)
+        if placement == "global":
+            layout = "word_global"
     with _LOCK:
         LAUNCHES["plan_program"] += 1
         LAYOUT_LAUNCHES[layout] += 1

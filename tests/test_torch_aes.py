@@ -167,9 +167,13 @@ def test_gf2_k_family_is_interned():
     assert tsr.gf2_k(4, 0x19).name == "gf2_4_p19"
     with pytest.raises(ValueError, match="degree"):
         tsr.gf2_k(8, 0x1B)
+    # wide widths carry byte limbs (GHASH's GF(2^128)); the default and
+    # the named polynomial intern to one member
     for width, poly in ((32, (1 << 32) | 0x8D), (128, None)):
-        with pytest.raises(NotImplementedError, match="GCM slice"):
-            tsr.gf2_k(width, poly)
+        g = tsr.gf2_k(width, poly)
+        assert g.limbs == width // 8 and g is tsr.gf2_k(width, g.poly)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tsr.gf2_k(36, (1 << 36) | 0x9)
 
 
 @pytest.mark.parametrize("width,mode", [(4, "gather"), (8, "scatter"),

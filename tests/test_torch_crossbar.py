@@ -214,8 +214,9 @@ def test_integer_bound_and_semiring_checks():
     small = torch.tensor([[0x1FF], [3]], dtype=torch.int32)
     assert_bitexact(txb.apply_plan(g8, small),
                     np.array([[3], [0xFF]], np.int32))
-    with pytest.raises(NotImplementedError, match="GCM slice"):
-        tsr.gf2_k(128)
+    g128 = txb.gather_plan(plan.idx, 2, semiring=tsr.gf2_k(128))
+    with pytest.raises(ValueError, match="integer"):
+        txb.apply_plan(g128, torch.ones(2, 16), backend="einsum")
     with pytest.raises(ValueError, match="device"):
         txb.apply_plan(plan, torch.ones(2, 1, dtype=torch.int32,
                                         device="meta"))

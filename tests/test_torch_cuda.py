@@ -263,7 +263,8 @@ def test_packed_megakernel_matches_plain_vm(dev, d, kind):
         np.int32), device=dev)
     reset_launch_counts()
     got = keccak.keccak_f1600(s.T.contiguous(), backend="megakernel").T
-    assert ppk.LAYOUT_LAUNCHES == {"packed": 1, "word": 0}
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 1, "word": 0,
+                                   "word_global": 0}
     ctl = pp.control_for(keccak.megakernel_program(dev), dev)
     assert ctl["layout"] == "packed"
     assert_bitexact(got, _vm(s, ctl))
@@ -290,13 +291,15 @@ def test_word_layout_matches_plain_vm(dev, case):
     ctl = pp.control_for(prog, dev)
     reset_launch_counts()
     got = ppk.plan_program_cuda(s, ctl, layout="word")
-    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1}
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1,
+                                   "word_global": 0}
     assert_bitexact(got.view(torch.int32), _vm(s, ctl).view(torch.int32))
     if case == "all_opcodes":
         assert ctl["layout"] == "word"
         assert_bitexact(pp.run_program(prog, s).view(torch.int32),
                         got.view(torch.int32))
-        assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 2}
+        assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 2,
+                                       "word_global": 0}
 
 
 @pytest.mark.parametrize("n", [1, 31, 2048, 5000, 100000])
@@ -443,7 +446,125 @@ def test_chacha20_word_layout_matches_plain_vm(dev):
     reset_launch_counts()
     out = chacha.chacha20_blocks(bytes(range(32)), 1, nonce, 3000,
                                  backend="megakernel", device=dev)
-    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1}
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1,
+                                   "word_global": 0}
     assert out[:8] == bytes.fromhex("10f1e7e4d13b5915")
     assert out == chacha.chacha20_blocks(bytes(range(32)), 1, nonce, 3000,
                                          backend="einsum", device=dev)
+
+
+@pytest.mark.parametrize("case", ["keccak", "all_opcodes", "chacha20"])
+def test_word_layout_global_file_matches_plain_vm(dev, case):
+    """The word kernel with its register file in global memory (forced
+    here for programs that also fit shared memory) against the plain VM
+    and the shared-memory placement, bit-exact."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import chacha, keccak
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import reset_launch_counts
+    rng = np.random.default_rng(11)
+    if case == "keccak":
+        prog = keccak.megakernel_program(dev)
+        s = torch.as_tensor(rng.integers(-2**31, 2**31, (1600, 333)).astype(
+            np.int32), device=dev)
+    elif case == "all_opcodes":
+        prog = _all_opcode_program(dev)
+        s = torch.as_tensor(rng.integers(0, 2**32, (256, 77), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32),
+                            device=dev).view(torch.uint32)
+    else:
+        prog = chacha.megakernel_program(dev)
+        host = chacha._setup_states(bytes(range(32)), 1, bytes(12), 999)
+        s = torch.as_tensor(np.ascontiguousarray(host.view(np.int32).T),
+                            device=dev).view(torch.uint32)
+    ctl = pp.control_for(prog, dev)
+    want = _vm(s, ctl).view(torch.int32)
+    reset_launch_counts()
+    for lanes in (None, 1, 4):
+        got = ppk.plan_program_cuda(s, ctl, layout="word", lanes=lanes,
+                                    placement="global")
+        assert_bitexact(got.view(torch.int32), want)
+    assert_bitexact(ppk.plan_program_cuda(s, ctl, layout="word",
+                                          placement="shared")
+                    .view(torch.int32), want)
+    assert ppk.LAYOUT_LAUNCHES == {"packed": 0, "word": 1,
+                                   "word_global": 3}
+    with pytest.raises(ValueError, match="placement"):
+        ppk.plan_program_cuda(s, ctl, layout="word", placement="l2")
+
+
+@pytest.mark.parametrize("geometry", [(64, 16, 37), (1024, 16, 5),
+                                      (1500, 13, 3)],
+                         ids=["64B-shared", "1KiB-shared", "1500B-global"])
+def test_gcm_fused_seal_open_on_card(dev, geometry):
+    """One megakernel launch a batch, in the placement the geometry
+    takes, equal to the host oracle and the chained path on the card;
+    open round-trips and names the tampered records."""
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import gcm
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import reset_launch_counts
+    from test_torch_gcm import KEY, gcm_ref, vecs
+    pt_len, aad_len, b = geometry
+    ivs, pts, aads = vecs(pt_len, aad_len, b)
+    _, prog, lay = gcm.gcm_program(KEY, pt_len, aad_len, device=dev)
+    placement = ppk.register_file(lay["n"], prog.n_regs,
+                                  ppk.smem_optin(dev))
+    reset_launch_counts()
+    with telemetry.delta() as d:
+        sealed = gcm.aes128_gcm_seal_batch(KEY, ivs, pts, aads,
+                                           fixed_latency=True, device=dev)
+    assert d()["program_launches"] == 1 and d()["apply_calls"] == 0
+    key = "word" if placement == "shared" else "word_global"
+    assert ppk.LAYOUT_LAUNCHES[key] == 1 and sum(
+        ppk.LAYOUT_LAUNCHES.values()) == 1
+    for r in (0, b - 1):
+        assert sealed[r] == b"".join(gcm_ref(KEY, ivs[r], pts[r], aads[r]))
+    assert gcm.aes128_gcm_seal_batch(KEY, ivs[:1], pts[:1], aads[:1],
+                                     backend="kernel",
+                                     device=dev) == sealed[:1]
+    assert gcm.aes128_gcm_open_batch(KEY, ivs, sealed, aads,
+                                     device=dev) == pts
+    bad = list(sealed)
+    bad[1] = bad[1][:-1] + bytes([bad[1][-1] ^ 1])
+    bad[-1] = bytes([bad[-1][0] ^ 1]) + bad[-1][1:]
+    with pytest.raises(gcm.InvalidTagError) as ei:
+        gcm.aes128_gcm_open_batch(KEY, ivs, bad, aads, device=dev)
+    assert ei.value.indices == (1, b - 1)
+
+
+@pytest.mark.parametrize("backend", ["fused", "einsum", "kernel", "sparse",
+                                     "reference"])
+def test_gcm_cavp_on_card(dev, backend):
+    from repro_torch.crypto import gcm
+    from test_torch_gcm import CAVP
+    for key, iv, pt, aad, ct, tag in CAVP:
+        sealed = gcm.aes128_gcm_seal(key, iv, pt, aad, backend=backend,
+                                     device=dev)
+        assert sealed == ct + tag
+        assert gcm.aes128_gcm_open(key, iv, sealed, aad, backend=backend,
+                                   device=dev) == pt
+
+
+@pytest.mark.parametrize("mode", ["powers", "horner"])
+def test_ghash_wide_lift_on_both_crossbars(dev, mode):
+    """GHASH's lifted GF(2^128) passes on the dense and tile-skipping
+    kernels equal the limb oracle ('reference') and the host oracle."""
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import gcm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from test_torch_gcm import KEY, aes_ref, ghash_ref
+    h = gcm._hash_key(KEY)
+    data = bytes(np.random.default_rng(7).integers(0, 256, 16 * 40,
+                                                   dtype=np.uint8))
+    want = gcm.ghash(h, data, mode=mode, backend="reference", device=dev)
+    assert want == ghash_ref(aes_ref(KEY, bytes(16)), data)
+    reset_launch_counts()
+    for backend, kernel in (("kernel", "crossbar_dense"),
+                            ("sparse", "crossbar_sparse")):
+        with telemetry.delta() as d:
+            assert gcm.ghash(h, data, mode=mode, backend=backend,
+                             device=dev) == want
+        passes = 1 if mode == "powers" else 40
+        assert d()[f"apply_calls_{backend}"] == passes
+        assert launch_counts()[kernel] == passes

@@ -141,8 +141,11 @@ def test_lanes_per_cta_derivation():
     assert ppk.lanes_per_cta(1600, 3, 3, 232448) == 4
     assert ppk.lanes_per_cta(1600, 3, 1, 232448) == 1
     assert ppk.lanes_per_cta(64, 3, 1000, 232448) == 128
-    with pytest.raises(ValueError, match="one lane"):
-        ppk.lanes_per_cta(100_000, 4, 8, 232448)
+    # a file over the shared memory goes to global memory; past the global
+    # file's 32-bit word offsets too, the program is refused
+    assert ppk.lanes_per_cta(100_000, 4, 8, 232448) == 8
+    with pytest.raises(ValueError, match="register file"):
+        ppk.lanes_per_cta(2**29, 4, 8, 232448)
 
 
 def test_word_geometry_covers_the_card():
