@@ -1325,14 +1325,66 @@ GCM_CHAINED_RECORDS = 16
 GCM_PREFIX_STEPS = 130       # d1, d2, trip 0 and half of trip 1
 
 
+def _xtime(a: int) -> int:
+    return ((a << 1) ^ 0x11B) if a & 0x80 else a << 1
+
+
+def _aes_sbox() -> list:
+    """FIPS-197's S-box from the field inverse (log tables of the
+    generator 3) and the affine map."""
+    exp, log, x = [0] * 255, [0] * 256, 1
+    for i in range(255):
+        exp[i], log[x] = x, i
+        x ^= _xtime(x)
+    box = []
+    for a in range(256):
+        b = 0 if a == 0 else exp[(255 - log[a]) % 255]
+        s_ = b
+        for k in range(1, 5):
+            s_ ^= ((b << k) | (b >> (8 - k))) & 0xFF
+        box.append(s_ ^ 0x63)
+    return box
+
+
+_SBOX = _aes_sbox()
+
+
+def aes128_oracle(key: bytes):
+    """A plain-Python AES-128 block encryptor (FIPS-197), independent of
+    the port: byte lists, the S-box from the field inverse, MixColumns
+    by xtime."""
+    rk = list(key)
+    rcon = 1
+    for i in range(4, 44):
+        t = rk[4 * i - 4:4 * i]
+        if i % 4 == 0:
+            t = [_SBOX[t[1]] ^ rcon, _SBOX[t[2]], _SBOX[t[3]], _SBOX[t[0]]]
+            rcon = _xtime(rcon)
+        rk += [a ^ b for a, b in zip(rk[4 * i - 16:4 * i - 12], t)]
+
+    def encrypt(block: bytes) -> bytes:
+        st = [a ^ b for a, b in zip(block, rk[:16])]
+        for rnd in range(1, 11):
+            sb = [_SBOX[v] for v in st]
+            st = [sb[r + 4 * ((c + r) % 4)] for c in range(4)
+                  for r in range(4)]
+            if rnd < 10:
+                mixed = []
+                for c in range(4):
+                    a = st[4 * c:4 * c + 4]
+                    t = a[0] ^ a[1] ^ a[2] ^ a[3]
+                    mixed += [a[r] ^ t ^ _xtime(a[r] ^ a[(r + 1) % 4])
+                              for r in range(4)]
+                st = mixed
+            st = [a ^ b for a, b in zip(st, rk[16 * rnd:16 * rnd + 16])]
+        return bytes(st)
+    return encrypt
+
+
 def gcm_oracle(key: bytes, iv: bytes, pt: bytes, aad: bytes) -> bytes:
     """``ciphertext || tag`` by a plain-Python GCM on big-endian field
-    ints (the FIPS bit order) over the host AES block function."""
-    from repro_torch.crypto import aes as AE
-    from repro_torch.crypto import gcm as G
-
-    def aes(block):
-        return G._host_encrypt_block(AE.key_expansion(key), block)
+    ints (the FIPS bit order) over a plain-Python AES."""
+    aes = aes128_oracle(key)
 
     def gmul(x, y):
         z, v = 0, x
@@ -1646,6 +1698,426 @@ def obs_phase(dev, msgs):
     obs.reset()
     log(f"  host clock of the two calls, tracing off {[round(t_, 2) for t_ in off]}"
         f" ms, on {[round(t_, 2) for t_ in on]} ms")
+
+
+SERVE_REQUESTS = 10_000
+SERVE_BATCHES = (128, 1024)      # the reference benchmark's, the card's
+SERVE_FAULT_RATE = 0.01
+SERVE_ORACLE_RECORDS = 64
+
+
+def serving_payloads(n: int, seed: int) -> list:
+    """The reference serving benchmark's traffic rule
+    (``benchmarks/bench_serving.py::_payloads``): ~85 % payloads of
+    1-127 B (one SHA3-256 sponge block), ~15 % of 140-259 B (two)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lengths = np.where(rng.random(n) < 0.85,
+                       rng.integers(1, 128, n),
+                       rng.integers(140, 260, n))
+    return [rng.bytes(int(n_)) for n_ in lengths]
+
+
+def serving_phase(dev):
+    """``BatchingEngine`` answering requests on the card.
+
+    1. The reference serving benchmark's 10^4 SHA3-256 requests at
+       max_batch 128 and 1024, drained with ``run_once`` and by the
+       threaded, double-buffered engine: every digest equal to hashlib,
+       every batch answered by the megakernel in a power-of-two lane
+       count with one packed launch a sponge block, no fallback, retry
+       or crossbar launch; requests/s, MiB/s, latency p50/p99/max,
+       batches, padded-lane share, and one profiled batch.
+    2. AES-128-GCM seal records of geometries (a) and (c) interleaved
+       with SHA-3 in one engine: each record equal to a direct fused
+       seal call and, for a seeded 64 of each geometry, to the host
+       oracle; one word-layout launch a batch; records/s, ms per MiB.
+    3. Degradation, each in its own engine and tuning table: an
+       injected megakernel fault on a SHA-3 batch and a 16-record GCM
+       batch falls to the tile-skipping crossbar, bit-exact; the
+       reference benchmark's 1 % fault regime on the megakernel, every
+       batch without an injected fault answered by it; drift
+       quarantined and answered by the megakernel again; a corrupted
+       constants block never served; a batch whose three kernel rungs
+       all fail raises its typed fault and no plain rung answers; a
+       kernel build failure escapes the chain.
+    Returns the kernel launches of the clean drains of 1 and 2, each
+    counted from 0 just before it and read just after; the degradation
+    cases' launches are logged on their own line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import faults, integrity, telemetry
+    from repro_torch.core import plan_program as pp
+    from repro_torch.core.resilience import (CARD_CHAIN, LaunchFault,
+                                             ResilientExecutor, RetryPolicy)
+    from repro_torch.crypto import gcm as G
+    from repro_torch.crypto import keccak as K
+    from repro_torch.crypto.registry import registry
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels._build import KernelBuildError
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+    from repro_torch.serve.batching import encode_aead_record
+
+    t_phase = time.perf_counter()
+    payloads = serving_payloads(SERVE_REQUESTS, seed=0)
+    want = [hashlib.sha3_256(p).digest() for p in payloads]
+    mib = sum(len(p) for p in payloads) / 2**20
+    reg = registry(dev)
+    clean = {}                       # launches of the clean drains alone
+
+    def add_clean():
+        for k, v in launch_counts().items():
+            clean[k] = clean.get(k, 0) + v
+
+    def counters():
+        return (dict(launch_counts()), dict(ppk.LAYOUT_LAUNCHES),
+                telemetry.snapshot())
+
+    def moved(before, after):
+        """(kernel launches, launches by layout, counters) since before."""
+        return tuple({k: v - b.get(k, 0) for k, v in a.items()}
+                     for b, a in zip(before, after))
+
+    def make(max_batch, *, start=False, executor=None, **opt):
+        opt.setdefault("max_queue", SERVE_REQUESTS)
+        opt.setdefault("batch_log_cap", SERVE_REQUESTS)
+        return BatchingEngine(BatchingOptions(max_batch=max_batch, **opt),
+                              executor=executor, device=dev, start=start)
+
+    def check_clean(name, d, log_):
+        kl, lay, tel = d
+        check(all(b == "megakernel" for _, _, b, _ in log_),
+              f"{name}: batches answered by "
+              f"{sorted({b for _, _, b, _ in log_})}")
+        check(all(s_[0] & (s_[0] - 1) == 0 for _, s_, _, _ in log_),
+              f"{name}: a batch of a lane count not a power of two")
+        for key in ("resilience_fallbacks", "resilience_retries",
+                    "resilience_faults"):
+            check(tel.get(key, 0) == 0, f"{name}: {key} {tel.get(key)}")
+        check(kl["crossbar_dense"] == 0 and kl["crossbar_sparse"] == 0,
+              f"{name}: crossbar launches {kl}")
+
+    def report(name, reqs, wall, log_, tel):
+        lat = np.asarray([r.latency_s for r in reqs]) * 1e3
+        lanes = sum(s_[0] for _, s_, _, _ in log_)
+        log(f"  {name}: {len(reqs) / wall:.1f} requests/s, {mib / wall:.3f} "
+            f"MiB/s ({wall * 1e3:.1f} ms for {len(reqs)}); latency p50 "
+            f"{np.percentile(lat, 50):.2f}, p99 {np.percentile(lat, 99):.2f},"
+            f" max {lat.max():.2f} ms; {len(log_)} batches, padded-lane "
+            f"share {tel.get('serve_padded_lanes', 0) / lanes:.4f}")
+        return len(reqs) / wall
+
+    # ------------------------------------------------- 1. SHA-3 traffic ---
+    log("serving: the reference benchmark's 10^4 SHA3-256 requests "
+        f"(85 % one-block, 15 % two-block), {mib:.4f} MiB")
+    rates = {}
+    for max_batch in SERVE_BATCHES:
+        eng = make(max_batch)
+        reqs = [eng.submit(p) for p in payloads]
+        reset_launch_counts()
+        before = counters()
+        t0 = time.perf_counter()
+        while True:
+            b_ = counters()
+            if not eng.run_once():
+                break
+            _, lay, _ = moved(b_, counters())
+            op, shape, backend, live = eng.batch_log[-1]
+            check(lay["packed"] == shape[1] and sum(lay.values())
+                  == shape[1], f"batch {shape} ran megakernel launches "
+                  f"{lay}, not {shape[1]} packed")
+        wall = time.perf_counter() - t0
+        d = moved(before, counters())
+        add_clean()
+        log_ = list(eng.batch_log)
+        check([r.result(0) for r in reqs] == want,
+              f"run_once drain at {max_batch}: a digest differs from "
+              "hashlib")
+        check_clean(f"run_once drain at {max_batch}", d, log_)
+        check(sum(s_[1] for _, s_, _, _ in log_) == d[1]["packed"],
+              "packed launches differ from the batches' sponge blocks")
+        rates[("sync", max_batch)] = report(
+            f"max_batch {max_batch}, run_once drain", reqs, wall, log_, d[2])
+
+        eng = make(max_batch, start=True)
+        reset_launch_counts()
+        before = counters()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p) for p in payloads]
+        got = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+        eng.close(timeout=60)
+        check(eng._worker is None and eng.check_workers() == [],
+              "the worker threads did not stop cleanly")
+        d = moved(before, counters())
+        add_clean()
+        log_ = list(eng.batch_log)
+        check(got == want, f"threaded drain at {max_batch}: a digest "
+              "differs from hashlib")
+        check_clean(f"threaded drain at {max_batch}", d, log_)
+        check(sum(s_[1] for _, s_, _, _ in log_) == d[1]["packed"]
+              and sum(d[1].values()) == d[1]["packed"],
+              f"threaded drain: launches by layout {d[1]} for "
+              f"{sum(s_[1] for _, s_, _, _ in log_)} sponge blocks")
+        rates[("threaded", max_batch)] = report(
+            f"max_batch {max_batch}, threaded double-buffered", reqs, wall,
+            log_, d[2])
+
+        one = [p for p in payloads if len(p) < 136][:max_batch]
+        eng = make(max_batch)
+
+        def batch():
+            for p in one:
+                eng.submit(p)
+            eng.run_once()
+        profile_call(f"one serving batch, {len(one)} one-block requests "
+                     "(pack, copy, 1 megakernel launch, digests to host)",
+                     batch, rows=6)
+
+    # -------------------------------------------- 2. AEAD interleaved ---
+    log("serving: AES-128-GCM seal records interleaved with SHA-3 "
+        "(engine key bytes(range(16)), max_batch 1024)")
+    rng = np.random.default_rng(23)
+    geos = {g[0]: g for g in GCM_GEOMETRIES if g[0] in ("a", "c")}
+    recs = {}
+    for name, (_, pt_len, aad_len, b) in geos.items():
+        recs[name] = [(bytes(rng.integers(0, 256, 12, dtype=np.uint8)),
+                       bytes(rng.integers(0, 256, pt_len, dtype=np.uint8)),
+                       bytes(rng.integers(0, 256, aad_len, dtype=np.uint8)))
+                      for _ in range(b)]
+    eng = make(SERVE_BATCHES[1], aead_key=GCM_KEY)
+    n_a, n_c = geos["a"][3], geos["c"][3]
+    sha = payloads[:2 * n_a]
+    order = []                       # (kind, index) in submission order
+    for i in range(n_a):
+        order.append(("a", i))
+        if i < n_c:
+            order.append(("c", i))
+        order.extend(("sha", 2 * i + j) for j in range(2))
+    reqs = {}
+    for kind, i in order:
+        if kind == "sha":
+            reqs[kind, i] = eng.submit(sha[i])
+        else:
+            reqs[kind, i] = eng.submit(encode_aead_record(*recs[kind][i]),
+                                       op="gcm_seal")
+    reset_launch_counts()
+    before = counters()
+    per_gcm = {}
+    while True:
+        b_ = counters()
+        t0 = time.perf_counter()
+        if not eng.run_once():
+            break
+        secs = time.perf_counter() - t0
+        _, lay, _ = moved(b_, counters())
+        op, shape, backend, live = eng.batch_log[-1]
+        if op == "gcm_seal":
+            name = "a" if shape[1] == geos["a"][1] else "c"
+            key_l = "word" if name == "a" else "word_global"
+            check(lay[key_l] == 1 and sum(lay.values()) == 1,
+                  f"gcm batch {shape}: launches by layout {lay}")
+            per_gcm[name] = (secs, live, shape)
+    d = moved(before, counters())
+    add_clean()
+    check_clean("interleaved SHA-3 + GCM", d, list(eng.batch_log))
+    check(sorted(per_gcm) == ["a", "c"] and all(
+        v[1] == geos[k][3] for k, v in per_gcm.items()),
+        f"gcm batches {per_gcm}")
+    check([reqs["sha", i].result(0) for i in range(len(sha))]
+          == want[:len(sha)], "interleaved SHA-3 digests differ")
+    for name, (_, pt_len, aad_len, b) in geos.items():
+        ivs, pts, aads = (list(x) for x in zip(*recs[name]))
+        direct = G.aes128_gcm_seal_batch(GCM_KEY, ivs, pts, aads,
+                                         backend="fused", device=dev)
+        got = [reqs[name, i].result(0) for i in range(b)]
+        check(got == direct, f"gcm ({name}) served records differ from the "
+              "direct fused seal")
+        pick = np.random.default_rng(29).choice(
+            b, size=min(SERVE_ORACLE_RECORDS, b), replace=False)
+        for i in pick:
+            check(got[i] == gcm_oracle(GCM_KEY, *recs[name][i]),
+                  f"gcm ({name}) served record {i} differs from the oracle")
+        secs, live, shape = per_gcm[name]
+        log(f"  gcm ({name}) {b} x {pt_len} B, {aad_len} B AAD: one batch "
+            f"{shape}, one {'word' if name == 'a' else 'word_global'} "
+            f"launch, {secs * 1e3:.2f} ms run_once: {live / secs:.1f} "
+            f"records/s, {secs * 1e3 / (live * pt_len / 2**20):.2f} ms per "
+            f"MiB; equal to the direct fused seal, {len(pick)} to the host "
+            "oracle")
+
+    # ---------------------------------------------------- 3. degradation ---
+    log("serving: degradation, each case in its own engine and tuning table")
+    reset_launch_counts()
+
+    def one_shot():
+        return ResilientExecutor(chain=CARD_CHAIN,
+                                 retry=RetryPolicy(max_attempts=1),
+                                 registry=reg)
+
+    ones = [i for i, p in enumerate(payloads) if len(p) < 136][:128]
+    sha128, want128 = [payloads[i] for i in ones], [want[i] for i in ones]
+    for name, subs in (
+            ("sha3_256 batch", [(p, "sha3_256") for p in sha128]),
+            ("gcm (a) batch of 16", [(encode_aead_record(*r), "gcm_seal")
+                                     for r in recs["a"][:16]])):
+        eng = make(128, executor=one_shot(), aead_key=GCM_KEY)
+        rq = [eng.submit(p, op=op) for p, op in subs]
+        before = counters()
+        t0 = time.perf_counter()
+        with faults.inject_faults(seed=3, program_rate=1.0,
+                                  sites=("program",), max_faults=1) as inj:
+            while eng.run_once():
+                pass
+        secs = time.perf_counter() - t0
+        kl, _, tel = moved(before, counters())
+        vals = [r.result(0) for r in rq]
+        if subs[0][1] == "sha3_256":
+            exact = vals == want128
+        else:
+            ivs, pts, aads = (list(x) for x in zip(*recs["a"][:16]))
+            exact = vals == G.aes128_gcm_seal_batch(
+                GCM_KEY, ivs, pts, aads, backend="fused", device=dev)
+        check(inj.count == 1 and exact
+              and all(r.backend == "sparse" for r in rq)
+              and tel.get("resilience_fallbacks", 0) == 1
+              and kl["crossbar_sparse"] > 0,
+              f"{name} under one injected megakernel fault: injected "
+              f"{inj.injected}, exact {exact}, backends "
+              f"{sorted({r.backend for r in rq})}, fallbacks "
+              f"{tel.get('resilience_fallbacks')}, launches {kl}")
+        log(f"  {name}: injected {inj.injected} -> answered by sparse, "
+            f"bit-exact, 1 fallback, {kl['crossbar_sparse']} tile-skipping "
+            f"crossbar launches, {secs * 1e3:.1f} ms")
+
+    eng = make(SERVE_BATCHES[0])
+    reqs = [eng.submit(p) for p in payloads]
+    before = counters()
+    t0 = time.perf_counter()
+    hit_batches = 0
+    with faults.inject_faults(seed=0, program_rate=SERVE_FAULT_RATE) as inj:
+        while True:
+            c0 = inj.count
+            if not eng.run_once():
+                break
+            if inj.count == c0:
+                check(eng.batch_log[-1][2] == "megakernel",
+                      f"1 % fault regime: batch {eng.batch_log[-1]} took "
+                      "no injected fault and was not answered by the "
+                      "megakernel")
+            else:
+                hit_batches += 1
+    wall = time.perf_counter() - t0
+    kl, _, tel = moved(before, counters())
+    check([r.result(0) for r in reqs] == want,
+          "1 % fault regime: a digest differs from hashlib")
+    check(tel.get("resilience_faults", 0) == inj.count,
+          f"1 % fault regime: {inj.count} injected, "
+          f"{tel.get('resilience_faults', 0)} faults absorbed")
+    rate = report(f"max_batch {SERVE_BATCHES[0]}, run_once drain, "
+                  f"{SERVE_FAULT_RATE:.0%} injected megakernel faults",
+                  reqs, wall, list(eng.batch_log), tel)
+    log(f"    {inj.count} faults injected in {hit_batches} batches and "
+        f"absorbed, every other batch answered by megakernel (retries "
+        f"{tel.get('resilience_retries', 0)}, fallbacks "
+        f"{tel.get('resilience_fallbacks', 0)}, backends "
+        f"{sorted({r.backend for r in reqs})}, crossbar launches {kl}); "
+        f"{rate / rates[('sync', SERVE_BATCHES[0])]:.4f} of the clean "
+        "run_once drain's requests/s")
+
+    eng = make(128)
+    for p in sha128:
+        eng.submit(p)
+    eng.run_once()
+    q0 = reg.quarantine_count(K.MEGAKERNEL_PROGRAM_KEY)
+    poisoned = faults.poison_observations(reg, site="keccak")
+    rq = [eng.submit(p) for p in sha128]
+    before = counters()
+    eng.run_once()
+    _, _, tel = moved(before, counters())
+    check(poisoned > 0 and [r.result(0) for r in rq] == want128
+          and all(r.backend == "megakernel" for r in rq)
+          and reg.quarantine_count(K.MEGAKERNEL_PROGRAM_KEY) == q0 + 1
+          and tel.get("resilience_quarantines", 0) == 1,
+          f"drift: poisoned {poisoned}, backends "
+          f"{sorted({r.backend for r in rq})}, quarantines "
+          f"{tel.get('resilience_quarantines')}")
+    log(f"  drift: {poisoned} keccak signatures poisoned -> one quarantine, "
+        "the next batch answered by megakernel, bit-exact")
+
+    pp.clear_program_cache()
+    eng = make(128)
+    for p in sha128:
+        eng.submit(p)
+    eng.run_once()
+    hit = faults.corrupt_cache(np.random.default_rng(5), target="const")
+    rq = [eng.submit(p) for p in sha128]
+    before = counters()
+    with integrity.always_verify():
+        eng.run_once()
+    _, _, tel = moved(before, counters())
+    check(hit is not None and hit[0] == "const"
+          and [r.result(0) for r in rq] == want128
+          and tel.get("integrity_faults", 0) >= 1,
+          f"corrupt_cache: {hit}, integrity faults "
+          f"{tel.get('integrity_faults')}, backends "
+          f"{sorted({r.backend for r in rq})}")
+    log(f"  corrupt_cache {hit[0]} (keccak program's constants and its "
+        f"control on the card): {tel['integrity_faults']} integrity "
+        f"faults, answered by {sorted({r.backend for r in rq})}, bit-exact")
+
+    eng = make(8)
+    check(eng.chain == CARD_CHAIN, f"the card's chain is {eng.chain}")
+    rq = [eng.submit(p) for p in sha128[:8]]
+    before = counters()
+    with faults.inject_faults(seed=0, program_rate=1.0, launch_rate=1.0,
+                              sites=("program", "apply")) as inj:
+        eng.run_once()
+    kl, lay, tel = moved(before, counters())
+    check(all(isinstance(r._exc, LaunchFault) for r in rq)
+          and inj.count == 2 * len(CARD_CHAIN)
+          and tel.get("resilience_exhausted", 0) == 1
+          and not any(tel.get(f"resilience_backend_{b}", 0)
+                      for b in ("einsum", "reference"))
+          and not any(kl.values()) and not any(lay.values())
+          and not eng.batch_log,
+          f"every kernel rung failing: request errors "
+          f"{sorted({type(r._exc).__name__ for r in rq})}, injected "
+          f"{inj.count}, counters {tel}, launches {kl}")
+    log(f"  every kernel rung failing ({inj.count} injected faults): the "
+        "batch's requests failed with LaunchFault, no einsum or reference "
+        "answer")
+
+    eng = make(128)
+    rq = [eng.submit(p) for p in sha128]
+    real_library = _build.library
+
+    def no_nvcc():
+        raise KernelBuildError("nvcc not found (forced by chip_smoke.py)")
+    before = counters()
+    _build.library = no_nvcc
+    try:
+        eng.run_once()
+    finally:
+        _build.library = real_library
+    kl, _, tel = moved(before, counters())
+    errs = [type(r._exc).__name__ for r in rq]
+    check(all(isinstance(r._exc, KernelBuildError) for r in rq)
+          and tel.get("resilience_fallbacks", 0) == 0
+          and tel.get("resilience_faults", 0) == 0
+          and not eng.batch_log and not any(kl.values()),
+          f"build failure: request errors {sorted(set(errs))}, fallbacks "
+          f"{tel.get('resilience_fallbacks')}, launches {kl}")
+    log("  a KernelBuildError inside the megakernel's run escaped the chain: "
+        "every request of the batch failed with it, no fallback, no "
+        "launch")
+    log(f"  degradation cases' launches (not in the kernels line) "
+        f"{dict(launch_counts())}")
+    log(f"  clean serving launches {clean}; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return clean
 
 
 def main(argv) -> int:
@@ -2264,6 +2736,13 @@ def main(argv) -> int:
         f"{prof['wall_ms'] - mk_ms:.2f} ms; other device work "
         f"{prof['busy_ms'] - mk_ms:.3f} ms; {prof['syncs']} host "
         "synchronisations")
+    # Serving last: its engines, threads and pinned staging come after
+    # every earlier phase's profiler windows, which ran as before it.
+    serving = serving_phase(dev)
+    add_counts(launches, serving)
+    for r in rows:
+        r["launches"] += serving.get(r["name"], 0)
+    log(f"  launches over every counted path, serving included: {launches}")
     for r in rows:
         lib_txt = ("none" if r["library_ms"] is None else
                    f"{r['library_ms']:.4f} [{lib_eager[r['name']]:.4f}] ms")

@@ -21,10 +21,16 @@ import torch
 DeviceLike = Union[None, str, torch.device]
 
 
+class DeviceUnavailable(RuntimeError):
+    """The card was asked for and this process has none.  Like a kernel
+    build failure it is not a fault of one execution: the serving
+    layer's fallback chain lets it escape instead of degrading."""
+
+
 def default_device() -> torch.device:
     """The CUDA device the port runs on; raises when there is none."""
     if not torch.cuda.is_available():
-        raise RuntimeError(
+        raise DeviceUnavailable(
             "repro_torch runs on a CUDA device and none is available; pass "
             "device='cpu' explicitly to run the plain PyTorch versions")
     return torch.device("cuda", torch.cuda.current_device())
@@ -38,7 +44,7 @@ def resolve(device: DeviceLike) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' requested but CUDA is not "
+            raise DeviceUnavailable("device='cuda' requested but CUDA is not "
                                "available")
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

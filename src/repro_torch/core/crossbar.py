@@ -23,7 +23,9 @@ Port of ``repro.core.crossbar``.  Output ``o`` receives
       unweighted k=1 gathers take the take fast path.
     - 'kernel':    the dense crossbar kernel (``kernels/ops.py``).
     - 'sparse':    the tile-skipping kernel over the compiled schedule.
-    - 'auto':      the measured-density heuristic.
+    - 'auto':      the installed tuning table's measured winner for
+      the plan's geometry (``set_tuning_table``, ``plan_geometry``),
+      else the measured-density heuristic.
     - 'reference': the index oracle (the "separate datapath" world).
 
 On a CUDA payload 'kernel' and 'sparse' launch their CUDA kernels (or
@@ -426,12 +428,43 @@ AUTO_SPARSE_DENSITY = 0.25
 AUTO_MIN_CELLS = 128 * 128
 
 
+# Optional measured tuning table (core/tuning.py): when installed,
+# backend='auto' prefers what the table has seen win for this plan
+# geometry over the density prior below.  Module-level because the
+# choice point is deep inside apply_plan; a caller that records
+# ("apply_plan", plan_geometry(plan)) timings installs it.
+_TUNING_TABLE = None
+_VALID_AUTO_BACKENDS = frozenset({"einsum", "kernel", "sparse", "reference"})
+
+
+def set_tuning_table(table) -> None:
+    """Install (or clear, with None) the measured backend tuning table."""
+    global _TUNING_TABLE
+    _TUNING_TABLE = table
+
+
+def get_tuning_table():
+    return _TUNING_TABLE
+
+
+def plan_geometry(plan: PermutePlan) -> tuple:
+    """The tuning-table geometry key for a plan: everything that shapes
+    backend-relative performance without looking at control values."""
+    return (plan.mode, plan.n_out, plan.n_in, plan.k, plan.semiring.name)
+
+
 def _choose_backend(plan: PermutePlan) -> str:
-    """The measured-density heuristic behind ``backend='auto'``.
+    """``backend='auto'``: the tuning table's measured winner for the
+    plan's geometry when one is installed and has one, else the
+    measured-density heuristic.
 
     The kernels only pay on the card: control on the CPU takes einsum
     (where the reference tests for a TPU, this tests for CUDA).
     """
+    if _TUNING_TABLE is not None:
+        measured = _TUNING_TABLE.best("apply_plan", plan_geometry(plan))
+        if measured in _VALID_AUTO_BACKENDS:
+            return measured
     if not plan.idx.is_cuda:
         return "einsum"
     if plan.n_out * plan.n_in <= AUTO_MIN_CELLS:

@@ -12,9 +12,11 @@ enter the signature.
 ``execute`` runs one pass of a registered plan, observed under the
 contract when asked.  Each observation runs inside a
 ``registry_observe`` span and feeds the streaming drift monitor
-(``obs.drift_monitor``) before its signature is compared.  Waiting for
-later slices: ``quarantine_count``, ``audit_constant_time`` and the
-host-sync audit (ROADMAP item 9).
+(``obs.drift_monitor``) before its signature is compared.
+``quarantine`` evicts a drifted entry and ``quarantine_count`` reads
+its history (``core.resilience`` escalates on a repeat).  Waiting for
+later slices: ``audit_constant_time`` and the host-sync audit (ROADMAP
+item 9).
 """
 
 from __future__ import annotations
@@ -220,6 +222,11 @@ class StaticPlanRegistry:
         self._observed.clear()
         self._quarantined[key] = self._quarantined.get(key, 0) + 1
         return self._quarantined[key]
+
+    def quarantine_count(self, key: str) -> int:
+        """How many times ``key`` has been quarantined since the last
+        ``reset_observations``."""
+        return self._quarantined.get(key, 0)
 
     # -- fixed-latency contract --------------------------------------------
 

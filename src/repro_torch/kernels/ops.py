@@ -29,6 +29,7 @@ import contextlib
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import KernelBuildError
 from repro_torch.kernels.crossbar_permute import (
     DEFAULT_BLOCK_O, KernelLaunchError, crossbar_permute_cuda,
     crossbar_permute_sparse_cuda)
@@ -40,8 +41,8 @@ DROP = -1
 
 _F32_EXACT_INT_BOUND = 1 << 24
 
-__all__ = ["KernelLaunchError", "bits_roundtrip", "crossbar_permute",
-           "crossbar_permute_sparse", "fused_vcompress",
+__all__ = ["KernelBuildError", "KernelLaunchError", "bits_roundtrip",
+           "crossbar_permute", "crossbar_permute_sparse", "fused_vcompress",
            "moe_route_transform", "pack_bits", "unpack_bits"]
 
 
@@ -49,13 +50,18 @@ __all__ = ["KernelLaunchError", "bits_roundtrip", "crossbar_permute",
 def _surface_kernel_errors(kernel: str, plan):
     """Re-raise a build, load or launch failure with the plan's geometry.
 
-    Input-validation errors (``ValueError`` from the wrappers' checks)
-    are not kernel failures and pass through untouched.
+    A build failure stays a ``KernelBuildError`` (nvcc missing or
+    failing is not a fault of this launch, and the serving layer's
+    fallback chain must see it as such).  Input-validation errors
+    (``ValueError`` from the wrappers' checks) are not kernel failures
+    and pass through untouched.
     """
     try:
         yield
     except (KernelLaunchError, OSError) as e:
-        raise KernelLaunchError(
+        cls = KernelBuildError if isinstance(e, KernelBuildError) \
+            else KernelLaunchError
+        raise cls(
             f"{kernel} failed for plan (mode={plan.mode}, "
             f"{plan.n_in}->{plan.n_out}, k={plan.idx.shape[-1]}, "
             f"semiring={plan.semiring.name}): {type(e).__name__}: {e}"

@@ -568,3 +568,165 @@ def test_ghash_wide_lift_on_both_crossbars(dev, mode):
         passes = 1 if mode == "powers" else 40
         assert d()[f"apply_calls_{backend}"] == passes
         assert launch_counts()[kernel] == passes
+
+
+def _serving_payloads(n, seed):
+    rng = np.random.default_rng(seed)
+    lengths = np.where(rng.random(n) < 0.85, rng.integers(1, 128, n),
+                       rng.integers(140, 260, n))
+    return [rng.bytes(int(n_)) for n_ in lengths]
+
+
+def _launch_deltas(before):
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import plan_program_kernel as ppk
+    kl, lay = launch_counts(), dict(ppk.LAYOUT_LAUNCHES)
+    return ({k: v - before[0].get(k, 0) for k, v in kl.items()},
+            {k: v - before[1].get(k, 0) for k, v in lay.items()})
+
+
+def _launches_now():
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import plan_program_kernel as ppk
+    return dict(launch_counts()), dict(ppk.LAYOUT_LAUNCHES)
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_batching_engine_serves_sha3_on_the_megakernel(dev, threaded):
+    from repro_torch.core import telemetry
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+    payloads = _serving_payloads(600, seed=1)
+    eng = BatchingEngine(BatchingOptions(max_batch=128), device=dev,
+                         start=threaded)
+    before = _launches_now()
+    reqs = [eng.submit(p) for p in payloads]
+    if threaded:
+        got = [r.result(timeout=120) for r in reqs]
+        eng.close(timeout=60)
+    else:
+        while eng.run_once():
+            pass
+        got = [r.result(0) for r in reqs]
+    assert got == [hashlib.sha3_256(p).digest() for p in payloads]
+    kl, lay = _launch_deltas(before)
+    log = list(eng.batch_log)
+    assert {b for _, _, b, _ in log} == {"megakernel"}
+    assert all(s[0] & (s[0] - 1) == 0 for _, s, _, _ in log)
+    assert lay["packed"] == sum(s[1] for _, s, _, _ in log)
+    assert lay["word"] == lay["word_global"] == 0
+    assert kl["crossbar_dense"] == kl["crossbar_sparse"] == 0
+    snap = telemetry.snapshot()
+    assert snap.get("resilience_fallbacks", 0) == 0
+    assert snap.get("resilience_retries", 0) == 0
+
+
+def test_batching_engine_seals_gcm_in_one_word_launch(dev):
+    from repro_torch.crypto import gcm as TG
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+    from repro_torch.serve.batching import encode_aead_record
+    from test_torch_gcm import KEY, gcm_ref
+    rng = np.random.default_rng(5)
+    recs = [(rng.bytes(12), rng.bytes(64), rng.bytes(16)) for _ in range(96)]
+    eng = BatchingEngine(BatchingOptions(max_batch=128, aead_key=KEY),
+                         device=dev, start=False)
+    reqs = [eng.submit(encode_aead_record(*r), op="gcm_seal") for r in recs]
+    before = _launches_now()
+    assert eng.run_once() == len(recs)
+    kl, lay = _launch_deltas(before)
+    assert lay == {"packed": 0, "word": 1, "word_global": 0}
+    got = [r.result(0) for r in reqs]
+    assert eng.batch_log[-1] == ("gcm_seal", (128, 64, 16), "megakernel", 96)
+    ivs, pts, aads = (list(x) for x in zip(*recs))
+    assert got == TG.aes128_gcm_seal_batch(KEY, ivs, pts, aads,
+                                           backend="fused", device=dev)
+    for i in (0, 47, 95):
+        assert got[i] == b"".join(gcm_ref(KEY, *recs[i]))
+
+
+@pytest.mark.parametrize("op", ["sha3_256", "gcm_seal"])
+def test_injected_megakernel_fault_lands_on_the_tile_skipping_kernel(dev,
+                                                                     op):
+    from repro_torch.core import faults, telemetry
+    from repro_torch.core.resilience import (CARD_CHAIN, ResilientExecutor,
+                                             RetryPolicy)
+    from repro_torch.crypto import gcm as TG
+    from repro_torch.crypto.registry import registry
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+    from repro_torch.serve.batching import encode_aead_record
+    from test_torch_gcm import KEY
+    rng = np.random.default_rng(7)
+    ex = ResilientExecutor(chain=CARD_CHAIN,
+                           retry=RetryPolicy(max_attempts=1),
+                           registry=registry(dev))
+    eng = BatchingEngine(BatchingOptions(max_batch=16, aead_key=KEY),
+                         executor=ex, device=dev, start=False)
+    if op == "sha3_256":
+        subs = [rng.bytes(int(n)) for n in rng.integers(1, 128, 16)]
+        want = [hashlib.sha3_256(p).digest() for p in subs]
+    else:
+        recs = [(rng.bytes(12), rng.bytes(64), rng.bytes(16))
+                for _ in range(4)]
+        subs = [encode_aead_record(*r) for r in recs]
+        ivs, pts, aads = (list(x) for x in zip(*recs))
+        want = TG.aes128_gcm_seal_batch(KEY, ivs, pts, aads,
+                                        backend="fused", device=dev)
+    reqs = [eng.submit(p, op=op) for p in subs]
+    before = _launches_now()
+    with faults.inject_faults(seed=3, program_rate=1.0, sites=("program",),
+                              max_faults=1) as inj:
+        while eng.run_once():
+            pass
+    kl, _ = _launch_deltas(before)
+    assert inj.count == 1
+    assert [r.result(0) for r in reqs] == want
+    assert {r.backend for r in reqs} == {"sparse"}
+    assert telemetry.counter("resilience_fallbacks") == 1
+    assert kl["crossbar_sparse"] > 0
+
+
+def test_kernel_build_failure_escapes_the_chain_on_card(dev, monkeypatch):
+    from repro_torch.core import telemetry
+    from repro_torch.kernels import _build
+    from repro_torch.kernels._build import KernelBuildError
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+
+    def no_nvcc():
+        raise KernelBuildError("nvcc not found (forced)")
+    eng = BatchingEngine(BatchingOptions(max_batch=8), device=dev,
+                         start=False)
+    reqs = [eng.submit(bytes([i])) for i in range(8)]
+    monkeypatch.setattr(_build, "library", no_nvcc)
+    eng.run_once()
+    for r in reqs:
+        with pytest.raises(KernelBuildError):
+            r.result(0)
+    assert telemetry.counter("resilience_fallbacks") == 0
+    assert telemetry.counter("resilience_faults") == 0
+    assert not eng.batch_log
+
+
+def test_exhausted_card_chain_raises_and_einsum_never_answers(dev):
+    """A batch whose three kernel rungs all fail completes with the
+    typed fault: the card's chain holds no plain PyTorch rung."""
+    from repro_torch.core import faults, telemetry
+    from repro_torch.core.resilience import CARD_CHAIN, LaunchFault
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+    eng = BatchingEngine(BatchingOptions(max_batch=8), device=dev,
+                         start=False)
+    assert eng.chain == eng.executor.chain == CARD_CHAIN
+    reqs = [eng.submit(bytes([i]) * 5) for i in range(8)]
+    before = _launches_now()
+    with faults.inject_faults(seed=0, program_rate=1.0, launch_rate=1.0,
+                              sites=("program", "apply")) as inj:
+        eng.run_once()
+    kl, lay = _launch_deltas(before)
+    for r in reqs:
+        with pytest.raises(LaunchFault, match="'kernel' failed"):
+            r.result(0)
+    assert inj.count == 6                  # two attempts on each rung
+    assert telemetry.counter("resilience_exhausted") == 1
+    assert telemetry.counter("serve_failed") == 8
+    for name in ("einsum", "reference"):
+        assert telemetry.counter(f"resilience_backend_{name}") == 0
+    assert not any(kl.values()) and not any(lay.values())
+    assert not eng.batch_log
