@@ -45,6 +45,12 @@ set to 0 just before and read just after:
   GCM seal export a Chrome trace and Prometheus text that the port's
   validators accept, with the reference's span and metric names; the
   host clock of the same calls with tracing off and on.
+* the mesh phase (``mesh_phase``, after the timing section): meshes of
+  1, 2, 4 and 8 shards of the card — lane-parallel SHA3-256 through
+  ``run_program_sharded``, cross-shard MoE dispatch at Phi-3.5-MoE's
+  prompt routing group, a GF(2) and a weighted REAL plan, each on both
+  crossbars, scheduled and naive, and ``BatchingEngine`` on an 8-shard
+  mesh through a shard kill and replay; then the serving phase.
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
@@ -717,7 +723,8 @@ def moe_phases(dev, rng, compare):
             moe_stage_diffs(li, blk, h, cfgs, layer)
             raise
         if li == 0:
-            first = dict(u=u, routing=routing, y=y)
+            first = dict(u=u, routing=routing, y=y, router=L.dense(
+                blk["moe"]["router"], u, torch.bfloat16).float())
             log(f"  layer 0: {float(md.dropped_fraction(routing).mean()):.4f}"
                 " of assignments over capacity")
         h = layer["reference"]
@@ -965,7 +972,11 @@ def moe_phases(dev, rng, compare):
         f" generated tokens/s, {g_s / steps * 1e3:.2f} ms a step; kernels "
         f"~{k_dec:.3f} ms of {g_s * 1e3:.1f} ms ({100 * k_dec / (g_s * 1e3):.2f}"
         " %)")
-    return dict(launches=total, route_ids=ids_p, capacity=cap)
+    # layer 0's first routing group (its normed input and router
+    # logits) for the mesh phase's cross-shard dispatch
+    return dict(launches=total, route_ids=ids_p, capacity=cap,
+                group0=(first["u"][0].contiguous(),
+                        first["router"][0].contiguous()))
 
 
 # ChaCha20: RFC 8439 §2.3.2's key, nonce and first block; 1 MiB of
@@ -2120,6 +2131,328 @@ def serving_phase(dev):
     return clean
 
 
+MESH_SHARDS = (1, 2, 4, 8)
+# Phi-3.5-MoE's prompt routing group: T tokens, E experts, capacity C,
+# top-2; the cross-shard dispatch runs over 8 shards.
+MESH_T, MESH_E, MESH_C, MESH_K, MESH_S = 2048, 16, 384, 2, 8
+MESH_LOCALITY = 0.9
+MESH_SLIDE_ROWS, MESH_SLIDE_D = 65536, 128
+
+
+def locality_dest(t_tokens, n_experts, capacity, s, *, locality, seed):
+    """The reference mesh benchmark's capacity-slotted MoE dispatch
+    (``benchmarks/bench_mesh_sharded.py::_moe_dispatch_plan``, its rule
+    copied): a token routes to an expert of its own shard with
+    probability ``locality``, else to any; slots fill in token order and
+    overflow drops.  Returns the destinations (T,) int32."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    dest = np.full((t_tokens,), -1, np.int32)
+    fill = np.zeros((n_experts,), np.int32)
+    for t in range(t_tokens):
+        my_shard = t // (t_tokens // s)
+        if rng.random() < locality:
+            e = my_shard * (n_experts // s) + rng.integers(0, n_experts // s)
+        else:
+            e = rng.integers(0, n_experts)
+        if fill[e] < capacity:
+            dest[t] = e * capacity + fill[e]
+            fill[e] += 1
+    return dest
+
+
+def mesh_phase(dev, msgs, group0, compare):
+    """Mesh execution (``dist/``) on meshes of shards of the one card.
+
+    1. Lane-parallel SHA3-256 of the SHA-3 phase's 1024 x 1 KiB messages
+       through ``run_program_sharded`` at S = 1, 2, 4, 8: digests equal
+       hashlib, no block copy, S packed megakernel launches a permutation
+       (counters and ``torch.profiler``); wall and device ms at each S.
+    2. Cross-shard MoE dispatch at Phi-3.5-MoE's prompt width (T = 2048,
+       E = 16, C = 384, D = 4096 bf16, top-2) over 8 shards, for layer 0's
+       top-2 routing (``make_routing``, so the moe_route kernel) and the
+       reference benchmark's locality-0.9 routing: the scheduled and the
+       naive executor on both crossbars bit-exact against single-device
+       ``apply_plan``, block copies equal to the schedule's and to
+       S(S - 1), one crossbar launch a block that runs; rounds, copies,
+       bytes moved and device ms.
+    3. A GF(2) (Keccak's rho-pi over 1600 x 1024) and a weighted REAL (a
+       gated vslide of half a shard over 65536 x 128 float32) cross-shard
+       plan at S = 8, the same way.
+    4. ``BatchingEngine`` on ``make_mesh((8,), ("data",))`` with partial
+       results: the serving benchmark's 10^4 SHA3-256 requests at
+       max_batch 1024, a clean drain (every shard on the megakernel),
+       then a drain with shard 3 killed after three batches (one drop,
+       the survivor mesh of 4, the lost lanes replayed, every digest
+       exact, no plain rung); an armed collective site on a cross-shard
+       plan raises ``InjectedCollectiveFailure``.
+    Returns the kernel launches of the counted runs (each counted from 0
+    just before it and read just after); comparison launches and the
+    faulted drain's are not among them.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core import crossbar as xb
+    from repro_torch.core import faults, telemetry
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.core import plan_algebra as pa
+    from repro_torch.core.resilience import LaunchFault, classify
+    from repro_torch.crypto import keccak as K
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import mesh_exec as mx
+    from repro_torch.dist.fault import survivor_mesh_shape
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.serve import BatchingEngine, BatchingOptions
+
+    counted = {}
+
+    def on_card(mesh):
+        devs = list(mesh.devices.reshape(-1))
+        check(all(d == dev for d in devs),
+              f"a shard is not on {dev}: {[str(d) for d in devs]}")
+        return mesh
+
+    def mesh_of(s):
+        return on_card(make_mesh((s,), ("data",), devices=[dev] * s))
+
+    # ------------------------------------------- 1. lane-parallel SHA-3 ---
+    prog = K.megakernel_program(dev)
+    blocks = np.stack([K._pad101(m, 136, 0x06) for m in msgs])
+    b, nb = blocks.shape[:2]
+    tail = np.zeros((b, nb, K.STATE_BITS - blocks.shape[2]), np.int32)
+    dev_blocks = torch.as_tensor(np.concatenate([blocks, tail], axis=2),
+                                 device=dev)            # (B, blocks, 1600)
+    want = [hashlib.sha3_256(m).digest() for m in msgs]
+    log(f"mesh: lane-parallel SHA3-256 of {b} x {len(msgs[0])} B messages "
+        f"({nb} permutations), run_program_sharded over S shards of {dev}")
+
+    def sponge(mesh, s):
+        cols = [dev_blocks[lo:hi].permute(1, 2, 0).contiguous()
+                for lo, hi in mx.shard_bounds(b, s)]  # (blocks, 1600, B/S)
+        states = [torch.zeros((K.STATE_BITS, b // s), dtype=torch.int32,
+                              device=dev) for _ in range(s)]
+        for i in range(nb):
+            states = [st ^ c[i] for st, c in zip(states, cols)]
+            states = mx.run_program_sharded(prog, states, mesh)
+        return states
+
+    for s in MESH_SHARDS:
+        mesh = mesh_of(s)
+        sponge(mesh, s)
+        reset_launch_counts()
+        with telemetry.delta() as d:
+            secs, states = host_s(lambda: sponge(mesh, s))
+        kl, lay, dd = dict(launch_counts()), dict(ppk.LAYOUT_LAUNCHES), d()
+        add_counts(counted, kl)
+        host = torch.cat(states, dim=1).T.cpu().numpy()
+        check([K._squeeze(host[i], 136)[:32] for i in range(b)] == want,
+              f"lane-parallel SHA3-256 at S={s}: a digest differs from "
+              "hashlib")
+        check(dd.get("mesh_block_copies", 0) == 0,
+              f"S={s}: {dd.get('mesh_block_copies')} block copies")
+        check(lay["packed"] == kl["plan_program"] == s * nb
+              and kl["crossbar_dense"] == kl["crossbar_sparse"] == 0,
+              f"S={s}: launches {kl}, by layout {lay}")
+        work = device_work(lambda: mx.run_program_sharded(prog, states,
+                                                          mesh), calls=1)
+        packed = sum(c for k, c in work if "pp_packed_kernel" in k)
+        check(packed == s, f"S={s}: one permutation ran {work}")
+        prof = profile_call(f"lane-parallel SHA3-256, S={s}",
+                            lambda: sponge(mesh, s), rows=4)
+        mk_ms = sum(t_ for k, (_, t_) in prof["kernels"].items()
+                    if "pp_packed_kernel" in k)
+        log(f"  S={s}: digests equal hashlib, 0 block copies, {packed} "
+            f"packed megakernel launches a permutation (profiler), "
+            f"{lay['packed']} in all: held; absorb wall {secs * 1e3:.2f} "
+            f"ms (blocks already on the card, states left there; "
+            f"{b / secs:.1f} hashes/s), device busy {prof['busy_ms']:.3f}"
+            f" ms of which megakernels {mk_ms:.3f} ms (shards of one card "
+            "run one after another: no speed-up is expected)")
+
+    # ----------------------------- 2-3. cross-shard plans at S = 8 shards ---
+    mesh8 = mesh_of(MESH_S)
+    u0, router0 = group0
+    check(tuple(u0.shape) == (MESH_T, 4096) and u0.dtype == torch.bfloat16
+          and tuple(router0.shape) == (MESH_T, MESH_E),
+          f"layer 0 group 0: u {tuple(u0.shape)} {u0.dtype}, router "
+          f"{tuple(router0.shape)}")
+    reset_launch_counts()
+    routing = md.make_routing(router0, num_experts=MESH_E, k=MESH_K,
+                              capacity=MESH_C)
+    torch.cuda.synchronize()
+    kl = dict(launch_counts())
+    add_counts(counted, kl)
+    check(kl["moe_route"] == 1, f"make_routing launched {kl}")
+    rng = np.random.default_rng(31)
+    n_sl = MESH_SLIDE_ROWS
+    slide = xb.vslide_plan(n_sl, n_sl // MESH_S // 2, up=True, device=dev)
+    gates = torch.as_tensor(rng.random(n_sl, dtype=np.float32), device=dev)
+    cases = (
+        ("MoE dispatch, layer 0's top-2 routing", md.dispatch_plan(routing),
+         u0, None),
+        (f"MoE dispatch, locality-{MESH_LOCALITY} routing",
+         xb.scatter_plan(torch.as_tensor(locality_dest(
+             MESH_T, MESH_E, MESH_C, MESH_S, locality=MESH_LOCALITY,
+             seed=7), device=dev), MESH_E * MESH_C), u0, None),
+        ("GF(2) Keccak rho-pi (1600, 1024) int32", K.rho_pi_plan(dev),
+         torch.as_tensor(rng.integers(0, 2, (1600, 1024), dtype=np.int32),
+                         device=dev), None),
+        (f"weighted REAL gated vslide by {n_sl // MESH_S // 2} "
+         f"({n_sl}, {MESH_SLIDE_D}) f32", pa.with_weights(slide, gates),
+         torch.as_tensor(rng.standard_normal((n_sl, MESH_SLIDE_D),
+                                             np.float32), device=dev),
+         TOL_F32),
+    )
+    for name, plan, x, tol in cases:
+        stats = mx.schedule_stats(mx.shard_connectivity(plan, MESH_S))
+        block_b = x.numel() // MESH_S * x.element_size()
+        log(f"mesh: {name} over {MESH_S} shards ({plan.n_in} -> "
+            f"{plan.n_out} rows, {x.shape[1]} columns): "
+            f"{stats['off_diag_edges']} cross-shard blocks in "
+            f"{stats['schedule_rounds']} rounds (naive: "
+            f"{stats['naive_block_transfers']} in {stats['naive_rounds']})")
+        for backend in ("kernel", "sparse"):
+            kname = KERNEL_OF[backend]
+            single = xb.apply_plan(plan, x, backend=backend)
+            plain = xb.apply_plan(plan, x, backend="reference")
+            compare(kname, f"{name}: single-device {backend} vs plain",
+                    single, plain, tol)
+            fn = mx.sharded_apply_fn(plan, mesh8, backend=backend)
+            naive = mx.sharded_apply_naive_fn(plan, mesh8, backend=backend)
+            for label, ex, copies, calls in (
+                    ("scheduled", fn, stats["scheduled_block_transfers"],
+                     len(fn.blocks)),
+                    ("naive", naive, stats["naive_block_transfers"],
+                     MESH_S)):
+                ex(x)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                with telemetry.delta() as d:
+                    out = torch.cat(ex(x))
+                torch.cuda.synchronize()
+                kl, moved = dict(launch_counts()), d().get(
+                    "mesh_block_copies", 0)
+                add_counts(counted, kl)
+                compare(kname, f"{name}: {backend}, {label} executor vs "
+                        "single-device apply_plan", out, single, tol)
+                check(moved == copies, f"{name} {backend} {label}: {moved} "
+                      f"block copies, expected {copies}")
+                check(kl[kname] == calls, f"{name} {backend} {label}: "
+                      f"launches {kl}, expected {calls} {kname}")
+                eager = time_ms(lambda: ex(x), 10)
+                _, _, on_dev = profiled_window(lambda: ex(x))
+                busy = sum(_dev_us(e) for e in on_dev) / 1e3
+                kern = sum(_dev_us(e) for e in on_dev
+                           if "crossbar" in e.name) / 1e3
+                log(f"  {backend} {label}: {moved} block copies ({moved} x "
+                    f"{block_b} B = {moved * block_b / 2**20:.1f} MiB moved), "
+                    f"{kl[kname]} {kname} launches: held; device busy "
+                    f"{busy:.3f} ms (crossbar kernels {kern:.3f}), eager "
+                    f"{eager:.3f} ms a call")
+
+    # --------------------------------------------------- 4. mesh serving ---
+    payloads = serving_payloads(SERVE_REQUESTS, seed=0)
+    want = [hashlib.sha3_256(p).digest() for p in payloads]
+
+    def make():
+        mesh = on_card(make_mesh((MESH_S,), ("data",)))
+        return BatchingEngine(BatchingOptions(
+            max_batch=SERVE_BATCHES[1], max_queue=SERVE_REQUESTS,
+            batch_log_cap=SERVE_REQUESTS, mesh=mesh, partial_results=True),
+            device=dev, start=False)
+
+    log(f"mesh serving: {SERVE_REQUESTS} SHA3-256 requests, max_batch "
+        f"{SERVE_BATCHES[1]}, make_mesh(({MESH_S},), ('data',)), partial "
+        "results")
+    eng = make()
+    reqs = [eng.submit(p) for p in payloads]
+    reset_launch_counts()
+    before = telemetry.snapshot()
+    t0 = time.perf_counter()
+    while eng.run_once():
+        pass
+    wall = time.perf_counter() - t0
+    kl, lay = dict(launch_counts()), dict(ppk.LAYOUT_LAUNCHES)
+    add_counts(counted, kl)
+    tel = {k: v - before.get(k, 0) for k, v in telemetry.snapshot().items()}
+    log_ = list(eng.batch_log)
+    check([r.result(0) for r in reqs] == want,
+          "mesh serving, clean drain: a digest differs from hashlib")
+    check(tel.get("serve_shard_launches", 0) == MESH_S * len(log_)
+          == tel.get("resilience_backend_megakernel", 0),
+          f"clean drain: {tel.get('serve_shard_launches')} shard runs, "
+          f"{tel.get('resilience_backend_megakernel')} on the megakernel, "
+          f"{len(log_)} batches")
+    check(lay["packed"] == MESH_S * sum(s_[1] for _, s_, _, _ in log_)
+          and kl["crossbar_dense"] == kl["crossbar_sparse"] == 0
+          and all(tel.get(k, 0) == 0 for k in (
+              "resilience_fallbacks", "resilience_retries",
+              "resilience_faults")), f"clean drain: launches {kl}, {lay}")
+    log(f"  clean drain: every digest equals hashlib, {len(log_)} batches x "
+        f"{MESH_S} shards all on the megakernel ({lay['packed']} packed "
+        f"launches, no fallback): held; {len(reqs) / wall:.1f} requests/s "
+        f"({wall * 1e3:.1f} ms)")
+
+    eng = make()
+    reqs = [eng.submit(p) for p in payloads]
+    for _ in range(3):
+        eng.run_once()
+    served = sum(live for *_, live in eng.batch_log)
+    before = telemetry.snapshot()
+    t0 = time.perf_counter()
+    with faults.inject_device_fault(3, max_fires=64) as state:
+        while eng.run_once():
+            pass
+    wall = time.perf_counter() - t0
+    tel = {k: v - before.get(k, 0) for k, v in telemetry.snapshot().items()}
+    survivor = eng._active_mesh()
+    want_size = survivor_mesh_shape({"data": MESH_S}, 1)["data"]
+    check([r.result(0) for r in reqs] == want,
+          "mesh serving, shard 3 killed: a digest differs from hashlib")
+    check(tel.get("serve_mesh_device_drops", 0) == 1
+          and eng.stats()["mesh_lost"] == [3],
+          f"shard 3 killed: drops {tel.get('serve_mesh_device_drops')}, "
+          f"lost {eng.stats()['mesh_lost']}")
+    check(survivor is not None and survivor.size == want_size == 4
+          and 3 not in survivor.ids.tolist(),
+          f"survivor mesh {survivor}, survivor_mesh_shape gives {want_size}")
+    on_card(survivor)
+    check(tel.get("lanes_replayed", 0) > 0
+          and tel.get("serve_shards_salvaged", 0) == MESH_S - 1,
+          f"replay: {tel.get('lanes_replayed')} lanes, "
+          f"{tel.get('serve_shards_salvaged')} shards salvaged")
+    check(all(tel.get(f"resilience_backend_{b_}", 0) == 0
+              for b_ in ("einsum", "reference"))
+          and {r.backend for r in reqs} == {"megakernel"},
+          f"shard 3 killed: answered by {sorted({r.backend for r in reqs})}")
+    log(f"  shard 3 killed after 3 batches ({state['fired']} injected "
+        f"faults): 1 drop, survivor mesh of {survivor.size} (ids "
+        f"{survivor.ids.tolist()}), {tel['lanes_replayed']} lost lanes "
+        f"replayed on a survivor, {tel['serve_shards_salvaged']}"
+        " shards salvaged, every digest exact, only the megakernel "
+        f"answered: held; {(len(reqs) - served) / wall:.1f} requests/s "
+        f"over the {len(reqs) - served} requests after the kill "
+        f"({wall * 1e3:.1f} ms)")
+
+    with faults.inject_faults(seed=0, collective_rate=1.0,
+                              sites=("collective",)) as inj:
+        try:
+            mx.sharded_apply_fn(K.rho_pi_plan(dev), mesh8, backend="sparse")
+        except faults.InjectedCollectiveFailure as e:
+            raised = e
+        else:
+            raised = None
+    check(raised is not None and inj.injected == [("collective", 0)]
+          and classify(raised) is LaunchFault,
+          f"collective site: raised {raised!r}, ledger {inj.injected}")
+    log("  collective_rate=1.0 on the rho-pi plan: InjectedCollectiveFailure"
+        " (a launch-class fault) at round 0: held")
+    log(f"  mesh phase launches (counted runs): {counted}")
+    return counted
+
+
 def main(argv) -> int:
     import torch
     parent = None
@@ -2736,8 +3069,14 @@ def main(argv) -> int:
         f"{prof['wall_ms'] - mk_ms:.2f} ms; other device work "
         f"{prof['busy_ms'] - mk_ms:.3f} ms; {prof['syncs']} host "
         "synchronisations")
-    # Serving last: its engines, threads and pinned staging come after
-    # every earlier phase's profiler windows, which ran as before it.
+    # The mesh phase, then serving last: serving's engines, threads and
+    # pinned staging come after every earlier phase's profiler windows,
+    # which ran as before it.
+    mesh_counts = mesh_phase(dev, msgs, moe["group0"], compare)
+    add_counts(launches, mesh_counts)
+    for r in rows:
+        r["launches"] += mesh_counts.get(r["name"], 0)
+        r["max_abs_err"] = err[r["name"]]
     serving = serving_phase(dev)
     add_counts(launches, serving)
     for r in rows:

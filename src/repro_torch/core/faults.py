@@ -8,6 +8,8 @@ harness patches the execution choke points —
 * ``crossbar.compile_plan``        (schedule compilation, incl. the
   fingerprinting done by fixed-latency observation),
 * ``plan_program._run_megakernel`` (the single-launch fused executor),
+* ``dist.mesh_exec._collective_round`` (each non-empty round of a
+  sharded plan's copy schedule, as it is derived),
 * ``serve.batching._staging_put``  (the double-buffer staging queue
   between the prep thread and the device feed) —
 
@@ -17,9 +19,8 @@ Every call site reaches these functions through module-attribute lookup
 patching the module attributes intercepts the whole engine.  The RNG
 draw happens on *every* intercepted call in program order, in the
 reference's order, so a seed gives the same fault ledger as the
-reference for the same call sequence.  The reference's fifth site,
-``collective`` (and ``inject_device_fault``), needs the port's mesh
-execution: both raise ``NotImplementedError`` until ROADMAP item 14.
+reference for the same call sequence.  ``inject_device_fault`` kills
+one mesh shard mid-batch through ``serve.batching._shard_probe``.
 
 A sixth site, ``corrupt``, injects *silent* damage instead of raising:
 ``corrupt_cache`` flips one bit in a cached tile schedule, GF(2^k) lift
@@ -61,10 +62,6 @@ import torch
 from repro_torch.core import crossbar as xb
 from repro_torch.core import plan_program as pp
 
-_MESH_ITEM = ("needs the port's mesh execution (dist/, ROADMAP item 14), "
-              "which is not ported yet")
-
-
 class InjectedFault(RuntimeError):
     """Base marker: a harness-injected failure, never a real engine bug."""
 
@@ -81,14 +78,28 @@ class InjectedProgramFailure(InjectedLaunchFailure):
     """Injected at the megakernel executor (a launch-class fault)."""
 
 
+class InjectedCollectiveFailure(InjectedLaunchFailure):
+    """Injected at a collective round of a sharded plan (a launch-class
+    fault)."""
+
+
 class InjectedStagingFailure(InjectedFault):
     """Injected at the serving staging queue: the prepared batch is
     dropped before the device feed sees it.  Handled by the prep loop
     (requeue + ``serve_staging_drops``), never by the executor."""
 
 
+class InjectedDeviceFailure(InjectedLaunchFailure):
+    """A specific mesh shard failed mid-batch (carries ``.device``, the
+    shard's mesh index)."""
+
+    def __init__(self, device: int, msg: Optional[str] = None):
+        super().__init__(msg or f"injected failure on device {device}")
+        self.device = int(device)
+
+
 # The interception points, in the order their rates are declared (the
-# reference's; "collective" stays unarmed until ROADMAP item 14).
+# reference's).
 SITES = ("compile", "apply", "program", "slow", "collective", "staging",
          "corrupt")
 
@@ -151,8 +162,9 @@ def inject_faults(*, seed: int = 0, compile_rate: float = 0.0,
         executor (fires *before* the launch).
       slow_rate / slow_s: probability and duration of an injected stall
         at ``apply_plan`` (deadline/straggler testing).
-      collective_rate: the reference's collective-round site; any rate
-        above 0 raises ``NotImplementedError`` until ROADMAP item 14.
+      collective_rate: per-round fault probability at the collective
+        schedule derivation (``mesh_exec._collective_round``) — one draw
+        per non-empty round of a sharded plan's build.
       staging_rate: per-put fault probability at the serving staging
         queue (``serve.batching._staging_put``).
       staging_mode: what a fired staging fault does — ``"drop"`` raises
@@ -173,8 +185,6 @@ def inject_faults(*, seed: int = 0, compile_rate: float = 0.0,
     Yields:
       The ``FaultInjector`` (ledger + per-site call counts).
     """
-    if collective_rate > 0.0:
-        raise NotImplementedError(f"collective_rate {_MESH_ITEM}")
     if staging_mode not in ("drop", "stall"):
         raise ValueError(f"staging_mode must be 'drop' or 'stall', got "
                          f"{staging_mode!r}")
@@ -228,9 +238,23 @@ def inject_faults(*, seed: int = 0, compile_rate: float = 0.0,
     xb.compile_plan = compile_wrapper
     pp._run_megakernel = mega_wrapper
 
-    # The staging site lives in the serving layer; patch it only when
-    # armed so core-only chaos tests do not import it.
-    sb = orig_put = None
+    # The collective and staging sites live in optional layers (dist/,
+    # serve/); patch them only when armed so core-only chaos tests do
+    # not import either package.
+    mx = sb = None
+    orig_round = orig_put = None
+    if rates.get("collective", 0.0) > 0.0:
+        from repro_torch.dist import mesh_exec as mx
+        orig_round = mx._collective_round
+
+        def round_wrapper(round_index, pairs):
+            if inj.should_fire("collective"):
+                raise InjectedCollectiveFailure(
+                    f"injected collective failure at round {round_index} "
+                    f"(pairs {pairs}, seed {inj.seed})")
+            return orig_round(round_index, pairs)
+
+        mx._collective_round = round_wrapper
     if rates.get("staging", 0.0) > 0.0:
         from repro_torch.serve import batching as sb
         orig_put = sb._staging_put
@@ -253,6 +277,8 @@ def inject_faults(*, seed: int = 0, compile_rate: float = 0.0,
         xb.apply_plan = orig_apply
         xb.compile_plan = orig_compile
         pp._run_megakernel = orig_mega
+        if orig_round is not None:
+            mx._collective_round = orig_round
         if orig_put is not None:
             sb._staging_put = orig_put
 
@@ -320,10 +346,37 @@ def corrupt_cache(rng=None, *, target: Optional[str] = None):
     return kind, key
 
 
+@contextlib.contextmanager
 def inject_device_fault(device: int, *, max_fires: int = 1):
-    """The reference's mid-batch mesh-device kill: waits for the port's
-    mesh serving (ROADMAP item 14)."""
-    raise NotImplementedError(f"inject_device_fault {_MESH_ITEM}")
+    """Kill one mesh shard mid-batch, deterministically.
+
+    Patches the serving layer's per-shard dispatch probe
+    (``serve.batching._shard_probe``) so the next ``max_fires`` shards
+    dispatched to mesh index ``device`` raise ``InjectedDeviceFailure``
+    — *after* earlier shards of the same batch have completed, which is
+    the partial-batch regime: the engine must salvage the finished
+    shards' lanes and replay only the lost ones on the survivor mesh.
+    ``device`` is a mesh index, not a ``torch.device`` (shards may share
+    a card).  Yields a dict whose ``"fired"`` entry counts the
+    injections.
+    """
+    from repro_torch.serve import batching as sb
+    orig = sb._shard_probe
+    state = {"fired": 0}
+
+    def probe(shard_index, dev_index):
+        orig(shard_index, dev_index)
+        if dev_index == device and state["fired"] < max_fires:
+            state["fired"] += 1
+            raise InjectedDeviceFailure(
+                device, f"injected device failure (shard {shard_index} "
+                        f"on device {dev_index})")
+
+    sb._shard_probe = probe
+    try:
+        yield state
+    finally:
+        sb._shard_probe = orig
 
 
 def poison_observations(registry, *, site: Optional[str] = None) -> int:

@@ -15,7 +15,9 @@ lowers the whole chain to exactly one ``apply_plan`` call.
 
 Constructions are memoised on the identities of their input tensors, so
 a rebuilt composed/batched plan is the *same* object and the schedule
-cache keeps hitting.  (``shard_restrict`` comes with the ``dist`` slice.)
+cache keeps hitting.  ``shard_restrict`` cuts the (output-window,
+input-window) block that mesh-sharded execution (``dist.mesh_exec``)
+runs on one shard.
 """
 
 from __future__ import annotations
@@ -298,6 +300,44 @@ def batch(plan: xb.PermutePlan, b: int) -> xb.PermutePlan:
 
     return _memo("batch", (g.idx, g.weights),
                  (b, g.n_in, g.n_out, g.semiring.name), build)
+
+
+def shard_restrict(plan: xb.PermutePlan, out_window: tuple,
+                   in_window: tuple) -> xb.PermutePlan:
+    """Restrict a plan to an (output-window, input-window) sub-operator.
+
+    ``out_window`` / ``in_window`` are ``(start, size)`` half-open ranges
+    on the gather-normal axes.  The result is the ``size_out x size_in``
+    block of the operator in *local* coordinates: selects whose source
+    falls outside the input window become DROP (their contribution
+    belongs to another block), the others are rebased by the window
+    start, and weights ride along unchanged.  Summing the blocks of a
+    full tiling over the plan's semiring gives back the original
+    operator — the identity mesh-sharded execution relies on.
+    """
+    g = to_gather(plan)
+    o0, o_sz = out_window
+    i0, i_sz = in_window
+    if o0 < 0 or o_sz <= 0 or o0 + o_sz > g.n_out:
+        raise ValueError(
+            f"shard_restrict: output window ({o0}, {o_sz}) out of range "
+            f"for n_out={g.n_out}")
+    if i0 < 0 or i_sz <= 0 or i0 + i_sz > g.n_in:
+        raise ValueError(
+            f"shard_restrict: input window ({i0}, {i_sz}) out of range "
+            f"for n_in={g.n_in}")
+
+    def build():
+        idx = g.idx[o0:o0 + o_sz]
+        inside = (idx >= i0) & (idx < i0 + i_sz)
+        local = torch.where(inside, idx - i0, DROP).to(torch.int32)
+        weights = None if g.weights is None else g.weights[o0:o0 + o_sz]
+        return xb.gather_plan(local, i_sz, weights=weights,
+                              semiring=g.semiring)
+
+    return _memo("shard_restrict", (g.idx, g.weights),
+                 (o0, o_sz, i0, i_sz, g.n_in, g.n_out, g.semiring.name),
+                 build)
 
 
 def batched_gather_plan(idx: torch.Tensor, n_in: int, *, weights=None,

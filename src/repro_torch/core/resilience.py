@@ -563,9 +563,9 @@ class DeviceHealth:
     """Per-DEVICE circuit breakers for mesh-sharded execution.
 
     The backend chain above answers "which *implementation* is healthy";
-    this answers "which *devices* are" (the mesh serving that acts on it
-    waits for ROADMAP item 14).  The distinction matters on a
-    mesh: one sick device must not trip the whole backend (the
+    this answers "which *devices* are" — a device being a mesh shard,
+    named by its mesh index (shards may share a card).  The distinction
+    matters on a mesh: one sick device must not trip the whole backend (the
     implementation is fine on the seven others) — it should drop out of
     the mesh, and the serving layer rebuilds on a survivor mesh
     (``dist.fault.survivor_mesh_shape``) of the remaining devices.

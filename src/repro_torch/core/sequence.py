@@ -3,8 +3,8 @@
 Port of ``repro.core.sequence``: token shifting (``vslide1up`` lifted
 over batch and feature axes — a pad-shift, outside the crossbar, as the
 paper's Sec. IV advises for single-position slides) and the causal
-sliding-window mask of SWA attention.  ``ring_halo`` (the context-
-parallel halo exchange) comes with ``dist/``.
+sliding-window mask of SWA attention, and ``ring_halo``, the
+context-parallel halo exchange as a ring step over a mesh's shards.
 """
 
 from __future__ import annotations
@@ -26,6 +26,24 @@ def token_shift(x: torch.Tensor, *, dim: int = -2) -> torch.Tensor:
     """``shift_right`` with a zero fill (RWKV token shift, Mamba conv
     edges)."""
     return shift_right(x, dim=dim)
+
+
+def ring_halo(shards, *, shift: int = 1) -> list:
+    """Context-parallel halo exchange: each shard's edge to its
+    ``shift``-th successor on the ring.
+
+    ``shards`` holds one tensor a shard (the edges to send), in mesh
+    order; shard ``(i + shift) % n`` receives shard ``i``'s, copied to
+    the device of the tensor it replaces.  The reference's ``ppermute``
+    ring step inside ``shard_map``, over the shard list one controller
+    holds.  Stitches sliding-window attention across sequence shards.
+    """
+    n = len(shards)
+    out = [None] * n
+    for i, x in enumerate(shards):
+        j = (i + shift) % n
+        out[j] = torch.empty_like(x, device=shards[j].device).copy_(x)
+    return out
 
 
 def sliding_window_mask(q_len: int, kv_len: int, window: int, *,

@@ -14,8 +14,8 @@ process starts warm.
 Keys are canonical strings (``op|geometry|mesh``), values per-backend
 EWMA seconds; serialisation sorts everything, so ``from_json(to_json())``
 is byte-stable and byte-identical to the reference's text for the same
-records.  The mesh part takes a dict of axis sizes or ``None``; mesh
-objects wait for the port's ``dist`` mesh (ROADMAP item 14).
+records.  The mesh part takes a ``dist.mesh.Mesh``, a dict of axis
+sizes, their items, or ``None``.
 """
 
 from __future__ import annotations
@@ -33,9 +33,11 @@ def _canon_geometry(geometry) -> str:
 
 
 def _canon_mesh(mesh_shape) -> str:
-    """Mesh shape (dict of axis sizes, items, or None) -> one token."""
+    """Mesh shape (dict, Mesh, items, or None) -> one canonical token."""
     if mesh_shape is None:
         return "-"
+    if hasattr(mesh_shape, "axis_names"):  # a dist.mesh.Mesh
+        mesh_shape = dict(mesh_shape.shape)
     if isinstance(mesh_shape, dict):
         items = sorted(mesh_shape.items())
     else:

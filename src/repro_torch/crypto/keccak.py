@@ -30,6 +30,7 @@ from repro_torch.core import plan_algebra as pa
 from repro_torch.core import plan_program as pp
 from repro_torch.core.semiring import GF2
 from repro_torch.crypto.registry import registry
+from repro_torch.dist.annotate import annotate
 
 KECCAK_ROUNDS = 24
 STATE_BITS = 1600
@@ -376,7 +377,12 @@ def sha3_256_batched(messages, *, backend: str = "einsum",
                      fixed_latency: bool = False, device=None) -> list:
     """SHA3-256 of B equal-length messages as ONE batched sponge: all B
     lanes advance through each permutation together (one block-diagonal
-    pass a round, or B payload lanes of one megakernel launch)."""
+    pass a round, or B payload lanes of one megakernel launch).
+
+    The lanes are independent sponges: the states carry the "batch"
+    logical-axis annotation (``dist.annotate``), and the column-sharded
+    program executor (``dist.mesh_exec.run_program_sharded``) runs such
+    lanes over a mesh with nothing moving between shards."""
     rate_bytes = 136
     msgs = list(messages)
     if not msgs:
@@ -388,11 +394,14 @@ def sha3_256_batched(messages, *, backend: str = "einsum",
     blocks = np.stack([_pad101(m, rate_bytes, 0x06) for m in msgs])
     b, n_blocks = blocks.shape[:2]
     pad_tail = np.zeros((b, STATE_BITS - rate_bytes * 8), np.int32)
-    states = torch.zeros((b, STATE_BITS), dtype=torch.int32, device=dev)
+    states = annotate(torch.zeros((b, STATE_BITS), dtype=torch.int32,
+                                  device=dev), "batch")
     for i in range(n_blocks):
         full = np.concatenate([blocks[:, i], pad_tail], axis=1)
         states = states ^ torch.as_tensor(full, device=dev)
-        states = keccak_f1600(states, backend=backend, batch_mode=batch_mode,
-                              fixed_latency=fixed_latency)
+        states = annotate(keccak_f1600(states, backend=backend,
+                                       batch_mode=batch_mode,
+                                       fixed_latency=fixed_latency),
+                          "batch")
     host = states.cpu().numpy()
     return [_squeeze(host[i], rate_bytes)[:32] for i in range(b)]

@@ -1,8 +1,12 @@
-"""Distribution substrate of the port.
+"""Distribution substrate of the port: meshes, sharding rules,
+logical-axis annotations, compressed collectives, mesh-sharded plan and
+program execution, and the fault-tolerance policies.
 
-So far the host-side fault-tolerance policies (``dist.fault``), which
-the serving layer's watchdog and straggler tracking use.  Sharding,
-collectives and the sharded apply and program wait for ROADMAP item 14.
+One controller runs every shard: a ``mesh.Mesh`` is an array of
+``torch.device`` s (a device may repeat), and ``mesh_exec`` runs each
+shard's work on its device and copies blocks between shards itself.
 """
 
-from repro_torch.dist import fault  # noqa: F401
+from repro_torch.dist import (annotate, collectives, fault,  # noqa: F401
+                              mesh, mesh_exec, sharding)
+from repro_torch.dist.mesh import Mesh, make_mesh  # noqa: F401

@@ -18,9 +18,28 @@ import torch
 
 from repro_torch._device import resolve
 from repro_torch.core.sequence import sliding_window_mask
+from repro_torch.dist.annotate import active_mesh as _ann_active
+from repro_torch.dist.annotate import annotate
 from repro_torch.models import layers as L
 
 _MASKED = -1e30
+
+
+def annotate_grouped_q(qh):
+    """Annotate a grouped-decode query (B, C, KV, rep, hd) to mirror the
+    KV cache's sharding rule: kv-heads over 'model' when divisible, else
+    head_dim, else batch only (the reference's rule; the port's
+    ``annotate`` returns its input unchanged)."""
+    mesh = _ann_active()
+    if mesh is None:
+        return qh
+    model_sz = mesh.shape.get("model", 1)
+    b, c, kv, rep, hd = qh.shape
+    if kv % model_sz == 0:
+        return annotate(qh, "batch", None, "tp", None, None)
+    if hd % model_sz == 0:
+        return annotate(qh, "batch", None, None, None, "tp")
+    return annotate(qh, "batch")
 
 
 def _repeat_kv(k, rep):
@@ -117,7 +136,7 @@ def decode_attn_apply(p, x1, cache, pos: int, cfg):
 
     # Grouped (KV, rep) form, as the reference's decode keeps it.
     rep = h // kv
-    qh = q.reshape(b, 1, kv, rep, hd)
+    qh = annotate_grouped_q(q.reshape(b, 1, kv, rep, hd))
     scores = L.einsum_f32("bckrh,bskh->bkrcs", qh, cache["k"]) / math.sqrt(hd)
     written = w if pos + 1 >= w else pos + 1
     valid = torch.arange(w, device=x1.device) < written

@@ -1,6 +1,6 @@
 """Continuous request batching over the fixed-latency crypto engine.
 
-Port of the single-device half of ``repro.serve.batching``.
+Port of ``repro.serve.batching``.
 ``serve/engine.py`` batches *tokens* for a model; this module batches
 *requests* for the permutation engine's crypto workloads — many clients
 submitting variable-length payloads to be hashed or sealed, served from
@@ -39,6 +39,19 @@ is bit-exact or a clean typed rejection, never a hang.
   explicitly to every call, since the current CUDA device is per
   thread.
 
+* **Mesh scale-out.**  With ``BatchingOptions(mesh=...)`` (a
+  ``dist.mesh.Mesh``; shards may share a card) each padded SHA-3
+  bucket's lane axis splits over the mesh's shards.  With
+  ``partial_results`` (the default) every shard's lane window runs as
+  its own journaled unit on its shard's device through the resilient
+  chain — on the card one packed megakernel launch a shard and sponge
+  block.  A shard whose every rung failed trips its device out of the
+  mesh; the completed shards' lanes are kept (``ResultJournal``), only
+  the lost window replays on a survivor, and later batches run on the
+  survivor mesh ``dist.fault.survivor_mesh_shape`` gives.  Per-device
+  health (``resilience.DeviceHealth``) is keyed by mesh index, never
+  by ``torch.device``.  GCM seal buckets never shard.
+
 * **Measured backend tuning.**  Every bucket execution records its wall
   time into a ``core.tuning.TuningTable`` keyed by (op, padded
   geometry).  Once the table has measured every rung of the chain for
@@ -47,11 +60,6 @@ is bit-exact or a clean typed rejection, never a hang.
   does not take the bucket off the head for good.  Each rung's run
   ends in the host copy of its digests or records, so that time
   includes the device's.
-
-The mesh half of the reference (sharded buckets, per-device health,
-partial-batch replay onto survivor meshes and its result journal)
-waits for the port's ``dist`` mesh, ROADMAP item 14:
-``BatchingOptions(mesh=...)`` raises ``NotImplementedError``.
 
 Synchronous use (tests, benchmarks) constructs the engine with
 ``start=False`` and calls ``run_once()`` to process one batch on the
@@ -62,6 +70,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
+import math
 import queue as queue_mod
 import threading
 import time
@@ -73,13 +83,16 @@ import torch
 from repro_torch import obs as _obs
 from repro_torch._device import resolve
 from repro_torch.core import telemetry
-from repro_torch.core.resilience import (Fault, ResilientExecutor,
-                                         TimeoutFault, default_chain,
-                                         is_build_failure)
+from repro_torch.core.resilience import (DeviceHealth, Fault,
+                                         ResilientExecutor, TimeoutFault,
+                                         default_chain, is_build_failure)
 from repro_torch.core.tuning import TuningTable
 from repro_torch.crypto import gcm, keccak
 from repro_torch.crypto.registry import registry
-from repro_torch.dist.fault import HeartbeatTracker, StragglerPolicy
+from repro_torch.dist import mesh_exec as mx
+from repro_torch.dist.fault import (HeartbeatTracker, StragglerPolicy,
+                                    survivor_mesh_shape)
+from repro_torch.dist.mesh import Mesh
 
 _RATE_BYTES = 136  # SHA3-256 sponge rate
 
@@ -135,17 +148,24 @@ def _aead_bucket(payload: bytes) -> tuple:
     return (len(payload) - 16 - aad_len, aad_len)   # (pt_len, aad_len)
 
 
+_RID_COUNTER = itertools.count(1)
+
+
 class Request:
     """One submitted payload: a thread-safe future with a deadline."""
 
     __slots__ = ("op", "payload", "deadline", "backend", "_event", "_value",
-                 "_exc", "_lock", "t_submit", "t_done", "trace_id")
+                 "_exc", "_lock", "t_submit", "t_done", "trace_id", "rid")
 
     def __init__(self, payload: bytes, op: str,
                  deadline: Optional[float]):
         self.op = op
         self.payload = payload
         self.deadline = deadline
+        # Process-unique request id: the key of the partial-batch
+        # result journal (a replay needs an identity that survives
+        # requeue and recovery, which list position does not).
+        self.rid = next(_RID_COUNTER)
         self.backend: Optional[str] = None
         self._event = threading.Event()
         self._value: Optional[bytes] = None
@@ -222,8 +242,7 @@ class BatchingOptions:
     (megakernel-first on the card, einsum-first on the CPU).
     ``fixed_latency=True`` runs every bucket under the crypto registry's
     observation contract; drift then surfaces as ``DriftFault`` and is
-    quarantined rather than poisoning the pinned caches.  ``mesh`` is
-    the reference's mesh scale-out, which raises until ROADMAP item 14.
+    quarantined rather than poisoning the pinned caches.
     """
 
     max_batch: int = 8
@@ -234,9 +253,10 @@ class BatchingOptions:
     chain: Optional[tuple] = None
     watchdog_miss_threshold: int = 3
     batch_log_cap: int = 256
-    # Mesh scale-out (sharded buckets, partial-batch recovery): waits
-    # for the port's mesh execution, ROADMAP item 14.
-    mesh: Optional[object] = None
+    # Mesh scale-out: a dist.mesh.Mesh shards each bucket's lane axis
+    # over ``mesh_axis``; None keeps the single-device path.
+    mesh: Optional[Mesh] = None
+    mesh_axis: str = "data"
     # Overlap host-side packing with device absorb (threaded mode only;
     # run_once() stays synchronous regardless).
     double_buffer: bool = True
@@ -245,12 +265,65 @@ class BatchingOptions:
     # Engine-held AES-128 key for op="gcm_seal" buckets (per-record
     # keys would defeat bucketing: the fused program is per-key).
     aead_key: bytes = b"\x00" * 16
+    # Partial-batch recovery on a mesh: each shard's lane window runs
+    # as its own journaled unit, so a device fault mid-batch keeps the
+    # completed shards and replays only the lost lanes on the
+    # survivors.  False runs the whole batch sharded at once.
+    partial_results: bool = True
+    # Result-journal capacity (completed lanes kept for idempotent
+    # replay; the oldest entries age out).
+    journal_cap: int = 4096
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "BatchingOptions(mesh=...) needs the port's mesh execution "
-                "(dist/, ROADMAP item 14), which is not ported yet")
+        if self.mesh is not None and self.mesh_axis not in \
+                self.mesh.axis_names:
+            raise ValueError(f"mesh_axis {self.mesh_axis!r} not on mesh "
+                             f"{tuple(self.mesh.axis_names)}")
+
+
+class ResultJournal:
+    """Completed-lane journal for partial-batch recovery.
+
+    Maps request id -> result bytes for lanes whose shard completed, so
+    a replay after a mid-batch device fault is idempotent: windows whose
+    live lanes are all journaled are served from it, and a lane that
+    replays anyway records the same bytes again.  Bounded (FIFO aging):
+    a recovery scratchpad, not a cache.
+    """
+
+    def __init__(self, cap: int = 4096):
+        if cap < 1:
+            raise ValueError(f"journal cap must be >= 1, got {cap}")
+        self.cap = cap
+        self._lock = threading.Lock()
+        self._entries: "collections.OrderedDict[int, bytes]" = \
+            collections.OrderedDict()
+
+    def record(self, rid: int, value: bytes) -> None:
+        with self._lock:
+            self._entries[rid] = value
+            self._entries.move_to_end(rid)
+            while len(self._entries) > self.cap:
+                self._entries.popitem(last=False)
+
+    def get(self, rid: int) -> Optional[bytes]:
+        with self._lock:
+            return self._entries.get(rid)
+
+    def forget(self, rid: int) -> None:
+        with self._lock:
+            self._entries.pop(rid, None)
+
+    def depth(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
+def _shard_probe(shard_index: int, device_index: int) -> None:
+    """Per-shard dispatch hook, called just before a shard's lanes run
+    on mesh index ``device_index``.  A no-op in production;
+    ``core.faults.inject_device_fault`` patches this module attribute
+    to kill a chosen shard mid-batch."""
 
 
 def _staging_put(queue, item) -> None:
@@ -276,28 +349,41 @@ def _pack_blocks(payloads: Sequence[bytes]) -> np.ndarray:
 
 
 def _absorb_digests(blocks: np.ndarray, backend: str, *,
-                    fixed_latency: bool, device) -> list:
+                    fixed_latency: bool, device, mesh: Optional[Mesh] = None,
+                    mesh_axis: str = "data") -> list:
     """Device-side half: sponge-absorb pre-packed blocks, one
     ``keccak_f1600`` per block with B as payload width, and squeeze the
     digests (bytes, after their copy to the host).
 
-    The (B, n_blocks, 1600) blocks go to ``device`` in one copy a batch,
-    from pinned memory on the card, not one copy a block.
+    The (B, n_blocks, 1600) blocks go to the device in one copy a batch
+    (a shard), from pinned memory on the card, not one copy a block.
+    With ``mesh`` set the lanes split over the shards along
+    ``mesh_axis``, each absorbing its own lanes on its own device: every
+    absorb step is elementwise across lanes, so nothing moves between
+    shards.  The megakernel keeps the unsharded path on ``device``, as
+    in the reference.
     """
     b, n_blocks = blocks.shape[:2]
-    host = torch.from_numpy(blocks)
-    if device.type == "cuda":
-        host = host.pin_memory()
-    dev_blocks = host.to(device, non_blocking=True)
-    states = torch.zeros((b, keccak.STATE_BITS), dtype=torch.int32,
-                         device=device)
-    for i in range(n_blocks):
-        states = states ^ dev_blocks[:, i]
-        states = keccak.keccak_f1600(states, backend=backend,
-                                     batch_mode="payload",
-                                     fixed_latency=fixed_latency)
-    bits = states[:, :256].to(torch.uint8).cpu().numpy()
-    digests = np.packbits(bits, axis=1, bitorder="little")
+    if mesh is not None and backend != "megakernel" and b > 1:
+        devices = mesh.axis_devices(mesh_axis)
+        bounds = mx.shard_bounds(b, len(devices))
+    else:
+        devices, bounds = [device], [(0, b)]
+    bits = []
+    for dev, (lo, hi) in zip(devices, bounds):
+        host = torch.from_numpy(blocks[lo:hi])
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        dev_blocks = host.to(dev, non_blocking=True)
+        states = torch.zeros((hi - lo, keccak.STATE_BITS), dtype=torch.int32,
+                             device=dev)
+        for i in range(n_blocks):
+            states = states ^ dev_blocks[:, i]
+            states = keccak.keccak_f1600(states, backend=backend,
+                                         batch_mode="payload",
+                                         fixed_latency=fixed_latency)
+        bits.append(states[:, :256].to(torch.uint8).cpu().numpy())
+    digests = np.packbits(np.concatenate(bits), axis=1, bitorder="little")
     return [d.tobytes() for d in digests]
 
 
@@ -375,6 +461,19 @@ class BatchingEngine:
         # the device-feed thread: depth 2 means the next bucket's host
         # work happens while the current batch owns the device.
         self._staging: "queue_mod.Queue" = queue_mod.Queue(maxsize=2)
+        # Mesh state.  Shard d of the full mesh (its mesh index) runs on
+        # ``_mesh_devices[d]``; DeviceHealth tracks a breaker per index,
+        # and the active mesh is rebuilt from the survivors on demand.
+        self.device_health: Optional[DeviceHealth] = None
+        self._mesh: Optional[Mesh] = None
+        self._mesh_devices: list = []
+        self._survivor_cache: dict = {}
+        if options.mesh is not None:
+            self._mesh = Mesh(options.mesh.devices, options.mesh.axis_names)
+            self._mesh_devices = list(self._mesh.devices.reshape(-1))
+            self.device_health = DeviceHealth(len(self._mesh_devices))
+        # Partial-batch recovery journal: completed lanes by request id.
+        self.journal = ResultJournal(cap=options.journal_cap)
         # Measured backend tuning (core/tuning.py): records every bucket
         # wall time and rank-orders the fallback chain (_ranked_chain).
         self.tuning = options.tuning if options.tuning is not None \
@@ -398,6 +497,11 @@ class BatchingEngine:
                               lambda: len(self.tuning))
         _obs.metrics.gauge_fn("serve_staging_depth",
                               self._staging.qsize)
+        _obs.metrics.gauge_fn("serve_journal_depth", self.journal.depth)
+        if self.device_health is not None:
+            _obs.metrics.gauge_fn("serve_mesh_active", self._mesh_active)
+            _obs.metrics.gauge_fn(
+                "serve_mesh_lost", lambda: len(self.device_health.lost()))
         if start:
             self.start()
 
@@ -522,6 +626,56 @@ class BatchingEngine:
                              trace_id=req.trace_id, op=req.op)
         return batch, rejected
 
+    # -- mesh membership ----------------------------------------------------
+
+    def report_device_fault(self, device: int) -> bool:
+        """Feed one fault attributed to mesh index ``device`` into its
+        breaker.  Returns True when this fault trips it out of the mesh;
+        later batches rebuild onto the survivor mesh."""
+        if self.device_health is None:
+            raise ValueError("report_device_fault: engine has no mesh")
+        tripped = self.device_health.record_failure(device)
+        if tripped:
+            telemetry.incr("serve_mesh_device_drops")
+        return tripped
+
+    def _active_mesh(self) -> Optional[Mesh]:
+        """The mesh batches run on now: the full mesh, a survivor mesh
+        of the healthy shards (its ``ids`` their full-mesh indices), or
+        None (the single-device path) when none survives."""
+        if self.device_health is None:
+            return None
+        lost = self.device_health.lost()
+        if not lost:
+            return self._mesh
+        healthy = tuple(self.device_health.healthy())
+        if healthy in self._survivor_cache:
+            return self._survivor_cache[healthy]
+        try:
+            # survivor_mesh_shape shrinks by name; serving meshes are
+            # 1-axis, so compute under "data" and relabel to our axis.
+            shape = survivor_mesh_shape({"data": len(self._mesh_devices)},
+                                        len(lost))
+        except (ValueError, RuntimeError):
+            telemetry.incr("serve_mesh_collapsed")
+            self._survivor_cache[healthy] = None
+            return None
+        ids = healthy[:shape["data"]]
+        mesh = Mesh([self._mesh_devices[d] for d in ids],
+                    (self.opt.mesh_axis,), ids=np.asarray(ids))
+        telemetry.incr("serve_mesh_rebuilds")
+        self._survivor_cache[healthy] = mesh
+        return mesh
+
+    def _mesh_active(self) -> int:
+        mesh = self._active_mesh()
+        return 0 if mesh is None else mesh.size
+
+    def _mesh_lane_floor(self) -> int:
+        """Lane padding covers the FULL mesh, so any power-of-two
+        survivor mesh still divides it."""
+        return max(1, len(self._mesh_devices))
+
     def _prepare(self, batch: list) -> tuple:
         """Host half of a bucket execution: pow2 lane padding + payload
         packing (numpy only).  Runs on the prep thread when
@@ -529,8 +683,9 @@ class BatchingEngine:
         bucket = batch[0].bucket
         op, geom = bucket[0], bucket[1:]
         # (b_pad, *geom) IS the geometry the fixed-latency contract and
-        # the circuit breaker key on.
-        b_pad = 1
+        # the circuit breaker key on.  On a mesh the floor is the shard
+        # count, so every shard gets lanes.
+        b_pad = self._mesh_lane_floor()
         while b_pad < len(batch):
             b_pad *= 2
         payloads = [r.payload for r in batch]
@@ -557,6 +712,15 @@ class BatchingEngine:
                                  else self._prepare(batch))
         shape = (b_pad,) + geom
         device = self.device
+        mesh = self._active_mesh()
+        mesh_shape = None if mesh is None else dict(mesh.shape)
+        if (self.opt.partial_results and mesh is not None
+                and op != "gcm_seal" and mesh.size > 1):
+            # Per-shard journaled execution: a device fault mid-batch
+            # loses one lane window, not the batch.  (gcm_seal keeps
+            # the single-launch fused path: it never shards.)
+            return self._execute_batch_partial(batch, op, geom, b_pad,
+                                               data, mesh)
         if op == "gcm_seal":
             def run(backend: str) -> list:
                 return _bucket_seal(data, backend, self.opt.aead_key,
@@ -567,17 +731,18 @@ class BatchingEngine:
             def run(backend: str) -> list:
                 return _absorb_digests(data, backend,
                                        fixed_latency=self.opt.fixed_latency,
-                                       device=device)
+                                       device=device, mesh=mesh,
+                                       mesh_axis=self.opt.mesh_axis)
             registry_keys = _keccak_registry_keys
 
-        chain = self._ranked_chain(op, shape)
+        chain = self._ranked_chain(op, shape, mesh_shape)
         # The span IS the batch stopwatch: straggler tracking and the
         # tuning EWMA both read its duration (a disabled span still times
         # itself), and every run ends in its result's host copy, so the
         # device's time is inside it.
         sp = _obs.span("device_absorb", trace_id=batch[0].trace_id, op=op,
                        b_pad=b_pad, geom=str(geom), lanes=len(batch),
-                       mesh=False)
+                       mesh=mesh is not None)
         try:
             with sp:
                 res = self.executor.execute(
@@ -597,22 +762,217 @@ class BatchingEngine:
         finally:
             self.straggler.observe(sp.duration_s)
             telemetry.incr("serve_batches")
-        self.tuning.record_span(sp, op, shape, res.backend)
+        self.tuning.record_span(sp, op, shape, res.backend,
+                                mesh_shape=mesh_shape)
+        if mesh is not None:
+            telemetry.incr("serve_mesh_batches")
+            # A successful mesh batch is a health signal for every shard
+            # that took part (half-open probes rejoin here).
+            for d in mesh.ids.reshape(-1):
+                self.device_health.record_success(int(d))
         self.batch_log.append((op, shape, res.backend, len(batch)))
         telemetry.incr("serve_completed", len(batch))
         for req, value in zip(batch, res.value):
             req._finish(value=value, backend=res.backend)
 
-    def _ranked_chain(self, op: str, shape: tuple) -> tuple:
+    def _ranked_chain(self, op: str, shape: tuple,
+                      mesh_shape: Optional[dict] = None) -> tuple:
         """The chain for a bucket: measured-fastest-first once the
         tuning table has measured every rung, else the configured
         order.  The engine records only the rung that answered, so a
         ranking of a partly measured chain would put a fallback that
         answered once ahead of an unmeasured head for good."""
-        measured = self.tuning.lookup(op, shape)
+        measured = self.tuning.lookup(op, shape, mesh_shape=mesh_shape)
         if all(b in measured for b in self.chain):
-            return self.tuning.rank_chain(op, shape, self.chain)
+            return self.tuning.rank_chain(op, shape, self.chain,
+                                          mesh_shape=mesh_shape)
         return self.chain
+
+    # -- partial-batch recovery --------------------------------------------
+
+    def _force_trip(self, device_index: int) -> None:
+        """Take a shard out of the mesh NOW: a device-attributed fault
+        mid-batch is definitive, not a strike toward a threshold."""
+        while self.device_health.is_healthy(device_index):
+            self.device_health.record_failure(device_index)
+        telemetry.incr("serve_mesh_device_drops")
+
+    def _run_shard(self, op: str, geom: tuple, window: np.ndarray,
+                   shard_index: int, device_index: int):
+        """Run one shard's lane window on mesh index ``device_index``'s
+        device through the resilient chain; the ResilientResult."""
+        device = self._mesh_devices[device_index]
+
+        def run(backend: str) -> list:
+            _shard_probe(shard_index, device_index)
+            return _absorb_digests(window, backend,
+                                   fixed_latency=self.opt.fixed_latency,
+                                   device=device)
+
+        shape = (window.shape[0],) + geom
+        telemetry.incr("serve_shard_launches")
+        return self.executor.execute(op, shape, run,
+                                     chain=self._ranked_chain(op, shape),
+                                     registry_keys=_keccak_registry_keys)
+
+    @staticmethod
+    def _device_of_fault(exc: BaseException) -> Optional[int]:
+        """Walk the cause chain for a fault attributed to a mesh index."""
+        seen = 0
+        while exc is not None and seen < 16:
+            device = getattr(exc, "device", None)
+            if isinstance(device, int):
+                return device
+            exc = exc.__cause__ or exc.__context__
+            seen += 1
+        return None
+
+    def _execute_batch_partial(self, batch: list, op: str, geom: tuple,
+                               b_pad: int, data: np.ndarray,
+                               mesh: Mesh) -> None:
+        """Mesh execution with per-shard journaling and lost-lane replay.
+
+        Each shard of the padded lane axis runs as its own resilient
+        execution on its device.  A completed shard's real lanes finish
+        (and journal) at once, whatever later shards do.  A shard whose
+        chain gave up force-trips its device and queues only its window
+        for replay on a surviving shard: idempotent (journaled lanes are
+        served from the journal), deadline-aware (lanes that cannot make
+        their deadline shed with ``Overloaded``), and geometry-stable
+        (the replay window keeps the shard's shape).  A build failure
+        or a missing card completes every unfinished request with it.
+        """
+        ids = [int(d) for d in mesh.ids.reshape(-1)]
+        bounds = mx.shard_bounds(b_pad, len(ids))
+        by_lane: list = list(batch) + [None] * (b_pad - len(batch))
+        telemetry.incr("serve_partial_batches")
+        sp = _obs.span("partial_batch", trace_id=batch[0].trace_id, op=op,
+                       b_pad=b_pad, shards=len(ids), lanes=len(batch))
+        backend_used = None
+        lost: list = []
+        last_fault: Optional[Fault] = None
+
+        def finish_window(lo: int, hi: int, values: list,
+                          backend: str) -> None:
+            for lane in range(lo, hi):
+                req = by_lane[lane]
+                if req is None:
+                    continue
+                self.journal.record(req.rid, values[lane - lo])
+                if req._finish(value=values[lane - lo], backend=backend):
+                    telemetry.incr("serve_completed")
+
+        try:
+            with sp:
+                for s, (lo, hi) in enumerate(bounds):
+                    try:
+                        res = self._run_shard(op, geom, data[lo:hi], s,
+                                              ids[s])
+                    except Fault as e:
+                        at_fault = self._device_of_fault(e)
+                        self._force_trip(at_fault if at_fault is not None
+                                         else ids[s])
+                        sp.event("shard_lost", shard=s, device=ids[s])
+                        lost.append((s, lo, hi))
+                        last_fault = e
+                        continue
+                    backend_used = backend_used or res.backend
+                    self.device_health.record_success(ids[s])
+                    finish_window(lo, hi, res.value, res.backend)
+                if lost:
+                    telemetry.incr("serve_shards_salvaged",
+                                   len(bounds) - len(lost))
+                    self._replay_lost(op, geom, data, by_lane, lost,
+                                      last_fault, sp)
+        except Exception as e:  # noqa: BLE001 — typed completion below
+            if not is_build_failure(e):
+                raise
+            for req in batch:
+                if req._finish(exc=e):
+                    telemetry.incr("serve_failed")
+            return
+        finally:
+            # Its duration is the whole batch (salvage + any replay),
+            # which is what the straggler EWMA should see.
+            self.straggler.observe(sp.duration_s)
+            telemetry.incr("serve_batches")
+        telemetry.incr("serve_mesh_batches")
+        self.batch_log.append((op, (b_pad,) + geom,
+                               backend_used or "replay", len(batch)))
+
+    def _replay_lost(self, op: str, geom: tuple, data: np.ndarray,
+                     by_lane: list, lost: list,
+                     last_fault: Optional[Fault], sp) -> None:
+        """Replay only the lost shards' lane windows on the survivors."""
+        survivors = self.device_health.healthy()
+        if not survivors:
+            telemetry.incr("serve_mesh_collapsed")
+            for s, lo, hi in lost:
+                for lane in range(lo, hi):
+                    req = by_lane[lane]
+                    if req is not None:
+                        telemetry.incr("serve_failed")
+                        req._finish(exc=last_fault)
+            return
+        # Deadline-aware resubmission: the straggler EWMA (scaled by its
+        # deadline factor) estimates one replay window's wall time;
+        # lanes that cannot make their deadline shed NOW with Overloaded
+        # instead of spending survivor capacity.
+        est_s = self.straggler.deadline
+        now = time.monotonic()
+        for s, lo, hi in lost:
+            for lane in range(lo, hi):
+                req = by_lane[lane]
+                if req is None or req.deadline is None:
+                    continue
+                if now >= req.deadline or (math.isfinite(est_s)
+                                           and now + est_s > req.deadline):
+                    if req._finish(exc=Overloaded(
+                            "survivor mesh cannot absorb the replay "
+                            "before this request's deadline")):
+                        telemetry.incr("serve_shed")
+                        by_lane[lane] = None
+        rr = itertools.cycle(survivors)
+        for s, lo, hi in lost:
+            live = [lane for lane in range(lo, hi)
+                    if by_lane[lane] is not None
+                    and not by_lane[lane].done()]
+            if not live:
+                continue  # nothing real in this window survived
+            # Idempotent replay: a window whose live lanes all have
+            # journaled results is served from the journal.
+            pending = [lane for lane in live
+                       if self.journal.get(by_lane[lane].rid) is None]
+            if not pending:
+                for lane in live:
+                    req = by_lane[lane]
+                    if req._finish(value=self.journal.get(req.rid),
+                                   backend="journal"):
+                        telemetry.incr("serve_completed")
+                continue
+            device_index = next(rr)
+            try:
+                res = self._run_shard(op, geom, data[lo:hi], s,
+                                      device_index)
+            except Fault as e:
+                at_fault = self._device_of_fault(e)
+                self._force_trip(at_fault if at_fault is not None
+                                 else device_index)
+                sp.event("replay_lost", shard=s, device=device_index)
+                for lane in live:
+                    telemetry.incr("serve_failed")
+                    by_lane[lane]._finish(exc=e)
+                continue
+            telemetry.incr("lanes_replayed", len(live))
+            sp.event("replayed", shard=s, lanes=len(live),
+                     device=device_index)
+            self.device_health.record_success(device_index)
+            for lane in live:
+                req = by_lane[lane]
+                self.journal.record(req.rid, res.value[lane - lo])
+                if req._finish(value=res.value[lane - lo],
+                               backend=res.backend):
+                    telemetry.incr("serve_completed")
 
     def run_once(self) -> int:
         """Process one batch synchronously (deterministic test hook).
@@ -698,4 +1058,9 @@ class BatchingEngine:
             list(map(str, k)) for k in self.executor.breaker.open_keys()]
         out["straggler_deadline_s"] = self.straggler.deadline
         out["tuning_entries"] = len(self.tuning)
+        out["journal_depth"] = self.journal.depth()
+        if self.device_health is not None:
+            out["mesh_devices"] = len(self._mesh_devices)
+            out["mesh_active"] = self._mesh_active()
+            out["mesh_lost"] = self.device_health.lost()
         return out

@@ -154,9 +154,18 @@ class TestAdmission:
         assert eng.device == torch.device("cpu")
         assert eng.chain == ("einsum", "sparse", "kernel", "reference")
 
-    def test_mesh_waits_for_item_14(self):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            BatchingOptions(mesh=object())
+    def test_mesh_option_shards_buckets_over_the_mesh(self):
+        from repro_torch.dist import make_mesh
+        mesh = make_mesh((2,), ("data",), devices=["cpu", "cpu"])
+        eng = _engine(mesh=mesh, max_batch=4)
+        reqs = [eng.submit(bytes([i]) * 5) for i in range(3)]
+        _drain(eng)
+        assert [r.result(1) for r in reqs] == [
+            hashlib.sha3_256(bytes([i]) * 5).digest() for i in range(3)]
+        assert eng.batch_log[0][1] == (4, 1)        # pow2 over the mesh
+        assert telemetry.counter("serve_shard_launches") == 2
+        with pytest.raises(ValueError, match="mesh_axis"):
+            BatchingOptions(mesh=mesh, mesh_axis="model")
 
 
 class TestDegradation:
@@ -222,7 +231,8 @@ class TestDegradation:
         assert stats["breaker_open"] == []
         assert stats["resilience_backend_einsum"] == 1
         assert stats["tuning_entries"] == 1
-        assert "journal_depth" not in stats     # the mesh replay's, item 14
+        assert stats["journal_depth"] == 0       # no mesh: nothing journaled
+        assert "mesh_active" not in stats
 
     def test_program_fault_falls_to_the_next_rung(self):
         ex = ResilientExecutor(chain=("megakernel", "sparse"),

@@ -730,3 +730,108 @@ def test_exhausted_card_chain_raises_and_einsum_never_answers(dev):
         assert telemetry.counter(f"resilience_backend_{name}") == 0
     assert not any(kl.values()) and not any(lay.values())
     assert not eng.batch_log
+
+
+def _mesh_cases(dev, rng):
+    """(name, plan on ``dev``, payload on ``dev``, tol) of the sharded
+    crossbar cases: tol None = bit-exact."""
+    from repro_torch.core import crossbar as txb
+    from repro_torch.core import plan_algebra as tpa
+    from repro_torch.crypto import keccak as TK
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    cap, e_, n_tok = 24, 16, 256
+    dest = rng.integers(-1, e_ * cap, n_tok).astype(np.int32)
+    dest = np.where(np.arange(n_tok) % 7 == 0, -1, dest)
+    _, first = np.unique(dest, return_index=True)
+    keep = np.zeros(n_tok, bool)
+    keep[first] = True
+    dest = np.where(keep, dest, -1)                    # output-injective
+    slide = txb.vslide_plan(512, 32, up=True, device=dev)
+    return [
+        ("rho_pi GF2 (1600, 64)", TK.rho_pi_plan(dev),
+         t(rng.integers(0, 2, (1600, 64)).astype(np.int32)), None),
+        ("MoE scatter (256 -> 384, 64) bf16",
+         txb.scatter_plan(t(dest), e_ * cap),
+         t(rng.standard_normal((n_tok, 64)).astype(np.float32)).to(
+             torch.bfloat16), None),
+        ("weighted vslide (512, 16) f32",
+         tpa.with_weights(slide, t(rng.standard_normal(512).astype(
+             np.float32))),
+         t(rng.standard_normal((512, 16)).astype(np.float32)), F32_TOL),
+    ]
+
+
+@pytest.mark.parametrize("s", [2, 8])
+@pytest.mark.parametrize("backend", ["kernel", "sparse"])
+def test_sharded_crossbars_match_plain_versions(dev, backend, s):
+    """Scheduled and naive executors on a mesh of ``s`` shards of cuda:0
+    against the same executors on a CPU mesh (the kernels' plain
+    versions); one crossbar launch a block that runs, and the block
+    copies the schedule names."""
+    from repro_torch.core import crossbar as txb
+    from repro_torch.core import telemetry
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import mesh_exec as mx
+    kernel = {"kernel": "crossbar_dense", "sparse": "crossbar_sparse"}
+    mesh = make_mesh((s,), ("data",), devices=[dev] * s)
+    cpu = make_mesh((s,), ("data",), devices=["cpu"] * s)
+    for name, plan, x, tol in _mesh_cases(dev, np.random.default_rng(s)):
+        fn = mx.sharded_apply_fn(plan, mesh, backend=backend)
+        stats = mx.schedule_stats(fn.conn)
+        before = _launches_now()
+        with telemetry.delta() as d:
+            got = torch.cat(fn(x))
+        kl, _ = _launch_deltas(before)
+        assert d().get("mesh_block_copies", 0) == stats[
+            "scheduled_block_transfers"], name
+        assert kl[kernel[backend]] >= len(fn.blocks) > 0, name
+        cplan = txb.PermutePlan(plan.mode, plan.idx.cpu(), plan.n_in,
+                                plan.n_out, None if plan.weights is None
+                                else plan.weights.cpu(), plan.semiring)
+        want = mx.apply_plan_sharded(cplan, x.cpu(), cpu, backend=backend)
+        single = txb.apply_plan(cplan, x.cpu(), backend="reference")
+        naive = mx.apply_plan_sharded_naive(plan, x, mesh, backend=backend)
+        for out in (got, naive):
+            if tol is None:
+                assert_bitexact(out, want)
+                assert_bitexact(out, single)
+            else:
+                assert_close(out, want, tol)
+                assert_close(out, single, tol)
+
+
+@pytest.mark.parametrize("which", ["keccak", "chacha20"])
+def test_run_program_sharded_one_launch_a_shard(dev, which):
+    """Column-sharded programs on 4 shards of cuda:0: the packed
+    (Keccak-f) and word (ChaCha20) layouts, one launch a shard, no block
+    copy, equal to the plain VM."""
+    from repro_torch.core import plan_program as tpp
+    from repro_torch.core import telemetry
+    from repro_torch.crypto import chacha as TC
+    from repro_torch.crypto import keccak as TK
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist import mesh_exec as mx
+    rng = np.random.default_rng(7)
+    if which == "keccak":
+        prog, layout = TK.megakernel_program(dev), "packed"
+        x = torch.as_tensor(rng.integers(0, 2, (1600, 256)).astype(np.int32),
+                            device=dev)
+    else:
+        prog, layout = TC.megakernel_program(dev), "word"
+        x = torch.as_tensor(rng.integers(-2**31, 2**31, (16, 256),
+                                         dtype=np.int64).astype(np.int32),
+                            device=dev).view(torch.uint32)
+    mesh = make_mesh((4,), ("data",), devices=[dev] * 4)
+    before = _launches_now()
+    with telemetry.delta() as d:
+        got = mx.run_program_sharded(prog, x, mesh)
+    kl, lay = _launch_deltas(before)
+    assert d().get("mesh_block_copies", 0) == 0
+    assert kl["plan_program"] == lay[layout] == 4
+    cprog = (TK.megakernel_program("cpu") if which == "keccak"
+             else TC.megakernel_program("cpu"))
+    want = tpp.run_program(cprog, x.cpu())
+    assert_bitexact(got.view(torch.int32), want.view(torch.int32))

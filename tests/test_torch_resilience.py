@@ -453,12 +453,24 @@ class TestFaultInjector:
             keccak.keccak_f1600(state.T, backend="megakernel")
         assert inj.injected == [("program", 0)]
 
-    def test_mesh_sites_wait_for_the_mesh(self):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            with faults.inject_faults(seed=0, collective_rate=0.5):
-                pass
-        with pytest.raises(NotImplementedError, match="item 14"):
-            faults.inject_device_fault(0)
+    def test_mesh_sites_arm_their_hooks(self):
+        from repro_torch.dist import mesh_exec as mx
+        from repro_torch.serve import batching as sb
+        round_hook, probe = mx._collective_round, sb._shard_probe
+        with faults.inject_faults(seed=0, collective_rate=1.0,
+                                  sites=("collective",)) as inj:
+            with pytest.raises(faults.InjectedCollectiveFailure):
+                mx._collective_round(0, ((1, 0),))
+        assert inj.injected == [("collective", 0)]
+        assert mx._collective_round is round_hook
+        with faults.inject_device_fault(2, max_fires=1) as state:
+            sb._shard_probe(0, 1)                # another shard: no fault
+            with pytest.raises(faults.InjectedDeviceFailure) as e:
+                sb._shard_probe(5, 2)
+            sb._shard_probe(6, 2)                # max_fires spent
+        assert e.value.device == 2 and state["fired"] == 1
+        assert sb._shard_probe is probe
+        assert isinstance(e.value, faults.InjectedLaunchFailure)
         with pytest.raises(ValueError, match="unknown fault sites"):
             with faults.inject_faults(sites=("nowhere",)):
                 pass
