@@ -50,7 +50,18 @@ set to 0 just before and read just after:
   ``run_program_sharded``, cross-shard MoE dispatch at Phi-3.5-MoE's
   prompt routing group, a GF(2) and a weighted REAL plan, each on both
   crossbars, scheduled and naive, and ``BatchingEngine`` on an 8-shard
-  mesh through a shard kill and replay; then the serving phase.
+  mesh through a shard kill and replay; then the serving phase;
+* the baselines phase (``baselines_phase``, after serving): the paper's
+  separate datapaths (``core.baselines``: crossbar gather, log shifter,
+  sequential vcompress, argsort MoE dispatch) against the unified one on
+  both crossbars, the fused vcompress and moe_route-routed dispatch, at
+  N = 32 and N = 4096 (D = 128), bit-exact, with each side's time;
+* the training phase (``train_phase``, last): Phi-3.5-MoE at full
+  width, 2 of 32 layers, 4 train steps (remat, moe_route counted,
+  routing equal to the plain version's, step ms, tokens/s, peak memory);
+  reduced MiniCPM-2B through ``launch.train`` (loss falls, checkpoint
+  resume); MiniCPM-2B at full width, 2 of 40 layers, prefill and greedy
+  decode against the parallel forward.
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
@@ -75,6 +86,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -2453,6 +2465,484 @@ def mesh_phase(dev, msgs, group0, compare):
     return counted
 
 
+# The paper's Table 1 comparison on the card: the unified datapath
+# (crossbar kernels, fused vcompress, moe_route-routed dispatch) against
+# the baseline's separate datapaths (``core.baselines``), at the
+# reference benchmark's geometry (VL = 256 b at SEW = 8 b: N = 32, D =
+# 128) and one large shape.
+BASELINE_SHAPES = ((32, 128), (4096, 128))
+
+
+def baselines_phase(dev, compare):
+    """The baseline datapaths against the unified one on the card.
+
+    Not counted: each kernel against its plain version at these shapes.
+    Counted (launch counters from 0): ``gather_baseline`` and
+    ``slide_baseline`` (up and down; offsets 0, 1, n - 1, n and a random
+    one) against ``permute.vrgather`` / ``vslideup`` / ``vslidedown`` on
+    the dense and tile-skipping crossbars, ``compress_baseline_sequential``
+    against ``ops.fused_vcompress`` and ``permute.vcompress`` on both,
+    ``moe_dispatch_argsort_baseline`` against top-1 ``md.dispatch``
+    routed by the moe_route kernel: all bit-exact.  Then each side's time
+    (eager, CUDA events) and the sequential baseline's step count.
+    Returns the counted launches.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.core import baselines as B
+    from repro_torch.core import crossbar as xb
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.core import permute as P
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels import crossbar_permute as xbk
+    from repro_torch.kernels import fused_compress as fck
+    from repro_torch.kernels import moe_route as mrk
+
+    rng = np.random.default_rng(5)
+    cases = []
+    for n, d in BASELINE_SHAPES:
+        e = 4 if n <= 32 else 16
+        cases.append(dict(
+            n=n, d=d, e=e, cap=max(1, int(1.25 * n / e)),
+            x=torch.as_tensor(rng.standard_normal((n, d), np.float32),
+                              device=dev),
+            idx=torch.as_tensor(rng.integers(-2, n + 2, n, dtype=np.int32),
+                                device=dev),
+            mask=torch.as_tensor(rng.random(n) < 0.5, device=dev),
+            off=5 if n == 32 else int(rng.integers(2, n - 1)),
+            logits=torch.as_tensor(rng.standard_normal((n, e), np.float32),
+                                   device=dev)))
+
+    log("baselines phase: each kernel vs its plain version at the Table 1 "
+        "shapes")
+    for c in cases:
+        n, d, x = c["n"], c["d"], c["x"]
+        plan = xb.vrgather_plan(c["idx"], n)
+        idxp, xf, kw = ops.dense_operands(plan, x)
+        compare("crossbar_dense", f"vrgather ({n}, {d})",
+                xbk.crossbar_permute_cuda(idxp, xf, **kw),
+                ref.crossbar_dense(idxp, xf, **kw))
+        args, kw = ops.sparse_operands(plan, x)
+        kw["out"].fill_(-7.0)
+        kw_p = dict(kw, out=kw["out"].clone())
+        compare("crossbar_sparse", f"vrgather ({n}, {d})",
+                xbk.crossbar_permute_sparse_cuda(*args, **kw),
+                ref.crossbar_sparse(*args, **kw_p))
+        compare("fused_vcompress", f"vcompress ({n}, {d})",
+                fck.fused_vcompress_cuda(c["mask"], x),
+                ref.fused_vcompress(c["mask"], x))
+        ids = md.topk_route(c["logits"], 1)[0].reshape(1, n)
+        got = mrk.moe_route_cuda(ids, num_experts=c["e"], capacity=c["cap"])
+        want = ref.moe_route_transform(ids, num_experts=c["e"],
+                                       capacity=c["cap"])
+        for part, a, b in zip(("pos", "dest"), got, want):
+            compare("moe_route", f"top-1 ids (1, {n}) E={c['e']} "
+                    f"C={c['cap']}: {part}", a, b)
+
+    log("baselines phase, unified = separate (launch counters from 0)")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for c in cases:
+        n, x, idx, e, cap = c["n"], c["x"], c["idx"], c["e"], c["cap"]
+        mask = c["mask"].to(torch.int32)
+        offs = sorted({0, 1, n - 1, n, c["off"]})
+        gather = B.gather_baseline(x, idx)
+        seq = B.compress_baseline_sequential(x, c["mask"])
+        check(torch.equal(ops.fused_vcompress(c["mask"], x), seq),
+              f"N={n}: fused vcompress != sequential baseline")
+        routing = md.make_routing(c["logits"], num_experts=e, k=1,
+                                  capacity=cap)
+        argsort = B.moe_dispatch_argsort_baseline(x, routing.expert_ids, e,
+                                                  cap)
+        for be in ("kernel", "sparse"):
+            check(torch.equal(P.vrgather(x, idx, backend=be), gather),
+                  f"N={n}: vrgather on {be} != gather baseline")
+            for off in offs:
+                for up in (True, False):
+                    fn = P.vslideup if up else P.vslidedown
+                    check(torch.equal(fn(x, off, backend=be),
+                                      B.slide_baseline(x, off, up=up)),
+                          f"N={n}: vslide{'up' if up else 'down'} {off} on "
+                          f"{be} != log shifter")
+            check(torch.equal(P.vcompress(x, mask, backend=be), seq),
+                  f"N={n}: vcompress on {be} != sequential baseline")
+            check(torch.equal(md.dispatch(x, routing, backend=be), argsort),
+                  f"N={n}: top-1 dispatch on {be} != argsort baseline")
+        log(f"  N={n}, D={c['d']} f32: vrgather, vslideup/down at offsets "
+            f"{offs}, vcompress (fused and both crossbars) and top-1 "
+            f"dispatch (E={e}, C={cap}, dropped "
+            f"{int((routing.dest < 0).sum())}) on both crossbars equal the "
+            "baselines bit for bit")
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    for name in ("crossbar_dense", "crossbar_sparse", "fused_vcompress",
+                 "moe_route"):
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the baselines path")
+    log(f"  baselines path launches {counts}")
+
+    log("baselines phase timing (eager ms a call, CUDA events): unified "
+        "dense / tile-skipping crossbar vs separate datapath")
+    for c in cases:
+        n, x, idx, e, cap = c["n"], c["x"], c["idx"], c["e"], c["cap"]
+        mask, off = c["mask"], c["off"]
+        routing = md.make_routing(c["logits"], num_experts=e, k=1,
+                                  capacity=cap)
+        it = 20
+        seq_iters = 20 if n <= 256 else 2
+
+        def both(fn):
+            return "/".join(f"{time_ms(lambda be=be: fn(be), it):.4f}"
+                            for be in ("kernel", "sparse"))
+
+        m32 = mask.to(torch.int32)
+        ids = routing.expert_ids
+        t = dict(
+            gather=both(lambda be: P.vrgather(x, idx, backend=be)),
+            gather_b=time_ms(lambda: B.gather_baseline(x, idx), it),
+            slide=both(lambda be: P.vslideup(x, off, backend=be)),
+            slide_b=time_ms(lambda: B.slide_baseline(x, off, up=True), it),
+            comp=both(lambda be: P.vcompress(x, m32, backend=be)),
+            fused=time_ms(lambda: ops.fused_vcompress(mask, x), it),
+            comp_b=time_ms(lambda: B.compress_baseline_sequential(x, mask),
+                           seq_iters),
+            disp=both(lambda be: md.dispatch(x, routing, backend=be)),
+            disp_b=time_ms(lambda: B.moe_dispatch_argsort_baseline(
+                x, ids, e, cap), it))
+        log(f"  N={n}, D={c['d']}: vrgather {t['gather']} vs crossbar "
+            f"baseline (einsum) {t['gather_b']:.4f}; vslideup {off} "
+            f"{t['slide']} vs log shifter ({max(n - 1, 1).bit_length()} "
+            f"stages) {t['slide_b']:.4f}; vcompress {t['comp']}, fused "
+            f"{t['fused']:.4f} vs sequential {t['comp_b']:.4f} ({n} steps, "
+            f"{t['comp_b'] / n * 1e3:.2f} us a step); top-1 dispatch "
+            f"{t['disp']} vs argsort {t['disp_b']:.4f}")
+    return counts
+
+
+# Training on the card.  (a) Phi-3.5-MoE at its published width, float32
+# master weights and bf16 compute, remat "full" as the config says; depth
+# is the one cut: 2 of 32 layers (~2.86 B parameters: with gradients and
+# both AdamW moments ~46 GB).  At 512 tokens a sequence capacity_of
+# rounds the expert capacity up to 128 (int(1.25 * 512 * 2 / 16) = 80).
+# (b) the dense family through launch.train's code path, reduced
+# MiniCPM-2B.  (c) MiniCPM-2B at full width cut to 2 of 40 layers:
+# prefill and greedy decode against the parallel forward.
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 4
+DENSE_STEPS, DENSE_CKPT_EVERY, DENSE_RESUME_STEPS = 30, 10, 3
+DENSE_RESUME_TOL = dict(rtol=1e-5, atol=0.0)
+SMOKE_LAYERS, SMOKE_BATCH, SMOKE_PROMPT, SMOKE_NEW = 2, 2, 256, 8
+
+
+def train_phase(dev):
+    """Training through the normal entry points on the card.
+
+    (a) ``model_zoo.build(...).loss_fn`` and ``make_train_step`` on
+    Phi-3.5-MoE (see above), 4 steps at batch 4 x 512 from
+    ``SyntheticLM``: step 1's loss first again under ``no_grad`` with
+    routing from the moe_route kernel and from its plain version on the
+    card (routing bit-equal, loss equal); then, counted, the 4 steps:
+    finite loss and grad norm each step, moe_route launches = layers x
+    (forward + recompute) x steps, and in step 0, whose gradient hook
+    takes them, a nonzero gradient on every layer's router and every
+    expert weight that received tokens.  Steps 1-3 are timed without the
+    checks (their hook records one CUDA event between the gradients and
+    the update): step ms, tokens/s and their peak memory.  (b) ``launch.train.main`` on reduced
+    MiniCPM-2B with ``SyntheticLM`` data: the loss falls by 0.5 over 30
+    steps; the checkpoint of step 30 is restored into a second trainer
+    and both go on for 3 steps, their losses equal within
+    ``DENSE_RESUME_TOL`` (CUDA's atomic adds in an embedding or scatter
+    backward may reorder sums from run to run, so the check does not ask
+    for bit-equality; it prints whether they were bit-equal).  (c)
+    MiniCPM-2B at full width, 2 layers: ``prefill`` of 2 x 256 tokens and
+    8 greedy decode steps against the parallel forward, each logit row
+    within ``TOL_BF16``'s rtol in L2.  Returns the counted launches of
+    (a).
+    """
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import minicpm_2b, phi3_5_moe
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainOptions, Trainer, make_train_step
+    from repro_torch.train.trainer import init_state
+
+    # ------------------------------------------------ (a) Phi-3.5-MoE ---
+    cfg = dataclasses.replace(phi3_5_moe.CONFIG, num_layers=TRAIN_LAYERS)
+    e_, cap = cfg.num_experts, M.capacity_of(cfg, TRAIN_SEQ)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api = model_zoo.build(cfg, device=dev)
+    secs, params = host_s(lambda: api.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    log(f"training phase (a): phi3.5-moe, full width, {TRAIN_LAYERS} of "
+        f"{phi3_5_moe.CONFIG.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"float32 parameters drawn in {secs:.2f} s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, E={e_} top-{cfg.num_experts_per_tok}, C={cap}, "
+        f"remat={cfg.remat}, dispatch {cfg.dispatch_backend}, compute "
+        f"{cfg.compute_dtype}")
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH)
+    batches = [{k: v.to(dev) for k, v in data.batch(s).items()}
+               for s in range(TRAIN_STEPS)]
+    real_route = ops.moe_route_transform
+    routed = []
+
+    def route_with(fn):
+        def route(ids, **kw):
+            out = fn(ids, **kw)
+            routed.append(tuple(t.clone() for t in out))
+            return out
+        return route
+
+    def plain_route(ids, num_experts, capacity):
+        shape = ids.shape
+        rows = ids.reshape(-1, shape[-2] * shape[-1]).to(torch.int32)
+        pos, dest = ref.moe_route_transform(rows, num_experts=num_experts,
+                                            capacity=capacity)
+        return pos.reshape(shape), dest.reshape(shape)
+
+    losses0 = {}
+    with torch.no_grad():       # warm-up: the first forward is not compared
+        api.loss_fn(params, batches[0])
+    try:
+        for which, fn in (("kernel", real_route), ("plain", plain_route)):
+            routed.clear()
+            ops.moe_route_transform = route_with(fn)
+            with torch.no_grad():
+                losses0[which] = (api.loss_fn(params, batches[0])[0],
+                                  list(routed))
+    finally:
+        ops.moe_route_transform = real_route
+    (lk, rk), (lp, rp) = losses0["kernel"], losses0["plain"]
+    check(len(rk) == len(rp) == TRAIN_LAYERS and all(
+        torch.equal(a, b) for x, y in zip(rk, rp) for a, b in zip(x, y)),
+        "training routing: moe_route kernel != its plain version")
+    check(torch.equal(lk, lp), f"step 1 loss with kernel routing {float(lk)}"
+          f" != with plain routing {float(lp)}")
+    log(f"  step 1 loss, no_grad: {float(lk):.6f} with the moe_route kernel "
+        "and with its plain version on the card (routing bit-equal, "
+        f"{TRAIN_LAYERS} layers)")
+    del losses0, rk, rp
+
+    opts = TrainOptions(warmup_steps=0, total_steps=TRAIN_STEPS)
+    grad_stats = []
+
+    def check_grads(_, grads):
+        grad_stats.append([
+            (float(blk["moe"]["router"]["w"].abs().sum()),
+             torch.stack([blk["moe"][w].abs().sum(dim=(1, 2))
+                          for w in ("wi", "wg", "wo")]).cpu())
+            for blk in grads["blocks"]])
+
+    marks = []
+
+    def mark(*_):               # forward + backward enqueued: one event
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    # step 0 runs the gradient checks in its hook and is not timed; steps
+    # 1.. are timed and only record a CUDA event between the gradients and
+    # the update; the profiled step has no hook
+    checked = make_train_step(api.loss_fn, opts, grad_hook=check_grads)
+    timed = make_train_step(api.loss_fn, opts, grad_hook=mark)
+    plain_step = make_train_step(api.loss_fn, opts)
+    state = init_state(params, 0)
+    del params
+    received = []               # step 0's forward: tokens an expert
+    calls = [0] * TRAIN_STEPS
+    at = [0]
+
+    def record(ids, **kw):
+        out = real_route(ids, **kw)
+        if at[0] == 0 and calls[0] < TRAIN_LAYERS:
+            dest = out[1]
+            received.append(torch.bincount(
+                (dest[dest >= 0] // cap).flatten(), minlength=e_))
+        calls[at[0]] += 1
+        return out
+
+    hist = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ops.moe_route_transform = record
+    try:
+        for s in range(TRAIN_STEPS):
+            at[0] = s
+            if s == 1:
+                torch.cuda.synchronize()
+                peak0 = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = (checked if s == 0 else timed)(state, batches[s])
+            end.record()
+            m = {k: float(v) for k, v in m.items()}
+            m["step_s"] = time.perf_counter() - t0
+            if s:
+                end.synchronize()
+                m["grads_ms"] = start.elapsed_time(marks[-1])
+                m["update_ms"] = marks[-1].elapsed_time(end)
+            hist.append(m)
+    finally:
+        ops.moe_route_transform = real_route
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_LAYERS * 2 * TRAIN_STEPS
+    check(counts["moe_route"] == want,
+          f"training launched moe_route {counts['moe_route']} times, not "
+          f"{want} (layers x (forward + recompute) x steps)")
+    check(calls == [2 * TRAIN_LAYERS] * TRAIN_STEPS,
+          f"routing calls a step {calls}, not {2 * TRAIN_LAYERS}")
+    for s, m in enumerate(hist):
+        check(all(math.isfinite(m[k]) for k in ("loss", "grad_norm", "ce")),
+              f"training step {s}: loss {m['loss']} grad norm "
+              f"{m['grad_norm']}")
+    received = [r.cpu() for r in received]
+    for li, (router, experts) in enumerate(grad_stats[0]):
+        got = received[li]
+        check(router > 0, f"step 0 layer {li}: router gradient is zero")
+        zero = [(w, int(ex)) for w, row in zip(("wi", "wg", "wo"), experts)
+                for ex in torch.nonzero((row == 0) & (got > 0))[:, 0]]
+        check(not zero, f"step 0 layer {li}: zero gradient on expert "
+              f"weights that received tokens {zero}")
+    check(len(grad_stats) == 1, f"{len(grad_stats)} checked steps")
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    for s, m in enumerate(hist):
+        split = (f"{m['step_s'] * 1e3:.1f} ms ({tok / m['step_s']:.1f} "
+                 f"tokens/s; device: forward, recompute and backward "
+                 f"{m['grads_ms']:.1f} ms, AdamW {m['update_ms']:.1f} ms)"
+                 if s else "gradient checks in the step, not timed")
+        log(f"  step {s}: loss {m['loss']:.6f} (ce {m['ce']:.6f}, lb "
+            f"{m['lb_loss']:.4f}, z {m['z_loss']:.4f}, dropped "
+            f"{m['dropped']:.4f}), grad norm {m['grad_norm']:.4f}, lr "
+            f"{m['lr']:.2e}, {split}")
+    warm = sorted(m["step_s"] for m in hist[1:])
+    med = warm[len(warm) // 2]
+    log(f"  phi3.5-moe training: step {med * 1e3:.1f} ms median of steps "
+        f"1-{TRAIN_STEPS - 1} ({warm[0] * 1e3:.1f}-{warm[-1] * 1e3:.1f}; "
+        f"host clock ending in the metrics' host read), {tok / med:.1f} "
+        f"tokens/s at the median ({tok / warm[-1]:.1f}-{tok / warm[0]:.1f});"
+        f" max_memory_allocated over steps 1-{TRAIN_STEPS - 1} "
+        f"{peak / 2**30:.2f} GiB (step 0 with its checks "
+        f"{peak0 / 2**30:.2f} GiB); received tokens a layer and expert "
+        f"(step 0) {[r.tolist() for r in received]}; moe_route launches "
+        f"{counts['moe_route']}")
+    log(f"  step 1's loss in the train step (grad, remat) minus its no_grad "
+        f"value: {hist[0]['loss'] - float(lk):.3e}")
+    # one more step (and its warm-up) under torch.profiler, after the
+    # counters were read
+    prof = profile_call(f"phi3.5-moe train step ({TRAIN_BATCH} x "
+                        f"{TRAIN_SEQ}, {TRAIN_LAYERS} layers, remat)",
+                        lambda: plain_step(state, batches[0]), rows=10)
+    gemm = sum(t_ for k, (_, t_) in prof["kernels"].items()
+               if "gemm" in k.lower() or "xmma" in k.lower())
+    log(f"  matrix-product kernels (names with gemm / xmma) {gemm:.2f} ms "
+        f"of {prof['busy_ms']:.2f} ms busy")
+    del state, checked, timed, plain_step, batches, grad_stats
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- (b) dense, launcher ---
+    log("training phase (b): launch.train on reduced minicpm-2b, "
+        "SyntheticLM data")
+    with tempfile.TemporaryDirectory() as d:
+        out = launch_train.main(
+            ["--arch", "minicpm", "--steps", str(DENSE_STEPS), "--data",
+             "synthetic", "--lr", "3e-3", "--ckpt-dir", d, "--ckpt-every",
+             str(DENSE_CKPT_EVERY)], device=dev, log_fn=lambda s: log("  " + s))
+        hist_b = out["history"]
+        check(hist_b[-1]["loss"] < hist_b[0]["loss"] - 0.5,
+              f"dense loss {hist_b[0]['loss']} -> {hist_b[-1]['loss']}: "
+              "fell by less than 0.5")
+        tr_a = out["trainer"]
+        tr_b = Trainer(tr_a.api, tr_a.options, pipeline=tr_a.pipeline,
+                       ckpt_dir=d)
+        state_b = tr_b.init_or_restore(0)
+        check(int(state_b.step) == DENSE_STEPS,
+              f"restored step {int(state_b.step)} != {DENSE_STEPS}")
+        same = all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+            _tree.leaves(out["state"]), _tree.leaves(state_b)))
+        check(same, "the restored state differs from the trainer's")
+        _, ha = tr_a.run(out["state"], steps=DENSE_RESUME_STEPS, log_every=0)
+        _, hb = tr_b.run(state_b, steps=DENSE_RESUME_STEPS, log_every=0)
+    la, lb = [h["loss"] for h in ha], [h["loss"] for h in hb]
+    step_b = sorted(h["step_time_s"] for h in hist_b)[len(hist_b) // 2]
+    check(all(math.isclose(a, b, rel_tol=DENSE_RESUME_TOL["rtol"],
+                           abs_tol=DENSE_RESUME_TOL["atol"])
+              for a, b in zip(la, lb)),
+          f"resumed losses {lb} != continued {la}")
+    log(f"  loss {hist_b[0]['loss']:.4f} -> {hist_b[-1]['loss']:.4f} over "
+        f"{DENSE_STEPS} steps; step {DENSE_STEPS} restored, 3 more steps: "
+        f"continued {la}, resumed {lb} "
+        f"({'bit-equal' if la == lb else f'within {DENSE_RESUME_TOL}'}); "
+        f"step {step_b * 1e3:.2f} ms median")
+    del out, tr_a, tr_b, state_b
+
+    # ----------------------------------- (c) dense serving, full width ---
+    cfg_c = dataclasses.replace(minicpm_2b.CONFIG, num_layers=SMOKE_LAYERS)
+    params_c = T.lm_init(torch.Generator(device=dev).manual_seed(1), cfg_c,
+                         dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg_c.vocab_size, (SMOKE_BATCH, SMOKE_PROMPT),
+                           generator=g, device=dev, dtype=torch.int32)
+    max_seq = SMOKE_PROMPT + SMOKE_NEW
+    with torch.inference_mode():
+        T.prefill(params_c, prompt, cfg_c, max_seq=max_seq)    # warm-up
+        t_pre, (logits, caches) = host_s(lambda: T.prefill(
+            params_c, prompt, cfg_c, max_seq=max_seq))
+        steps_logits = [logits[:, -1]]
+        fed = []
+        t0 = time.perf_counter()
+        for j in range(SMOKE_NEW):
+            tok = steps_logits[-1].argmax(-1).to(torch.int32)[:, None]
+            fed.append(tok)
+            logits, caches = T.decode_step(params_c, tok, caches,
+                                           SMOKE_PROMPT + j, cfg_c)
+            steps_logits.append(logits[:, -1])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        full = torch.cat([prompt] + fed, dim=1)
+        parallel = T.lm_logits(params_c, T.lm_hidden(params_c, full, cfg_c),
+                               cfg_c)
+    # logits by the rule moe_phases holds them to: each row within the
+    # bf16 rtol in L2 (the elementwise max printed beside it)
+    for j, lg in enumerate(steps_logits[:SMOKE_NEW + 1]):
+        close_rows(f"minicpm-2b {'prefill' if j == 0 else 'decode'} logits"
+                   f" at position {SMOKE_PROMPT - 1 + j} vs the parallel "
+                   "forward", lg, parallel[:, SMOKE_PROMPT - 1 + j],
+                   TOL_BF16["rtol"])
+    agree = sum(int(torch.equal(f[:, 0], parallel[:, SMOKE_PROMPT - 1 + j]
+                                .argmax(-1).to(torch.int32)))
+                for j, f in enumerate(fed))
+    n_c = sum(t.numel() for t in _tree.leaves(params_c))
+    log(f"training phase (c): minicpm-2b full width (d_model "
+        f"{cfg_c.d_model}, {cfg_c.num_heads} heads, vocab "
+        f"{cfg_c.vocab_size}, tied), {SMOKE_LAYERS} of "
+        f"{minicpm_2b.CONFIG.num_layers} layers, {n_c / 1e9:.3f} B params: "
+        f"prefill {SMOKE_BATCH} x {SMOKE_PROMPT} {t_pre * 1e3:.2f} ms "
+        f"(warm), {SMOKE_NEW} greedy decode steps {t_dec / SMOKE_NEW * 1e3:.2f} ms "
+        f"a step; greedy tokens equal the parallel argmax at {agree} of "
+        f"{SMOKE_NEW} steps")
+    del params_c, caches, parallel
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv) -> int:
     import torch
     parent = None
@@ -3081,6 +3571,15 @@ def main(argv) -> int:
     add_counts(launches, serving)
     for r in rows:
         r["launches"] += serving.get(r["name"], 0)
+    # The serving phases' MoE weights went with moe_phases; release what
+    # the mesh phase kept of them before training takes the card.
+    del moe
+    torch.cuda.empty_cache()
+    for phase in (baselines_phase(dev, compare), train_phase(dev)):
+        add_counts(launches, phase)
+        for r in rows:
+            r["launches"] += phase.get(r["name"], 0)
+            r["max_abs_err"] = err[r["name"]]
     log(f"  launches over every counted path, serving included: {launches}")
     for r in rows:
         lib_txt = ("none" if r["library_ms"] is None else

@@ -2,7 +2,8 @@
 
 Port of ``repro.configs.base`` — the port keeps its own copy (no import
 of the reference).  Families: dense | moe | rwkv | hybrid | vlm |
-encdec; the port builds ``moe`` so far (``models/model_zoo.py``).
+encdec; the port builds ``dense`` and ``moe`` so far
+(``models/model_zoo.py``).
 ``reduced()`` derives the small CPU smoke-test version of the same
 family.  ``dispatch_backend`` names a ``core.crossbar`` backend:
 'einsum' | 'kernel' (dense CUDA crossbar) | 'sparse' (tile-skipping
@@ -182,3 +183,31 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     )
     base.update(overrides)
     return ModelConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells (assigned): every arch is exercised on these.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k":    ShapeCell("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeCell("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeCell("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """long_500k only for sub-quadratic archs (skip reason otherwise)."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full quadratic attention: 500k-token cache/scores "
+                       "infeasible; skipped per brief (see DESIGN.md §5)")
+    return True, ""

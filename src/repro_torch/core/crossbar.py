@@ -29,7 +29,10 @@ Port of ``repro.core.crossbar``.  Output ``o`` receives
     - 'reference': the index oracle (the "separate datapath" world).
 
 On a CUDA payload 'kernel' and 'sparse' launch their CUDA kernels (or
-raise); on a CPU payload they run the kernels' plain versions.  Plans
+raise); on a CPU payload they run the kernels' plain versions.  Neither
+has a gradient: with grad enabled and a payload or plan weights that
+require grad they raise ``KernelLaunchError`` on every device (as does
+'auto' when it resolves to one of them); 'einsum' differentiates.  Plans
 over a GF(2^k) semiring run on 'einsum', 'kernel' and 'sparse' as their
 GF(2) bit lift (``lift_gf2_k``, memoised in a sealed LRU): one crossbar
 evaluation over width x the rows, payloads unpacked to bit rows around
@@ -502,6 +505,19 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
     requested = backend
     if backend == "auto":
         backend = _choose_backend(plan)
+    if backend in ("kernel", "sparse") and torch.is_grad_enabled() and (
+            x.requires_grad or (plan.weights is not None
+                                and plan.weights.requires_grad)):
+        # The kernels write a fresh buffer: their result has no autograd
+        # history, and the gradient to the payload or the gates would be
+        # dropped without a word.  The reference refuses to differentiate
+        # its kernels too; train on 'einsum'.
+        from repro_torch.kernels._build import KernelLaunchError
+        raise KernelLaunchError(
+            f"apply_plan backend {backend!r} (requested {requested!r}) has "
+            "no gradient, and the payload or the plan's weights require "
+            "grad; use backend='einsum' to differentiate, or run under "
+            "torch.no_grad() / torch.inference_mode()")
     if backend in ("einsum", "kernel", "sparse", "reference"):
         with _COUNT_LOCK:
             _APPLY_CALLS_BY_BACKEND[backend] = (

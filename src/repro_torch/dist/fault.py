@@ -1,8 +1,8 @@
 """Fault tolerance policies: survivor meshes, stragglers, heartbeats.
 
-Port of the host-side half of ``repro.dist.fault`` (plain Python and
-numpy).  ``rescale_gradients`` belongs to training and waits for
-ROADMAP item 16.
+Port of ``repro.dist.fault``: the host-side policies (plain Python and
+numpy) and ``rescale_gradients``, the alive-set mean of per-worker
+gradients.
 """
 
 from __future__ import annotations
@@ -11,6 +11,9 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
+
+from repro_torch import _tree
 
 
 def _prod(d: dict) -> int:
@@ -80,6 +83,25 @@ class StragglerPolicy:
         if alive.mean() < self.min_alive_fraction:
             return np.ones_like(alive, dtype=bool), True
         return alive, False
+
+
+def rescale_gradients(grads, alive):
+    """Mean of per-worker gradients over the alive set (unbiased: the
+    denominator is the alive count, not the fleet size).
+
+    grads: tree of (workers, ...) stacked per-worker grads.
+    alive: (workers,) bool.
+    """
+    leaves = _tree.leaves(grads)
+    dev = leaves[0].device if leaves else None
+    alive = torch.as_tensor(alive, device=dev)
+    denom = torch.clamp(torch.sum(alive.to(torch.float32)), min=1.0)
+
+    def reduce(g):
+        mask = alive.to(g.dtype).reshape((-1,) + (1,) * (g.dim() - 1))
+        return torch.sum(g * mask, dim=0) / denom.to(g.dtype)
+
+    return _tree.tree_map(reduce, grads)
 
 
 class HeartbeatTracker:

@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import no_tf32
 
@@ -142,3 +143,77 @@ def apply_rope(x, positions, *, theta: float, rotary_pct: float = 1.0):
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+# -- MLPs ----------------------------------------------------------------------
+
+def mlp_init(gen, d, f, *, act="swiglu", device):
+    if act == "swiglu":
+        return {"wi": dense_init(gen, d, f, device=device),
+                "wg": dense_init(gen, d, f, device=device),
+                "wo": dense_init(gen, f, d, device=device)}
+    return {"wi": dense_init(gen, d, f, device=device),
+            "wo": dense_init(gen, f, d, device=device)}
+
+
+def mlp_apply(p, x, *, act="swiglu", compute_dtype=torch.bfloat16):
+    """SwiGLU or GELU MLP; the activation runs in float32.  GELU is the
+    tanh approximation, ``jax.nn.gelu``'s default."""
+    f32 = torch.float32
+    if act == "swiglu":
+        h = torch.nn.functional.silu(dense(p["wg"], x, compute_dtype).to(f32))
+        h = h * dense(p["wi"], x, compute_dtype).to(f32)
+        return dense(p["wo"], h.to(compute_dtype), compute_dtype)
+    h = torch.nn.functional.gelu(dense(p["wi"], x, compute_dtype).to(f32),
+                                 approximate="tanh")
+    return dense(p["wo"], h.to(compute_dtype), compute_dtype)
+
+
+# -- layer stacks --------------------------------------------------------------
+
+def stack_layer_params(init_fn, gen, n_layers):
+    """``n_layers`` layers of one structure, drawn in turn from ``gen``:
+    the port's list of per-layer dicts (the reference stacks them on a
+    leading L axis)."""
+    return [init_fn(gen) for _ in range(n_layers)]
+
+
+def scan(cfg, body, carry, xs):
+    """``lax.scan`` over a layer stack: ``body(carry, x) -> (carry, y)``
+    for each x in ``xs`` in turn; returns (carry, [y, ...]).
+
+    With ``cfg.remat == "full"`` and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its inputs are kept
+    and its forward runs again in the backward pass — the reference's
+    per-layer ``jax.checkpoint``.  ``cfg.scan_unroll`` has nothing to
+    unroll here.
+    """
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    ys = []
+    for x in xs:
+        if remat:
+            carry, y = checkpoint(body, carry, x, use_reentrant=False)
+        else:
+            carry, y = body(carry, x)
+        ys.append(y)
+    return carry, ys
+
+
+# -- loss ----------------------------------------------------------------------
+
+def cross_entropy(logits, labels, *, mask=None):
+    """Token-level CE with an optional validity mask; logits (..., V).
+
+    The gold logit is picked with a gather (``take_along_dim``), never a
+    one-hot contraction: a (B, S, V) float32 one-hot is far larger than
+    the logits at a 150k vocabulary.
+    """
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

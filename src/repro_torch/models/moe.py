@@ -10,10 +10,13 @@ block-diagonal plan (the reference's ``vmap``), so a layer costs one
 dispatch pass and one combine pass.
 
 The expert FFNs are batched matmuls over the (B, E, C, D) buffer, plain
-PyTorch as the reference leaves them to XLA.  Parameters: nested dicts
-as in the reference, with ``blocks`` a list of per-layer dicts (the
-reference stacks them on a leading L axis for ``lax.scan``).  Decode
-updates the stacked caches in place.
+PyTorch as the reference leaves them to XLA.  Training differentiates
+the 'einsum' dispatch backend, as the reference does; the crossbar
+kernels have no gradient (``core.crossbar.apply_plan`` refuses them
+under grad).  Parameters: nested dicts as in the reference, with
+``blocks`` a list of per-layer dicts (the reference stacks them on a
+leading L axis for ``lax.scan``).  Decode updates the stacked caches in
+place.
 """
 
 from __future__ import annotations
@@ -103,8 +106,8 @@ def lm_init(gen, cfg, device=None):
     device = resolve(device)
     params = {
         "embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, device),
-        "blocks": [block_init(gen, cfg, device)
-                   for _ in range(cfg.num_layers)],
+        "blocks": L.stack_layer_params(
+            lambda g: block_init(g, cfg, device), gen, cfg.num_layers),
         "final_norm": L.norm_init(cfg.d_model, cfg.norm, device),
     }
     if not cfg.tie_embeddings:
@@ -115,15 +118,30 @@ def lm_init(gen, cfg, device=None):
 
 def lm_hidden(params, tokens, cfg):
     """tokens (B, S) -> (final hidden (B, S, D), aux averaged over
-    layers)."""
+    layers).  The stack runs through ``layers.scan`` (per-layer remat
+    under ``cfg.remat == "full"``: each layer's routing, moe_route launch
+    included, runs again in the backward pass)."""
     x = L.embed_lookup(params["embed"], tokens, L.dtype_of(cfg.compute_dtype))
-    auxes = []
-    for blk in params["blocks"]:
-        x, aux = block_apply(blk, x, cfg)
-        auxes.append(aux)
+
+    def body(h, layer_params):
+        return block_apply(layer_params, h, cfg)
+
+    x, auxes = L.scan(cfg, body, x, params["blocks"])
     aux = {k: torch.mean(torch.stack([a[k] for a in auxes]))
            for k in auxes[0]}
     return L.apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+def lm_loss(params, batch, cfg, *, lb_coef=0.01, z_coef=1e-3):
+    """Next-token CE plus the routing losses (load balance and router z,
+    each averaged over layers).  Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    hidden, aux = lm_hidden(params, tokens, cfg)
+    logits = T.lm_logits(params, hidden, cfg)
+    ce = L.cross_entropy(logits[:, :-1], tokens[:, 1:],
+                         mask=batch.get("loss_mask"))
+    loss = ce + lb_coef * aux["lb_loss"] + z_coef * aux["z_loss"]
+    return loss, {"loss": loss, "ce": ce, **aux}
 
 
 # -- serving -------------------------------------------------------------------

@@ -18,29 +18,25 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve
+from repro_torch._tree import tree_map
 
 
 def _to_tensor(a, device):
     return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
 def family_module(cfg):
     """The module of ``cfg``'s model family; raises for families the port
     does not build yet."""
-    if cfg.family != "moe":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port builds the "
-            "'moe' family (ROADMAP.md, Queue 1 item 16)")
-    from repro_torch.models import moe
-    return moe
+    if cfg.family == "dense":
+        from repro_torch.models import transformer
+        return transformer
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        return moe
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported yet; the port builds the "
+        "'dense' and 'moe' families (ROADMAP.md, Queue 1)")
 
 
 def init_params(cfg, generator=None, device=None):
@@ -58,8 +54,8 @@ def params_from_numpy(tree, cfg, device=None):
     blocks = tree["blocks"]
     layers = []
     for i in range(cfg.num_layers):
-        layers.append(_map(blocks, lambda a, i=i: _to_tensor(a[i], dev)))
-    out = {k: _map(v, lambda a: _to_tensor(a, dev))
+        layers.append(tree_map(lambda a, i=i: _to_tensor(a[i], dev), blocks))
+    out = {k: tree_map(lambda a: _to_tensor(a, dev), v)
            for k, v in tree.items() if k != "blocks"}
     out["blocks"] = layers
     return out
@@ -68,4 +64,4 @@ def params_from_numpy(tree, cfg, device=None):
 def to_device(params, device):
     """The same parameters on ``device``."""
     dev = resolve(device)
-    return _map(params, lambda t: t.to(dev))
+    return tree_map(lambda t: t.to(dev), params)

@@ -69,8 +69,11 @@ class ServingEngine:
                                        cache_dtype)
 
     def _step(self, params, tokens1, pos, generator):
-        logits, self._caches = self.api.decode_fn(params, tokens1,
-                                                  self._caches, pos)
+        # Serving never differentiates: parameters a trainer has set to
+        # require grad build no autograd graph here.
+        with torch.inference_mode():
+            logits, self._caches = self.api.decode_fn(params, tokens1,
+                                                      self._caches, pos)
         return sample_token(logits[:, -1], generator,
                             temperature=self.opt.temperature,
                             top_k=self.opt.top_k)

@@ -835,3 +835,71 @@ def test_run_program_sharded_one_launch_a_shard(dev, which):
              else TC.megakernel_program("cpu"))
     want = tpp.run_program(cprog, x.cpu())
     assert_bitexact(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_moe_train_step_on_card_equals_plain_routing(dev, monkeypatch):
+    """One train step of a tiny MoE (4 experts, top-2, remat full) on the
+    card with positions from the moe_route kernel equals the same step
+    with the kernel's plain version (run on the card): the same routing
+    bit for bit, so the same loss, gradients and parameters."""
+    from repro_torch import _tree
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import model_zoo
+    from repro_torch.train import TrainOptions, make_train_step
+    from repro_torch.train.trainer import init_state
+    cfg = ModelConfig(name="tiny", family="moe", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=128,
+                      head_dim=16, compute_dtype="float32", remat="full",
+                      attn_chunk=8, num_experts=4, num_experts_per_tok=2)
+    api = model_zoo.build(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: v.to(dev) for k, v in SyntheticLM(
+        vocab_size=128, seq_len=16, global_batch=4).batch(0).items()}
+    opts = TrainOptions(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    with torch.no_grad():       # warm-up: the first forward is not compared
+        api.loss_fn(params, batch)
+    real = ops.moe_route_transform
+    results = {}
+    for which in ("kernel", "plain"):
+        routed = []
+
+        def route(ids, **kw):
+            if which == "plain":
+                shape = ids.shape
+                rows = ids.reshape(-1, shape[-2] * shape[-1]).to(torch.int32)
+                pos, dest = ref.moe_route_transform(rows, **kw)
+                out = (pos.reshape(shape), dest.reshape(shape))
+            else:
+                out = real(ids, **kw)
+            routed.append(tuple(t.clone() for t in out))
+            return out
+
+        monkeypatch.setattr(ops, "moe_route_transform", route)
+        grads = {}
+        step = make_train_step(api.loss_fn, opts, grad_hook=lambda p, g:
+                               grads.update(g=_tree.tree_map(
+                                   lambda t: t.detach().clone(), g)))
+        reset_launch_counts()
+        state, m = step(init_state(_tree.tree_map(torch.clone, params), 0),
+                        batch)
+        torch.cuda.synchronize()
+        launches = launch_counts()["moe_route"]
+        results[which] = (routed, m, grads["g"], state.params, launches)
+    monkeypatch.setattr(ops, "moe_route_transform", real)
+    k, p = results["kernel"], results["plain"]
+    assert k[4] == 2 * cfg.num_layers and p[4] == 0  # forward + recompute
+    assert len(k[0]) == len(p[0]) == 2 * cfg.num_layers
+    for a, b in zip(k[0], p[0]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert float(k[1]["loss"]) == float(p[1]["loss"])
+    assert np.isfinite(float(k[1]["loss"]))
+    for a, b in zip(_tree.leaves(k[2]), _tree.leaves(p[2])):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+    for blk in k[2]["blocks"]:
+        assert float(blk["moe"]["router"]["w"].abs().sum()) > 0
+    for a, b in zip(_tree.leaves(k[3]), _tree.leaves(p[3])):
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-6)

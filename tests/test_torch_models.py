@@ -280,9 +280,10 @@ def test_model_zoo_builds_moe_and_refuses_other_families():
     assert logits.shape == (2, 1, cfg.padded_vocab)
     assert logits.dtype == torch.float32 and bool(torch.isfinite(
         logits).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_zoo.build(dataclasses.replace(cfg, family="dense"),
-                        device="cpu")
+    for family in ("rwkv", "hybrid", "vlm", "encdec"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            model_zoo.build(dataclasses.replace(cfg, family=family),
+                            device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["lm_init", "init_caches", "init_cache",

@@ -19,6 +19,8 @@ import the helpers on a machine without it.
   to ``rtol=1e-2``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +46,83 @@ def jax_ref(monkeypatch):
     for table, before in zip(tables, saved):
         table.clear()
         table.update(before)
+
+
+@contextlib.contextmanager
+def jax_ref_alias():
+    """``jax_ref``'s alias for a block wider than one test (a module
+    fixture that runs the reference once for several tests)."""
+    import jax
+    from jax._src import core as jax_core
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.core, "trace_state_clean", jax_core.trace_state_clean,
+                   raising=False)
+        yield
+
+
+def carried_params(japi, tcfg, seed=0):
+    """Seeded numpy weights in the layout of the reference model
+    ``japi``'s ``init`` (norm scales 1, biases N(0, 0.1), tables and
+    routers N(0, 0.02), matrices N(0, 1/d_in)), as (reference params,
+    the port's params on the CPU)."""
+    import jax
+    import jax.numpy as jnp
+    from repro_torch.models import params as tP
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda: japi.init(jax.random.PRNGKey(0)))
+
+    def leaf(path, spec):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name:
+            return np.ones(spec.shape, np.float32)
+        if "bias" in name or name.endswith("['b']"):
+            return (rng.standard_normal(spec.shape) * 0.1).astype(np.float32)
+        scale = (0.02 if "table" in name or "router" in name
+                 else 1.0 / np.sqrt(spec.shape[-2]))
+        return (rng.standard_normal(spec.shape) * scale).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(leaf, shapes)
+    return (jax.tree.map(jnp.asarray, tree),
+            tP.params_from_numpy(tree, tcfg, "cpu"))
+
+
+def port_leaf(tree, path, layer=None):
+    """The port's leaf at a reference pytree key path; ``layer`` picks
+    the layer of a leaf under the reference's stacked ``blocks``."""
+    node = tree
+    for k in path:
+        key = getattr(k, "key", getattr(k, "idx", k))
+        node = node[key]
+        if key == "blocks" and layer is not None:
+            node = node[layer]
+    return node
+
+
+def reference_leaves(jtree):
+    """(key path, layer or None, numpy leaf) for every reference leaf,
+    stacked ``blocks`` leaves split by layer."""
+    import jax
+    out = []
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jtree):
+        arr = np.asarray(leaf.astype("float32") if str(leaf.dtype) ==
+                         "bfloat16" else leaf)
+        if getattr(path[0], "key", None) == "blocks":
+            for i in range(arr.shape[0]):
+                out.append((path, i, arr[i]))
+        else:
+            out.append((path, None, arr))
+    return out
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """Run a module's tiny models on one intra-op thread: they gain
+    nothing from more, and under the suite's parallel workers a pool of
+    spinning threads a process slows every worker sharing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,446 @@
+"""Training in the port against the JAX reference: AdamW, schedules, one
+train step of a tiny dense and a tiny MoE model, gradient accumulation,
+exact resume, the data pipeline, ``rescale_gradients`` and the launcher.
+
+The reference's weights are carried across (``carried_params``) and the
+reference's ``SyntheticLM`` batches feed both trainers (the port's
+pipeline draws other tokens from the same seed).  Tolerances:
+* one train step: loss ``rtol=1e-5``, grad norm ``rtol=1e-5``, float32
+  gradients ``atol=1e-6`` (they agree to ~4e-7 at |g| <= 0.24), the
+  bf16 router's gradients to one bf16 step of their largest entry
+  (``atol = 2**-7 * max|g|``);
+* the updated parameters: AdamW's first step is ``lr * sign(g)``
+  (``mhat / sqrt(vhat)`` is +-1), so an entry whose tiny gradient takes
+  the other sign, or sits near ``eps``, moves up to 2 lr apart.  Every
+  entry within ``2.5 * lr``, at most 0.1 % of a leaf's entries more than
+  ``1e-6`` apart;
+* losses over several steps ``rtol=1e-4``.
+"""
+
+import dataclasses
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import _tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data import SyntheticLM
+from repro_torch.dist.fault import rescale_gradients
+from repro_torch.kernels import ops as kops
+from repro_torch.models import model_zoo
+from repro_torch.optim import adamw_init, adamw_update, make_schedule
+from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
+from repro_torch.train import TrainOptions, Trainer, make_train_step
+from repro_torch.train.trainer import init_state
+from test_torch_support import (carried_params, jax_ref,  # noqa: F401
+                                jax_ref_alias, one_thread, port_leaf,
+                                reference_leaves, reset_torch_state)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+TINY = dict(name="tiny", family="dense", num_layers=2, d_model=64,
+            num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=128,
+            head_dim=16, compute_dtype="float32", remat="none",
+            attn_chunk=8)
+TINY_MOE = dict(TINY, family="moe", num_experts=4, num_experts_per_tok=2)
+CFG = ModelConfig(**TINY)
+LR = 1e-3
+STEP_OPTS = dict(peak_lr=LR, warmup_steps=0, total_steps=100)
+
+
+# -- AdamW and schedules -------------------------------------------------------
+
+def _adamw_inputs(seed, bf16=False):
+    rng = np.random.default_rng(seed)
+    params = {"w": rng.standard_normal((8, 5)).astype(np.float32),
+              "b": {"c": rng.standard_normal(7).astype(np.float32)}}
+    grads = [{"w": rng.standard_normal((8, 5)).astype(np.float32),
+              "b": {"c": rng.standard_normal(7).astype(np.float32)}}
+             for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.parametrize("case", ["plain", "master", "clipped"])
+def test_adamw_update_matches_reference(jax_ref, case):
+    """Three consecutive updates (bias corrections at steps 1-3) on the
+    same numpy params and grads.  ``master``: bf16 live params with a
+    float32 master; ``clipped``: gradients 1e3 x, clipped to norm 1."""
+    import jax
+    import jax.numpy as jnp
+    from repro.optim import adamw_init as j_init, adamw_update as j_update
+    params, grads = _adamw_inputs(0)
+    gmul = 1e3 if case == "clipped" else 1.0
+    bf16 = case == "master"
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32,
+                                                             torch.float32)
+    jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), params)
+    tp = _tree.tree_map(lambda a: torch.as_tensor(a).to(tdt, copy=True),
+                        params)
+    js, ts = j_init(jp, keep_master=bf16), adamw_init(tp, keep_master=bf16)
+    for g in grads:
+        jg = jax.tree.map(lambda a: jnp.asarray(a * gmul), g)
+        tg = _tree.tree_map(lambda a: torch.as_tensor(a * gmul), g)
+        jp, js, jm = j_update(jp, jg, js, jnp.float32(0.01))
+        tp, ts, tm = adamw_update(tp, tg, ts, 0.01)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-6)
+    assert int(ts.step) == int(js.step) == 3
+    for want, got in ((jp, tp), (js.mu, ts.mu), (js.nu, ts.nu)):
+        for (path, _, w) in reference_leaves(want):
+            g_ = port_leaf(got, path).to(torch.float32).numpy()
+            np.testing.assert_allclose(g_, w, rtol=1e-5, atol=1e-7)
+    assert (ts.master is None) == (js.master is None) == (not bf16)
+    if bf16:
+        for (path, _, w) in reference_leaves(js.master):
+            np.testing.assert_allclose(port_leaf(ts.master, path).numpy(), w,
+                                       rtol=1e-6, atol=1e-7)
+        assert port_leaf(tp, ("w",)).dtype == torch.bfloat16
+
+
+def test_clip_by_global_norm_matches_reference():
+    import jax
+    import jax.numpy as jnp
+    from repro.optim.adamw import clip_by_global_norm as j_clip
+    from repro_torch.optim.adamw import clip_by_global_norm
+    _, grads = _adamw_inputs(2)
+    for max_norm in (0.5, 1e3):
+        jg, jn = j_clip(jax.tree.map(jnp.asarray, grads[0]), max_norm)
+        tg, tn = clip_by_global_norm(_tree.tree_map(torch.as_tensor,
+                                                    grads[0]), max_norm)
+        np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+        for path, _, w in reference_leaves(jg):
+            np.testing.assert_allclose(port_leaf(tg, path).numpy(), w,
+                                       rtol=1e-6, atol=1e-8)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_adamw_update_writes_the_given_state_in_place(bf16):
+    """The update returns the parameter, moment and master tensors it
+    was given, holding the new values (bf16 live parameters are their
+    float32 master rounded)."""
+    params, grads = _adamw_inputs(1)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    p = _tree.tree_map(lambda a: torch.as_tensor(a).to(dt, copy=True),
+                       params)
+    s = adamw_init(p, keep_master=bf16)
+    given = _tree.leaves((p, s.mu, s.nu, s.master))
+    before = [t.clone() for t in given]
+    for g in grads:
+        p, s, _ = adamw_update(p, _tree.tree_map(torch.as_tensor, g), s,
+                               0.01)
+    after = _tree.leaves((p, s.mu, s.nu, s.master))
+    assert len(after) == len(given) and int(s.step) == len(grads)
+    for a, b, old in zip(after, given, before):
+        assert a is b and not torch.equal(a, old)
+    if bf16:
+        for live, master in zip(_tree.leaves(p), _tree.leaves(s.master)):
+            assert torch.equal(live, master.to(torch.bfloat16))
+
+
+class TestAdamW:
+    """The reference's AdamW tests, mirrored."""
+
+    def test_descends_quadratic(self):
+        params = {"w": torch.tensor([3.0, -2.0])}
+        state = adamw_init(params)
+        for _ in range(200):
+            grads = {"w": 2 * params["w"]}
+            params, state, _ = adamw_update(params, grads, state, 0.05,
+                                            weight_decay=0.0)
+        assert float(params["w"].abs().max()) < 0.1
+
+    def test_weight_decay_shrinks(self):
+        params = {"w": torch.ones(4)}
+        state = adamw_init(params)
+        p2, _, _ = adamw_update(params, {"w": torch.zeros(4)}, state, 0.1,
+                                weight_decay=0.5)
+        assert float(p2["w"][0]) < 1.0
+
+    def test_clipping_reported(self):
+        params = {"w": torch.ones(4)}
+        state = adamw_init(params)
+        _, _, m = adamw_update(params, {"w": torch.full((4,), 1e6)}, state,
+                               0.1, max_grad_norm=1.0)
+        assert float(m["grad_norm"]) > 1e5
+
+
+def test_schedules_match_reference_at_integer_steps():
+    import jax.numpy as jnp
+    from repro.optim import schedules as js
+    kw = dict(peak_lr=3e-4, warmup_steps=10, total_steps=100)
+    for step in list(range(0, 101, 3)) + [9, 10, 11, 89, 90, 91, 100, 130]:
+        s = jnp.asarray(step, jnp.float32)
+        for port, ref in ((cosine_schedule, js.cosine_schedule),
+                          (wsd_schedule, js.wsd_schedule)):
+            np.testing.assert_allclose(port(step, **kw), float(ref(s, **kw)),
+                                       rtol=2e-6, err_msg=f"step {step}")
+        np.testing.assert_allclose(
+            make_schedule("wsd", **kw)(step),
+            float(js.make_schedule("wsd", **kw)(s)), rtol=2e-6)
+
+
+class TestSchedules:
+    """The reference's schedule tests, mirrored."""
+
+    def test_wsd_three_phases(self):
+        f = lambda s: wsd_schedule(s, peak_lr=1.0, warmup_steps=100,
+                                   total_steps=1000)
+        assert f(50) == pytest.approx(0.5, rel=1e-3)
+        assert f(500) == pytest.approx(1.0)
+        assert f(899) == pytest.approx(1.0)
+        assert f(950) < 0.2
+        assert f(1000) == pytest.approx(0.01, rel=1e-2)
+
+    def test_cosine_monotone_after_peak(self):
+        f = make_schedule("cosine", peak_lr=1.0, warmup_steps=10,
+                          total_steps=100)
+        vals = [f(s) for s in range(10, 100, 10)]
+        assert all(a >= b for a, b in zip(vals, vals[1:]))
+
+
+# -- one train step against the reference ------------------------------------
+
+@pytest.fixture(scope="module", params=["dense", "moe"])
+def stepped(request):
+    """One reference train step (jitted once a module) and its inputs:
+    the carried weights, the reference batch of step 0 and the
+    reference's gradients, plus three further steps' losses."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import ModelConfig as JCfg
+    from repro.data import SyntheticLM as JData
+    from repro.models import model_zoo as jzoo
+    from repro.train import TrainOptions as JOpts
+    from repro.train import make_train_step as j_make
+    from repro.train.trainer import init_state as j_init
+    kw = TINY if request.param == "dense" else TINY_MOE
+    with jax_ref_alias():
+        jcfg = JCfg(**kw)
+        japi = jzoo.build(jcfg)
+        tcfg = ModelConfig(**kw)
+        jparams, tparams = carried_params(japi, tcfg, seed=3)
+        data = JData(vocab_size=128, seq_len=16, global_batch=4)
+        batches = [np.array(data.batch(s)["tokens"]) for s in range(4)]
+        jstep = jax.jit(j_make(japi.loss_fn, JOpts(**STEP_OPTS)))
+        jgrads = jax.grad(lambda p: japi.loss_fn(
+            p, {"tokens": jnp.asarray(batches[0])})[0])(jparams)
+        jstate = j_init(jparams, jax.random.PRNGKey(0))
+        losses, metrics0, params1 = [], None, None
+        for i, b in enumerate(batches):
+            jstate, m = jstep(jstate, {"tokens": jnp.asarray(b)})
+            losses.append(float(m["loss"]))
+            if i == 0:
+                metrics0 = {k: float(v) for k, v in m.items()}
+                params1 = jax.tree.map(np.asarray, jstate.params)
+    return dict(family=request.param, tcfg=tcfg, tparams=tparams,
+                batches=batches, jgrads=jgrads, metrics0=metrics0,
+                params1=params1, losses=losses)
+
+
+def _port_step(stepped, **opts):
+    api = model_zoo.build(stepped["tcfg"], device="cpu")
+    caught = {}
+    hook = lambda p, g: caught.update(grads=_tree.tree_map(
+        lambda x: x.detach().clone(), g))
+    step = make_train_step(api.loss_fn, TrainOptions(**STEP_OPTS, **opts),
+                           grad_hook=hook)
+    params = _tree.tree_map(lambda t: t.clone(), stepped["tparams"])
+    return step, init_state(params, 0), caught
+
+
+def test_train_step_matches_reference(stepped):
+    step, state, caught = _port_step(stepped)
+    state, m = step(state, {"tokens": torch.as_tensor(stepped["batches"][0])})
+    want = stepped["metrics0"]
+    assert set(want) <= set(m)
+    for k in want:
+        np.testing.assert_allclose(float(m[k]), want[k],
+                                   rtol=1e-6 if k == "lr" else 1e-5,
+                                   atol=1e-6, err_msg=k)
+    routers = 0
+    for path, layer, g in reference_leaves(stepped["jgrads"]):
+        got = port_leaf(caught["grads"], path, layer).numpy()
+        if "router" in str(path):
+            routers += 1
+            assert np.abs(g).max() > 0, "reference router gradient is zero"
+            np.testing.assert_allclose(got, g, rtol=0,
+                                       atol=2.0**-7 * np.abs(g).max())
+        else:
+            np.testing.assert_allclose(got, g, rtol=0, atol=1e-6,
+                                       err_msg=str(path))
+    assert routers == (2 if stepped["family"] == "moe" else 0)
+    for path, layer, want_p in reference_leaves(stepped["params1"]):
+        got = port_leaf(state.params, path, layer).detach().numpy()
+        diff = np.abs(got - want_p)
+        assert diff.max() <= 2.5 * LR, (path, diff.max())
+        assert (diff > 1e-6).mean() <= 1e-3, (path, (diff > 1e-6).mean())
+
+
+def test_train_steps_follow_reference_losses(stepped):
+    step, state, _ = _port_step(stepped)
+    losses = []
+    for b in stepped["batches"]:
+        state, m = step(state, {"tokens": torch.as_tensor(b)})
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, stepped["losses"], rtol=1e-4)
+    assert int(state.step) == len(stepped["batches"])
+
+
+def test_remat_full_recomputes_each_layer_and_changes_nothing(
+        stepped, monkeypatch):
+    """``remat="full"`` runs each layer's forward again in the backward
+    pass (an MoE layer routes again: moe_route twice a layer) and gives
+    the same loss and gradients."""
+    calls = []
+    real = kops.moe_route_transform
+    monkeypatch.setattr(kops, "moe_route_transform",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    batch = {"tokens": torch.as_tensor(stepped["batches"][0])}
+    out = {}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(stepped["tcfg"], remat=remat)
+        api = model_zoo.build(cfg, device="cpu")
+        params = _tree.tree_map(lambda t: t.clone().requires_grad_(True),
+                                stepped["tparams"])
+        calls.clear()
+        loss, _ = api.loss_fn(params, batch)
+        fwd = len(calls)
+        grads = torch.autograd.grad(loss, _tree.leaves(params))
+        out[remat] = (loss.detach(), grads, fwd, len(calls))
+    layers = stepped["tcfg"].num_layers
+    moe = stepped["family"] == "moe"
+    assert out["none"][2:] == ((layers, layers) if moe else (0, 0))
+    assert out["full"][2:] == ((layers, 2 * layers) if moe else (0, 0))
+    assert torch.equal(out["none"][0], out["full"][0])
+    for a, b in zip(out["none"][1], out["full"][1]):
+        assert torch.equal(a, b)
+
+
+# -- the reference's training tests, mirrored ---------------------------------
+
+def test_loss_goes_down():
+    api = model_zoo.build(CFG, device="cpu")
+    pipe = SyntheticLM(vocab_size=128, seq_len=32, global_batch=8)
+    tr = Trainer(api, TrainOptions(peak_lr=3e-3, warmup_steps=5,
+                                   total_steps=100), pipeline=pipe)
+    state = tr.init_or_restore(0)
+    state, hist = tr.run(state, steps=15, log_every=0)
+    assert hist[-1]["loss"] < hist[0]["loss"] - 0.5
+    assert {"loss", "lr", "grad_norm", "step_time_s", "step"} <= set(hist[0])
+
+
+def test_checkpoint_exact_resume():
+    """Restore + rerun produces bit-equal losses (deterministic pipeline,
+    the CPU's deterministic kernels)."""
+    api = model_zoo.build(CFG, device="cpu")
+    pipe = SyntheticLM(vocab_size=128, seq_len=32, global_batch=8)
+    opts = TrainOptions(peak_lr=1e-3, warmup_steps=2, total_steps=100)
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(api, opts, pipeline=pipe, ckpt_dir=d)
+        state = tr.init_or_restore(0)
+        state, _ = tr.run(state, steps=6, ckpt_every=3, log_every=0)
+        tr2 = Trainer(api, opts, pipeline=pipe, ckpt_dir=d)
+        state2 = tr2.init_or_restore(0)
+        assert int(state2.step) == 6
+        for a, b in zip(_tree.leaves(state), _tree.leaves(state2)):
+            assert torch.equal(a.detach(), b.detach())
+        state, hist_a = tr.run(state, steps=3, log_every=0)
+        state2, hist_b = tr2.run(state2, steps=3, log_every=0)
+        np.testing.assert_array_equal([h["loss"] for h in hist_a],
+                                      [h["loss"] for h in hist_b])
+
+
+def test_grad_accum_matches_full_batch():
+    """accum=2 == accum=1 on the same global batch (linearity of grads)."""
+    api = model_zoo.build(CFG, device="cpu")
+    batch = SyntheticLM(vocab_size=128, seq_len=16, global_batch=8).batch(0)
+    params = api.init(torch.Generator().manual_seed(0))
+    s1 = init_state(_tree.tree_map(torch.clone, params), 0)
+    s2 = init_state(_tree.tree_map(torch.clone, params), 0)
+    s1, m1 = make_train_step(api.loss_fn, TrainOptions(grad_accum=1))(s1,
+                                                                       batch)
+    s2, m2 = make_train_step(api.loss_fn, TrainOptions(grad_accum=2))(s2,
+                                                                       batch)
+    assert float(m1["loss"]) == pytest.approx(float(m2["loss"]), rel=1e-5)
+    for a, b in zip(_tree.leaves(s1.params), _tree.leaves(s2.params)):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def test_data_pipeline_determinism_and_sharding():
+    pipe = SyntheticLM(vocab_size=100, seq_len=16, global_batch=8)
+    b1, b2 = pipe.batch(3), pipe.batch(3)
+    assert torch.equal(b1["tokens"], b2["tokens"])
+    assert b1["tokens"].dtype == torch.int32
+    full = pipe.batch(5)["tokens"]
+    parts = [pipe.host_batch(5, h, 4)["tokens"] for h in range(4)]
+    assert torch.equal(torch.cat(parts, dim=0), full)
+    assert not torch.equal(full, pipe.batch(6)["tokens"])
+    assert int(full.min()) >= 0 and int(full.max()) < 100
+
+
+def test_synthetic_data_follows_its_markov_chain():
+    """Tokens are latent ids times the stride; every row draws from its
+    own generator (rows of one step differ, a row is the same whatever
+    the batch around it)."""
+    pipe = SyntheticLM(vocab_size=128, seq_len=64, global_batch=4, seed=7)
+    toks = pipe.batch(0)["tokens"].numpy()
+    stride = 128 // 61
+    assert np.all(toks % stride == 0) and toks.max() < 61 * stride
+    assert len({tuple(r) for r in toks}) == 4
+    wide = SyntheticLM(vocab_size=128, seq_len=64, global_batch=8, seed=7)
+    assert np.array_equal(wide.batch(0)["tokens"].numpy()[:4], toks)
+    other = SyntheticLM(vocab_size=128, seq_len=64, global_batch=4, seed=8)
+    assert not np.array_equal(other.batch(0)["tokens"].numpy(), toks)
+
+
+def test_rescale_gradients_matches_reference():
+    import jax.numpy as jnp
+    from repro.dist.fault import rescale_gradients as j_rescale
+    rng = np.random.default_rng(4)
+    g = {"a": rng.standard_normal((4, 3, 2)).astype(np.float32),
+         "b": [rng.standard_normal((4, 5)).astype(np.float32)]}
+    for alive in ([True, False, True, True], [False] * 4):
+        want = j_rescale({"a": jnp.asarray(g["a"]),
+                          "b": [jnp.asarray(g["b"][0])]}, np.array(alive))
+        got = rescale_gradients(_tree.tree_map(torch.as_tensor, g),
+                                torch.tensor(alive))
+        np.testing.assert_allclose(got["a"].numpy(), np.asarray(want["a"]),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(got["b"][0].numpy(),
+                                   np.asarray(want["b"][0]),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_bf16_params_keep_a_float32_master():
+    api = model_zoo.build(CFG, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    state = init_state(params, 0, bf16_params=True)
+    assert all(p.dtype == torch.bfloat16 for p in _tree.leaves(state.params))
+    assert all(m.dtype == torch.float32 for m in _tree.leaves(state.opt.master))
+    batch = SyntheticLM(vocab_size=128, seq_len=16, global_batch=4).batch(0)
+    step = make_train_step(api.loss_fn, TrainOptions(**STEP_OPTS))
+    state, m = step(state, batch)
+    assert np.isfinite(float(m["loss"]))
+    for p, master in zip(_tree.leaves(state.params),
+                         _tree.leaves(state.opt.master)):
+        assert torch.equal(p.detach(), master.to(torch.bfloat16))
+
+
+def test_launcher_trains_on_the_cpu_when_asked(tmp_path):
+    from repro_torch.launch import train as launch
+    logs = []
+    out = launch.main(["--arch", "minicpm", "--steps", "3", "--seq-len",
+                       "16", "--batch", "4", "--ckpt-dir", str(tmp_path),
+                       "--ckpt-every", "2"], device="cpu",
+                      log_fn=logs.append)
+    assert len(out["history"]) == 3 and int(out["state"].step) == 3
+    assert logs[0].startswith("arch=minicpm-2b-reduced family=dense")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_00000002"]
+    again = launch.main(["--arch", "minicpm", "--steps", "1", "--seq-len",
+                         "16", "--batch", "4", "--ckpt-dir", str(tmp_path),
+                         "--data", "synthetic"], device="cpu",
+                        log_fn=logs.append)
+    assert again["history"][0]["step"] == 2     # resumed at the checkpoint
