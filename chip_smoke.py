@@ -56,6 +56,21 @@ set to 0 just before and read just after:
   sequential vcompress, argsort MoE dispatch) against the unified one on
   both crossbars, the fused vcompress and moe_route-routed dispatch, at
   N = 32 and N = 4096 (D = 128), bit-exact, with each side's time;
+* the audit phase (``audit_phase``): ``audit_constant_time`` over the
+  Keccak-f round function, the megakernel Keccak program, an AES-128
+  fused round and the GCM seal (53, 18) and open (32, 0) programs on
+  fake CUDA tensors, the leaky and branchy regions refused, no fake
+  tensor left in a cache, the regions then run for real against
+  ``hashlib`` and the host oracles; the host-sync audit of ``execute``;
+* the vlm phase (``vlm_phase``): InternVL2-26B at its published width,
+  4 of 48 layers: 4 requests of 256 patch slots packed on the
+  tile-skipping crossbar (and at B = 2 on the dense one), prefill and
+  16 greedy decode steps against the parallel forward;
+* the encdec phase (``encdec_phase``): SeamlessM4T-large-v2 whole: 4
+  requests of 1024 frame slots packed by ``encode``, ``prime_cross``
+  and 16 greedy decode steps against the teacher-forced decoder;
+* the launcher phase (``launcher_phase``): ``launch.serve.main`` on
+  SeamlessM4T at full width and on a reduced config of each family;
 * the training phase (``train_phase``, last): Phi-3.5-MoE at full
   width, 2 of 32 layers, 4 train steps (remat, moe_route counted,
   routing equal to the plain version's, step ms, tokens/s, peak memory);
@@ -73,6 +88,8 @@ routing kernel is also timed at the prompt, decode, long-group and
 E = 1024 shapes beside an empty kernel on the same geometry, with its
 cluster-form alternatives (``route_timing``); ``--parent CHECKOUT``
 builds another checkout's routing kernel and times it there in turns.
+
+Each late phase logs its wall seconds.
 
 Any failed check raises and the run exits non-zero; a failed MoE layer
 comparison first prints each stage's max |diff| (``moe_stage_diffs``).  The second-to-last
@@ -2715,8 +2732,6 @@ def train_phase(dev):
         return pos.reshape(shape), dest.reshape(shape)
 
     losses0 = {}
-    with torch.no_grad():       # warm-up: the first forward is not compared
-        api.loss_fn(params, batches[0])
     try:
         for which, fn in (("kernel", real_route), ("plain", plain_route)):
             routed.clear()
@@ -2943,6 +2958,491 @@ def train_phase(dev):
     return counts
 
 
+# Slice 11's phases.  InternVL2-26B at its published width (d_model 6144,
+# 48 heads, 8 kv heads, head_dim 128, d_ff 16384 SwiGLU, vocab 92553),
+# float32 master weights and bf16 compute; depth is the one cut: 4 of 48
+# layers (~2.72 B parameters, ~10.9 GB; all 48 would be ~19.9 B, ~80 GB,
+# the whole card).  SeamlessM4T-large-v2 whole: 24 + 24 layers, d_model
+# 1024 (~1.64 B parameters, ~6.6 GB).  Four requests each, their frontend
+# slots partly valid; the pack at B = 4 takes the tile-skipping crossbar
+# under ``auto`` (tile density 0.25), the one at B = 2 runs the dense
+# crossbar (``backend="kernel"``; ``auto`` takes the batched contraction
+# there, as the reference does).
+VLM_LAYERS, VLM_SLOTS, VLM_TEXT = 4, 256, 32
+VLM_VALID = (256, 192, 128, 64)
+ENCDEC_SLOTS, ENCDEC_VALID = 1024, (1024, 768, 512, 256)
+# SeamlessM4T decode logits against the teacher-forced decoder, worst row
+# L2 relative error.  bf16 compute: the H100 read 1.08-1.38e-2 and the
+# JAX reference on a CPU reads the same order (tests/torch_decode_drift.py);
+# a decode step at a wrong position reads far above.  float32 compute:
+# the H100 read below 1e-6.
+ENCDEC_BF16_DRIFT, ENCDEC_F32_DRIFT = 3e-2, 1e-4
+FRONT_NEW = 16
+LAUNCH_ARCHS = (("dense", "minicpm-2b"), ("moe", "phi3.5-moe-42b-a6.6b"),
+                ("vlm", "internvl2-26b"), ("encdec", "seamless-m4t-large-v2"))
+
+
+def audit_phase(dev):
+    """The fixed-latency audit on the card.
+
+    ``audit_constant_time`` over five regions on fake CUDA tensors — the
+    Keccak-f round function, the megakernel Keccak program, an AES-128
+    fused round, ``gcm.seal_device_fn(GCM_KEY, 53, 18)`` and the open
+    program at (32, 0) — each giving its output's shape; the "leaky"
+    (``int()`` of the payload) and "branchy" regions raise
+    ``FixedLatencyError``.  No cache holds a fake tensor after them, and
+    the same regions then run for real on the card and equal ``hashlib``,
+    a plain-Python AES and the host GCM oracle.  ``execute(...,
+    fixed_latency=True, audit_host_syncs=True)`` of a registered plan on a
+    CUDA payload passes on einsum and on the dense crossbar; on the
+    tile-skipping one, with every cache hit re-digested, the guard's copy
+    of the schedule to the host raises ``FixedLatencyError``.
+    ``int(x.sum())`` under ``no_host_sync()`` raises ``HostSyncError``.  Returns the launch
+    counts of the real runs."""
+    import torch
+
+    from repro_torch.core import abstract, integrity
+    from repro_torch.core import plan_program as pp
+    from repro_torch.core import telemetry
+    from repro_torch.core.static_registry import FixedLatencyError
+    from repro_torch.crypto import aes as TA
+    from repro_torch.crypto import gcm as G
+    from repro_torch.crypto import keccak as K
+    from repro_torch.crypto.registry import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reg = registry(dev)
+    TA._ensure_plans(False, True, dev)
+    rks = torch.as_tensor(TA.key_expansion(GCM_KEY), dtype=torch.int32,
+                          device=dev)
+    prog = K.megakernel_program(dev)
+    seal_fn, seal_lay = G.seal_device_fn(GCM_KEY, 53, 18, device=dev)
+    open_fn, open_lay = G.seal_device_fn(GCM_KEY, 32, 0, open_mode=True,
+                                         device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    regions = (
+        ("keccak-f1600 round function", K.keccak_f1600, zeros(1600)),
+        ("keccak-f1600 megakernel program", lambda x: pp.run_program(
+            prog, x, backend="megakernel"), zeros(1600, 4)),
+        ("aes128 fused round", lambda s: TA._cipher_state(
+            s, rks, inverse=False, fuse_layers=True, backend="einsum"),
+         zeros(16, 1)),
+        ("gcm seal (53, 18)", seal_fn, zeros(seal_lay["n"], 8)),
+        ("gcm open (32, 0)", open_fn, zeros(open_lay["n"], 2)),
+    )
+    log("audit phase: audit_constant_time on fake CUDA tensors")
+    for name, fn, example in regions:
+        secs, out = host_s(lambda: reg.audit_constant_time(name, fn, example))
+        check(out.shape == tuple(example.shape) and out.dtype == torch.int32,
+              f"audit of {name}: output {out}")
+        log(f"  {name}: passes, output {out.shape} {out.dtype} "
+            f"({secs:.2f} s)")
+
+    def leaky(x):
+        return x * int(torch.sum(x))
+
+    def branchy(x):
+        return x if torch.sum(x) > 0 else -x
+
+    for name, fn in (("leaky", leaky), ("branchy", branchy)):
+        try:
+            reg.audit_constant_time(name, fn, zeros(4))
+        except FixedLatencyError as e:
+            check("host sync" in str(e), f"{name}: {e}")
+            log(f"  {name}: FixedLatencyError ({str(e)[:90]}...)")
+        else:
+            raise AssertionError(f"the {name} region passed the audit")
+    fakes = abstract.fake_cache_entries()
+    check(not fakes, f"caches hold fake tensors after the audits: {fakes}")
+    log("  no cache holds a fake tensor")
+
+    msg = bytes(range(200))
+    iv = bytes(range(12))
+    pt, aad = bytes(range(53)), bytes(range(100, 118))
+    sealed = gcm_oracle(GCM_KEY, iv, pt, aad)
+    opened_pt = bytes(range(7, 39))
+    opened = gcm_oracle(GCM_KEY, iv, opened_pt, b"")
+    block = bytes(range(16))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for backend in ("einsum", "megakernel"):
+        check(K.sha3_256(msg, backend=backend, device=dev)
+              == hashlib.sha3_256(msg).digest(),
+              f"sha3_256 on {backend} after the audits != hashlib")
+    check(TA.aes128_encrypt(GCM_KEY, block, device=dev)
+          == aes128_oracle(GCM_KEY)(block),
+          "aes128 after the audit != the plain-Python AES")
+    check(G.aes128_gcm_seal(GCM_KEY, iv, pt, aad, device=dev) == sealed,
+          "gcm seal (53, 18) after the audit != the host oracle")
+    check(G.aes128_gcm_open(GCM_KEY, iv, opened, b"", device=dev)
+          == opened_pt, "gcm open (32, 0) after the audit != the plaintext")
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    log(f"  real runs after the audits: sha3_256 (einsum, megakernel) = "
+        f"hashlib, aes128 = FIPS-197 oracle, gcm seal (53, 18) and open "
+        f"(32, 0) = host oracle; launches {counts}")
+
+    x = torch.randn(1600, 64, device=dev)
+    for backend in ("einsum", "kernel"):
+        want = reg.execute("keccak/rho_pi", x, backend=backend)
+        for _ in range(2):
+            got = reg.execute("keccak/rho_pi", x, backend=backend,
+                              fixed_latency=True, audit_host_syncs=True)
+            check(torch.equal(got, want),
+                  f"audited execute on {backend} != unaudited")
+    log("  execute(keccak/rho_pi, fixed_latency=True, audit_host_syncs=True)"
+        " on a (1600, 64) float32 CUDA payload passes on einsum and kernel "
+        "(twice each)")
+    # The tile-skipping path fetches its pinned schedule inside the pass;
+    # a sampled re-digest of that cache hit copies the schedule to the
+    # host (the reference's guard reads np.asarray of the plan's control
+    # there too).  Forced on every hit, the audit must see that copy.
+    try:
+        with integrity.always_verify():
+            reg.execute("keccak/rho_pi", x, backend="sparse",
+                        fixed_latency=True, audit_host_syncs=True)
+    except FixedLatencyError as e:
+        check(isinstance(e.__cause__, telemetry.HostSyncError),
+              f"sparse audited execute: {e!r} has cause {e.__cause__!r}")
+        log(f"  ... on sparse with every cache hit re-digested: "
+            f"FixedLatencyError from the integrity guard's copy of the "
+            f"schedule to the host ({str(e.__cause__)[:100]}...)")
+    else:
+        raise AssertionError("the sparse pass's forced re-digest of its "
+                             "schedule escaped the host-sync audit")
+    try:
+        with telemetry.no_host_sync():
+            int(x.sum())
+    except telemetry.HostSyncError as e:
+        log(f"  int(x.sum()) under no_host_sync: HostSyncError "
+            f"({str(e)[:80]}...)")
+    else:
+        raise AssertionError("int(x.sum()) on the card passed no_host_sync")
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "no_host_sync left the sync debug mode set")
+    return counts
+
+
+def _valid_mask(counts, slots, rng, dev):
+    """(B, slots) bool, row b with counts[b] valid slots at seeded random
+    places."""
+    import torch
+    m = torch.zeros((len(counts), slots), dtype=torch.bool)
+    for b, c in enumerate(counts):
+        m[b, torch.as_tensor(rng.permutation(slots)[:c])] = True
+    return m.to(dev)
+
+
+def _pack_checks(label, x, valid, compare):
+    """The pack of x (B, N, D) by ``valid`` on ``auto``, ``kernel`` and
+    ``einsum``: bit-equal; the flattened plan's crossbar kernels against
+    their plain versions on its operands.  Returns the auto pack, the
+    device ms of the kernel ``auto`` launches (graph replay, the plan and
+    schedule built ahead) and the eager ms of the whole pack."""
+    import torch
+
+    from repro_torch.core import crossbar as xb
+    from repro_torch.core import permute as P
+    from repro_torch.core import plan_algebra as pa
+    from repro_torch.core import transform as tr
+    from repro_torch.kernels import crossbar_permute as xbk
+    from repro_torch.kernels import ops, ref
+    b, n = valid.shape
+    packs = {be: P.vcompress_batched(x, valid, tail="zero", backend=be)
+             for be in ("auto", "kernel", "einsum")}
+    for be in ("kernel", "einsum"):
+        check(torch.equal(packs[be], packs["auto"]),
+              f"{label}: pack on {be} != auto")
+    plan = pa.batched_scatter_plan(tr.compress_destinations(valid), n)
+    compiled = xb.compile_plan(plan)
+    x2 = x.reshape(b * n, -1).contiguous()
+    args, kw = ops.sparse_operands(plan, x2, compiled=compiled)
+    kw["out"].fill_(-7.0)
+    kw_p = dict(kw, out=kw["out"].clone())
+    compare("crossbar_sparse", f"{label}: tile-skipping kernel vs plain "
+            "version", xbk.crossbar_permute_sparse_cuda(*args, **kw),
+            ref.crossbar_sparse(*args, **kw_p))
+    idxp, xf, kwd = ops.dense_operands(plan, x2)
+    compare("crossbar_dense", f"{label}: dense kernel vs plain version",
+            xbk.crossbar_permute_cuda(idxp, xf, **kwd),
+            ref.crossbar_dense(idxp, xf, **kwd))
+    sparse = xb._choose_backend(plan) == "sparse"
+    dev_ms = graph_ms((lambda: xbk.crossbar_permute_sparse_cuda(*args, **kw))
+                      if sparse else
+                      (lambda: xbk.crossbar_permute_cuda(idxp, xf, **kwd)),
+                      50)
+    eager = time_ms(lambda: P.vcompress_batched(x, valid, tail="zero",
+                                                backend="auto"), 20)
+    # tail="zero": the valid rows are read, every row is written
+    nbytes = (int(valid.sum()) + b * n) * x.shape[-1] * x.element_size()
+    bms, _ = bound(nbytes, 0)
+    log(f"  {label}: auto (tile density {compiled.density:.4f}: "
+        f"{'tile-skipping crossbar' if sparse else 'batched contraction'})"
+        f", kernel and einsum packs bit-equal; the "
+        f"{'tile-skipping' if sparse else 'dense'} kernel {dev_ms:.4f} ms "
+        f"by graph replay against its bound {bms:.5f} ms ({nbytes} B: "
+        f"valid rows read, all rows written, at 3.35 TB/s); the whole pack "
+        f"{eager:.4f} ms eager")
+    return packs["auto"], dev_ms, eager
+
+
+def vlm_phase(dev, compare):
+    """InternVL2-26B at its published width, 4 of 48 layers, on the card:
+    4 requests of 256 patch slots (256, 192, 128, 64 valid; seeded
+    embeddings x 0.02) and 32 text tokens each.  ``vlm.pack_patches``
+    (auto: the tile-skipping crossbar), then ``vlm.prefill`` of the packed
+    prefix and the text, then 16 greedy ``decode_step``s — counted; each
+    logit row within 1e-2 in L2 of the parallel forward over the same
+    tokens.  The pack also on ``kernel`` and ``einsum`` (bit-equal), and
+    at B = 2 forced onto ``kernel`` (the dense crossbar: ``auto`` takes the
+    batched contraction there).  Returns the counted launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import internvl2_26b
+    from repro_torch.core import permute as P
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as MP
+    from repro_torch.models import transformer as T
+    from repro_torch.models import vlm as V
+
+    cfg = dataclasses.replace(internvl2_26b.CONFIG, num_layers=VLM_LAYERS)
+    secs, params = host_s(lambda: MP.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    rng = np.random.default_rng(21)
+    b = len(VLM_VALID)
+    dtype = L.dtype_of(cfg.compute_dtype)
+    g = torch.Generator(device=dev).manual_seed(22)
+    embeds = (torch.randn((b, VLM_SLOTS, cfg.d_model), generator=g,
+                          device=dev) * 0.02).to(dtype)
+    valid = _valid_mask(VLM_VALID, VLM_SLOTS, rng, dev)
+    text = torch.randint(0, cfg.vocab_size, (b, VLM_TEXT), generator=g,
+                         device=dev, dtype=torch.int32)
+    log(f"vlm phase: internvl2-26b, full width, {VLM_LAYERS} of "
+        f"{internvl2_26b.CONFIG.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"float32 parameters drawn in {secs:.2f} s; {b} requests x "
+        f"{VLM_SLOTS} patch slots ({VLM_VALID} valid) + {VLM_TEXT} text")
+    max_seq = VLM_SLOTS + VLM_TEXT + FRONT_NEW
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.inference_mode():
+        packed = V.pack_patches(embeds, valid)
+        half = P.vcompress_batched(embeds[:2], valid[:2], tail="zero",
+                                   backend="kernel")
+        t0 = time.perf_counter()
+        logits, caches = V.prefill(params, text, cfg, frontend_embeds=packed,
+                                   max_seq=max_seq)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        steps, fed = [logits[:, -1]], []
+        t0 = time.perf_counter()
+        for j in range(FRONT_NEW):
+            tok = steps[-1].argmax(-1).to(torch.int32)[:, None]
+            fed.append(tok)
+            logits, caches = V.decode_step(params, tok, caches,
+                                           VLM_SLOTS + VLM_TEXT + j, cfg)
+            steps.append(logits[:, -1])
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / FRONT_NEW
+    counts = dict(launch_counts())
+    check(counts["crossbar_sparse"] >= 1 and counts["crossbar_dense"] >= 1,
+          f"vlm path launches {counts}: the B = 4 pack must take the "
+          "tile-skipping crossbar and the forced B = 2 kernel pack the "
+          "dense crossbar")
+    with torch.inference_mode():
+        full = torch.cat([text] + fed, dim=1)
+        parallel = T.lm_logits(params, T.lm_hidden(
+            params, full, cfg, extra_embeds=packed), cfg)
+        auto, pack_ms, pack_eager = _pack_checks(
+            f"vlm pack B = {b}, ({VLM_SLOTS}, {cfg.d_model}) bf16", embeds,
+            valid, compare)
+        check(torch.equal(auto, packed), "vlm: pack_patches != its rerun")
+        half2, _, _ = _pack_checks(
+            f"vlm pack B = 2, ({VLM_SLOTS}, {cfg.d_model}) bf16", embeds[:2],
+            valid[:2], compare)
+        check(torch.equal(half2, half), "vlm: B = 2 pack != its rerun")
+    for j, lg in enumerate(steps[:FRONT_NEW + 1]):
+        pos = VLM_SLOTS + VLM_TEXT - 1 + j
+        close_rows(f"internvl2 {'prefill' if j == 0 else 'decode'} logits "
+                   f"at position {pos} vs the parallel forward", lg,
+                   parallel[:, pos], TOL_BF16["rtol"])
+    agree = sum(int(torch.equal(f[:, 0], parallel[:, VLM_SLOTS + VLM_TEXT
+                                                  - 1 + j].argmax(-1)
+                                .to(torch.int32))) for j, f in enumerate(fed))
+    def one_step():
+        with torch.inference_mode():
+            return V.decode_step(params, fed[-1], caches, max_seq - 1, cfg)
+    prof = profile_call("internvl2 decode step (4 slots)", one_step, rows=6)
+    log(f"  internvl2: pack {pack_ms:.4f} ms device ({pack_eager:.4f} "
+        f"eager), prefill {b} x {VLM_SLOTS + VLM_TEXT} {t_pre * 1e3:.2f} ms"
+        f" (first call), decode {t_dec * 1e3:.2f} ms a step (mean of "
+        f"{FRONT_NEW}), decode step idle share "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}; greedy tokens equal "
+        f"the parallel argmax at {agree} of {FRONT_NEW} steps; launches "
+        f"{counts}")
+    del params, caches, parallel
+    torch.cuda.empty_cache()
+    return counts
+
+
+def encdec_phase(dev, compare):
+    """SeamlessM4T-large-v2 whole on the card: 4 requests of 1024 frame
+    slots (1024, 768, 512, 256 valid; seeded embeddings x 0.02).
+    ``encdec.encode`` packs them (auto: the tile-skipping crossbar on a
+    4096-row plan), then ``prime_cross`` and 16 greedy ``decode_step``s
+    from BOS 0 — counted, in the config's bf16 compute.  Against the
+    teacher-forced parallel decoder over the same tokens, each bf16 logit
+    row is held to ``ENCDEC_BF16_DRIFT`` in L2: a bf16 product's rounding
+    depends on its row count (a step's 4 rows against the decoder's 64),
+    and 24 decoder layers carry that past 1e-2.  The same weights, frames
+    and tokens in float32 compute are held to ``ENCDEC_F32_DRIFT``.  The
+    pack also on ``kernel`` and ``einsum`` (bit-equal), and at B = 2
+    forced onto ``kernel`` (the dense crossbar: ``auto`` takes the
+    tile-skipping one there).  Returns the counted launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import seamless_m4t_large_v2
+    from repro_torch.core import permute as P
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+    from repro_torch.models import params as MP
+
+    cfg = seamless_m4t_large_v2.CONFIG
+    secs, params = host_s(lambda: MP.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    rng = np.random.default_rng(31)
+    b = len(ENCDEC_VALID)
+    dtype = L.dtype_of(cfg.compute_dtype)
+    g = torch.Generator(device=dev).manual_seed(32)
+    frames = (torch.randn((b, ENCDEC_SLOTS, cfg.d_model), generator=g,
+                          device=dev) * 0.02).to(dtype)
+    valid = _valid_mask(ENCDEC_VALID, ENCDEC_SLOTS, rng, dev)
+    log(f"encdec phase: seamless-m4t-large-v2 whole ({cfg.encoder_layers} "
+        f"+ {cfg.num_layers} layers), {n_params / 1e9:.3f} B float32 "
+        f"parameters drawn in {secs:.2f} s; {b} requests x {ENCDEC_SLOTS} "
+        f"frame slots ({ENCDEC_VALID} valid)")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.inference_mode():
+        half = P.vcompress_batched(frames[:2], valid[:2], tail="zero",
+                                   backend="kernel")
+        t0 = time.perf_counter()
+        enc = E.encode(params, frames, cfg, frame_valid=valid)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        cross = E.prime_cross(params, enc, cfg, torch.float32)
+        caches = E.init_caches(cfg, b, FRONT_NEW, torch.float32, dev)
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        steps, fed = [], []
+        t0 = time.perf_counter()
+        for j in range(FRONT_NEW):
+            logits, caches = E.decode_step(params, tok, caches, j, cfg,
+                                           cross=cross)
+            steps.append(logits[:, -1])
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            fed.append(tok)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / FRONT_NEW
+    counts = dict(launch_counts())
+    check(counts["crossbar_sparse"] >= 1 and counts["crossbar_dense"] >= 1,
+          f"encdec path launches {counts}: the B = 4 pack must take the "
+          "tile-skipping crossbar and the forced B = 2 kernel pack the "
+          "dense crossbar")
+    with torch.inference_mode():
+        targets = torch.cat(fed, dim=1)
+        hidden = E.decode_hidden(params, targets, enc, cfg)
+        parallel = L.logits_projection(params["lm_head"], hidden,
+                                       hidden.dtype)
+        auto, pack_ms, pack_eager = _pack_checks(
+            f"encdec pack B = {b}, ({ENCDEC_SLOTS}, {cfg.d_model}) bf16",
+            frames, valid, compare)
+        half2, _, _ = _pack_checks(
+            f"encdec pack B = 2, ({ENCDEC_SLOTS}, {cfg.d_model}) bf16",
+            frames[:2], valid[:2], compare)
+        check(torch.equal(half2, half), "encdec: B = 2 pack != its rerun")
+    for j, lg in enumerate(steps):
+        close_rows(f"seamless bf16 decode logits at step {j} vs the "
+                   "teacher-forced parallel decoder", lg, parallel[:, j],
+                   ENCDEC_BF16_DRIFT)
+    # float32 compute: the same weights, frames and tokens
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.inference_mode():
+        enc32 = E.encode(params, frames.float(), cfg32, frame_valid=valid)
+        cross32 = E.prime_cross(params, enc32, cfg32, torch.float32)
+        caches32 = E.init_caches(cfg32, b, FRONT_NEW, torch.float32, dev)
+        parallel32 = L.logits_projection(
+            params["lm_head"], E.decode_hidden(params, targets, enc32, cfg32),
+            torch.float32)
+        tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        for j in range(FRONT_NEW):
+            lg, caches32 = E.decode_step(params, tok, caches32, j, cfg32,
+                                         cross=cross32)
+            close_rows(f"seamless float32 decode logits at step {j} vs the "
+                       "teacher-forced parallel decoder", lg[:, -1],
+                       parallel32[:, j], ENCDEC_F32_DRIFT)
+            tok = fed[j]
+    del enc32, cross32, caches32, parallel32
+    def one_step():
+        with torch.inference_mode():
+            return E.decode_step(params, fed[-1], caches, FRONT_NEW - 1, cfg,
+                                 cross=cross)
+    prof = profile_call("seamless decode step (4 slots)", one_step, rows=6)
+    log(f"  seamless: pack {pack_ms:.4f} ms device ({pack_eager:.4f} "
+        f"eager), encode {b} x {ENCDEC_SLOTS} {t_enc * 1e3:.2f} ms (first "
+        f"call), decode {t_dec * 1e3:.2f} ms a step (mean of {FRONT_NEW}), "
+        f"decode step idle share {1 - prof['busy_ms'] / prof['wall_ms']:.4f}"
+        f"; launches {counts}")
+    del params, caches, cross, enc, parallel
+    torch.cuda.empty_cache()
+    return counts
+
+
+def launcher_phase(dev):
+    """``launch.serve.main`` on the card: SeamlessM4T-large-v2 at full
+    width with the reference's defaults (4 slots, 16 new tokens, max_seq
+    128), then one reduced config of each served family.  Every token in
+    the padded vocabulary the engine samples over.  Returns the launches
+    (counted over all five runs)."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launch_serve
+
+    runs = [("encdec, full", "seamless-m4t-large-v2", ["--full"])]
+    runs += [(f"{fam}, reduced", arch, []) for fam, arch in LAUNCH_ARCHS]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for label, arch, extra in runs:
+        cfg = get_config(arch) if extra else reduced(get_config(arch))
+        secs, outs = host_s(lambda: launch_serve.main(
+            ["--arch", arch] + extra, device=dev,
+            log_fn=lambda s: log("    " + s)))
+        check(len(outs) == 4 and all(
+            len(o) == 16 and all(0 <= t < cfg.padded_vocab for t in o)
+            for o in outs), f"launch.serve {arch} {extra}: tokens {outs}")
+        log(f"  launch.serve --arch {arch} {' '.join(extra)} ({label}): "
+            f"{secs:.2f} s, 4 x 16 tokens in [0, {cfg.padded_vocab})")
+        torch.cuda.empty_cache()
+    counts = dict(launch_counts())
+    log(f"  launcher launches {counts}")
+    return counts
+
+
 def main(argv) -> int:
     import torch
     parent = None
@@ -2972,6 +3472,7 @@ def main(argv) -> int:
     from repro_torch.kernels import fused_compress as fck
     from repro_torch.kernels import moe_route as mrk
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
@@ -3562,11 +4063,15 @@ def main(argv) -> int:
     # The mesh phase, then serving last: serving's engines, threads and
     # pinned staging come after every earlier phase's profiler windows,
     # which ran as before it.
+    log(f"before the mesh phase: {time.perf_counter() - t_start:.1f} s "
+        "since the start")
     mesh_counts = mesh_phase(dev, msgs, moe["group0"], compare)
     add_counts(launches, mesh_counts)
     for r in rows:
         r["launches"] += mesh_counts.get(r["name"], 0)
         r["max_abs_err"] = err[r["name"]]
+    log(f"before the serving phase: {time.perf_counter() - t_start:.1f} s "
+        "since the start")
     serving = serving_phase(dev)
     add_counts(launches, serving)
     for r in rows:
@@ -3575,7 +4080,16 @@ def main(argv) -> int:
     # the mesh phase kept of them before training takes the card.
     del moe
     torch.cuda.empty_cache()
-    for phase in (baselines_phase(dev, compare), train_phase(dev)):
+    for name, run in (("baselines", lambda: baselines_phase(dev, compare)),
+                      ("audit", lambda: audit_phase(dev)),
+                      ("vlm", lambda: vlm_phase(dev, compare)),
+                      ("encdec", lambda: encdec_phase(dev, compare)),
+                      ("launcher", lambda: launcher_phase(dev)),
+                      ("training", lambda: train_phase(dev))):
+        t_phase = time.perf_counter()
+        phase = run()
+        log(f"phase {name}: {time.perf_counter() - t_phase:.1f} s wall "
+            f"({time.perf_counter() - t_start:.1f} s since the start)")
         add_counts(launches, phase)
         for r in rows:
             r["launches"] += phase.get(r["name"], 0)

@@ -59,6 +59,7 @@ import torch
 
 from repro_torch import obs as _obs
 from repro_torch._device import no_tf32, resolve
+from repro_torch.core import abstract as _abstract
 from repro_torch.core import integrity as _integrity
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core import transform as _t
@@ -362,9 +363,11 @@ def compile_plan(plan: PermutePlan, *, block_o: int = 128,
 
     from repro_torch.kernels.ref import schedule_runs
     n_o_tiles = -(-plan.n_out // block_o)
+    # The counts are host reads of the plan's control: real for a real
+    # plan under the audit's fake mode, refused for a payload-derived one.
     with _obs.span("compile_plan", mode=plan.mode, n_out=plan.n_out,
                    n_in=plan.n_in, block_o=block_o, block_n=block_n,
-                   pin=pin):
+                   pin=pin), _abstract.concrete(plan):
         occ, pair_o, pair_n, active, num = _compile_schedule(
             plan, block_o, block_n)
         run_o, run_ptr = schedule_runs(pair_o[:num])
@@ -372,6 +375,8 @@ def compile_plan(plan: PermutePlan, *, block_o: int = 128,
     compiled = CompiledPlan(plan, block_o, block_n, n_o_tiles,
                             -(-plan.n_in // block_n), occ, pair_o, pair_n,
                             active, num, run_o, run_ptr, idle)
+    if _abstract.holds_fake(plan):
+        return compiled
     _integrity.SCHEDULE_GUARD.seal(key, _schedule_parts(compiled))
     if pin:
         _PINNED_COMPILE[key] = compiled
@@ -746,41 +751,10 @@ def clear_lift_cache() -> None:
     _LIFT_STATS.update(hits=0, misses=0)
 
 
-def lift_gf2_k(plan: PermutePlan) -> PermutePlan:
-    """The GF(2) bit-level plan equivalent to a GF(2^width) plan.
-
-    Each select ``(o <- i, weight w)`` becomes, for output bit ``b``, the
-    selects ``{width·i + j : M_w[b, j] = 1}``, ``M_w`` the constant's bit
-    matrix assembled from ``semiring.gf2k_tile_table`` (``M_w[b, j] =
-    XOR_t E[limb_t, b, j + 8t]``).  The lift keeps the plan's mode: a
-    scatter lifts to a scatter (input bit ``width·i+j`` lands on output
-    bits ``{width·o+b : M_w[b,j]=1}``), which accumulates colliding
-    destinations exactly (XOR is per-bit parity).  Wide widths read the
-    limbs from the weights' trailing axis, (n_ctrl, k, width // 8).
-    """
+def _lift(plan: PermutePlan) -> PermutePlan:
+    """``lift_gf2_k``'s construction (uncached)."""
     sr = plan.semiring
-    if not sr.is_gf2k:
-        raise ValueError(f"lift_gf2_k needs a GF(2^k) plan (width >= 2), "
-                         f"got {sr.name!r}")
     width = sr.width
-    # The semiring name is part of the key: two plans sharing the same
-    # tensors under different widths must never collide.
-    key = (plan.mode, plan.n_in, plan.n_out, sr.name, id(plan.idx),
-           id(plan.weights) if plan.weights is not None else None)
-    hit = _LIFT_CACHE.get(key)
-    if hit is not None and hit[1] is plan.idx and hit[2] is plan.weights:
-        # The key names the source tensors, so a flipped bit in the
-        # lifted idx keeps hitting this entry: the sampled digest check
-        # is what catches it.
-        lifted_hit = hit[0]
-        _integrity.LIFT_GUARD.verify(
-            key, lambda: (lifted_hit.idx, lifted_hit.weights),
-            evict=lambda: _LIFT_CACHE.pop(key, None))
-        _LIFT_CACHE.move_to_end(key)
-        _LIFT_STATS["hits"] += 1
-        return lifted_hit
-    _LIFT_STATS["misses"] += 1
-
     idx = plan.idx                                      # (n_ctrl, k)
     dev = idx.device
     bound = plan.n_in if plan.mode == GATHER else plan.n_out
@@ -825,6 +799,47 @@ def lift_gf2_k(plan: PermutePlan) -> PermutePlan:
             width * plan.n_in, width * plan.k)
         lifted = scatter_plan(bit_idx, width * plan.n_out,
                               semiring=sr_mod.GF2)
+    return lifted
+
+
+def lift_gf2_k(plan: PermutePlan) -> PermutePlan:
+    """The GF(2) bit-level plan equivalent to a GF(2^width) plan.
+
+    Each select ``(o <- i, weight w)`` becomes, for output bit ``b``, the
+    selects ``{width·i + j : M_w[b, j] = 1}``, ``M_w`` the constant's bit
+    matrix assembled from ``semiring.gf2k_tile_table`` (``M_w[b, j] =
+    XOR_t E[limb_t, b, j + 8t]``).  The lift keeps the plan's mode: a
+    scatter lifts to a scatter (input bit ``width·i+j`` lands on output
+    bits ``{width·o+b : M_w[b,j]=1}``), which accumulates colliding
+    destinations exactly (XOR is per-bit parity).  Wide widths read the
+    limbs from the weights' trailing axis, (n_ctrl, k, width // 8).
+    """
+    sr = plan.semiring
+    if not sr.is_gf2k:
+        raise ValueError(f"lift_gf2_k needs a GF(2^k) plan (width >= 2), "
+                         f"got {sr.name!r}")
+    width = sr.width
+    # The semiring name is part of the key: two plans sharing the same
+    # tensors under different widths must never collide.
+    key = (plan.mode, plan.n_in, plan.n_out, sr.name, id(plan.idx),
+           id(plan.weights) if plan.weights is not None else None)
+    hit = _LIFT_CACHE.get(key)
+    if hit is not None and hit[1] is plan.idx and hit[2] is plan.weights:
+        # The key names the source tensors, so a flipped bit in the
+        # lifted idx keeps hitting this entry: the sampled digest check
+        # is what catches it.
+        lifted_hit = hit[0]
+        _integrity.LIFT_GUARD.verify(
+            key, lambda: (lifted_hit.idx, lifted_hit.weights),
+            evict=lambda: _LIFT_CACHE.pop(key, None))
+        _LIFT_CACHE.move_to_end(key)
+        _LIFT_STATS["hits"] += 1
+        return lifted_hit
+    _LIFT_STATS["misses"] += 1
+    with _abstract.concrete(plan):
+        lifted = _lift(plan)
+    if _abstract.holds_fake(lifted):    # a payload-derived plan under audit
+        return lifted
     _integrity.LIFT_GUARD.seal(key, (lifted.idx, lifted.weights))
     _LIFT_CACHE[key] = (lifted, plan.idx, plan.weights)
     while len(_LIFT_CACHE) > _LIFT_CACHE_CAPACITY:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs as _obs
+from repro_torch.core import abstract as _abstract
 
 
 class IntegrityError(RuntimeError):
@@ -58,9 +59,12 @@ def content_digest(parts: Iterable) -> str:
         elif isinstance(part, (str, int, float, bool)):
             chunk = repr(part).encode()
         elif isinstance(part, torch.Tensor):
-            t = part.detach().contiguous().cpu()
-            # Bit-level bytes of any dtype (bf16 has no numpy twin).
-            raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+            # Static control is read for real under the audit's fake
+            # mode; a fake (payload-derived) part still raises.
+            with _abstract.concrete(part):
+                t = part.detach().contiguous().cpu()
+                # Bit-level bytes of any dtype (bf16 has no numpy twin).
+                raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
             chunk = _chunk(str(t.dtype), t.shape, raw)
         else:
             arr = np.ascontiguousarray(np.asarray(part))

@@ -29,6 +29,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import abstract as _abstract
 from repro_torch.core import crossbar as xb
 from repro_torch.core import semiring as sr_mod
 from repro_torch.core import transform as _t
@@ -69,7 +70,10 @@ def _memo(op: str, operands: tuple, static: tuple, build):
         _PLAN_CACHE_STATS["hits"] += 1
         return hit[0]
     _PLAN_CACHE_STATS["misses"] += 1
-    plan = build()
+    with _abstract.concrete(*operands):
+        plan = build()
+    if _abstract.holds_fake(plan):      # built from a payload under audit
+        return plan
     _PLAN_CACHE[key] = (plan, operands)
     while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
         _PLAN_CACHE.popitem(last=False)

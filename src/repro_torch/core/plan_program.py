@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve
+from repro_torch.core import abstract as _abstract
 from repro_torch.core import crossbar as xb
 from repro_torch.core import integrity as _integrity
 from repro_torch.core import plan_algebra as pa
@@ -654,7 +655,7 @@ def control_for(program: PlanProgram, device) -> dict:
 
 def _run_megakernel(program: PlanProgram, x2: torch.Tensor) -> torch.Tensor:
     """One launch on a CUDA state, in the layout ``build_control`` chose;
-    the plain VM on a CPU state."""
+    the plain VM on a CPU state or a fake one."""
     global _PROGRAM_LAUNCHES, _PASSES_AVOIDED
     from repro_torch.kernels import plan_program_kernel as ppk
     from repro_torch.kernels import ref
@@ -662,11 +663,14 @@ def _run_megakernel(program: PlanProgram, x2: torch.Tensor) -> torch.Tensor:
     if x2.dtype not in (torch.int32, torch.uint32):
         raise ValueError(f"the megakernel runs int32/uint32 states, got "
                          f"{x2.dtype}")
-    ctl = control_for(program, x2.device)
+    with _abstract.concrete(*program.plans):
+        ctl = control_for(program, x2.device)
     with _COUNT_LOCK:
         _PROGRAM_LAUNCHES += 1
         _PASSES_AVOIDED += program.passes
-    if x2.is_cuda:
+    # A fake state (the constant-time audit's abstract evaluation) has no
+    # data pointer to launch on: it runs the same program's plain VM.
+    if x2.is_cuda and not _abstract.is_fake(x2):
         return ppk.plan_program_cuda(x2.contiguous(), ctl)
     return ref.plan_program_vm(x2.contiguous(), *vm_operands(ctl),
                                n_regs=program.n_regs, rounds=program.rounds,

@@ -10,23 +10,37 @@ on first execution per (op, payload shapes, backend) and raises
 enter the signature.
 
 ``execute`` runs one pass of a registered plan, observed under the
-contract when asked.  Each observation runs inside a
-``registry_observe`` span and feeds the streaming drift monitor
-(``obs.drift_monitor``) before its signature is compared.
-``quarantine`` evicts a drifted entry and ``quarantine_count`` reads
-its history (``core.resilience`` escalates on a repeat).  Waiting for
-later slices: ``audit_constant_time`` and the host-sync audit (ROADMAP
-item 9).
+contract when asked; ``audit_host_syncs=True`` also forbids host syncs
+inside the observed block (``telemetry.no_host_sync``).  Each
+observation runs inside a ``registry_observe`` span and feeds the
+streaming drift monitor (``obs.drift_monitor``) before its signature is
+compared.  ``quarantine`` evicts a drifted entry and
+``quarantine_count`` reads its history (``core.resilience`` escalates on
+a repeat).
+
+``audit_constant_time`` proves statically that a region's schedule
+cannot read payload values: it runs the region under ``FakeTensorMode``
+(abstract evaluation, the reference's ``jax.eval_shape``), where a read
+of a payload-derived value raises.  Plans, schedules and program tables
+are static control and are built and read for real under it
+(``core.abstract.concrete``); no cache keeps a fake tensor.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import torch
+from torch._subclasses.fake_tensor import (DataDependentOutputException,
+                                           FakeTensorMode)
+
 from repro_torch import obs as _obs
+from repro_torch._tree import tree_map
+from repro_torch.core import abstract as _abstract
 from repro_torch.core import crossbar as xb
 from repro_torch.core import integrity as _integrity
 from repro_torch.core import plan_program as pp
@@ -35,6 +49,29 @@ from repro_torch.core import telemetry
 
 class FixedLatencyError(AssertionError):
     """A fixed-latency operation changed schedule/pass-count across calls."""
+
+
+# ``audit_constant_time``'s abstract output: a tensor's shape and dtype.
+ShapeDtype = collections.namedtuple("ShapeDtype", ("shape", "dtype"))
+
+# What torch raises for ``.numpy()`` on a fake tensor.
+_FAKE_NUMPY_MESSAGE = ".numpy() is not supported for tensor subclasses"
+
+
+def _built_static(registry: str, key: str, builder: Callable):
+    """Run a static builder on real tensors, as the reference builds under
+    ``jax.ensure_compile_time_eval``; a result derived from a payload
+    (a fake tensor under the audit) is refused, never registered."""
+    with _abstract.concrete():
+        built = builder()
+    if _abstract.holds_fake(built) or (
+            isinstance(built, pp.PlanProgram)
+            and _abstract.holds_fake(built.plans)):
+        raise FixedLatencyError(
+            f"{registry}:{key}: static control built from payload values "
+            "(a value-dependent host sync waiting to happen) — a "
+            "registered plan must derive from static information alone")
+    return built
 
 
 def schedule_fingerprint(plan: xb.PermutePlan, *, block_o: int = 128,
@@ -101,7 +138,8 @@ class StaticPlanRegistry:
         """Idempotent registration: build only if ``key`` is absent."""
         plan = self._plans.get(key)
         if plan is None:
-            plan = self.register(key, builder(), precompile=precompile)
+            plan = self.register(key, _built_static(self.name, key, builder),
+                                 precompile=precompile)
         return plan
 
     def __contains__(self, key: str) -> bool:
@@ -157,8 +195,9 @@ class StaticPlanRegistry:
                                 precompile: bool = True) -> pp.PlanProgram:
         program = self._programs.get(key)
         if program is None:
-            program = self.register_program(key, builder(),
-                                            precompile=precompile)
+            program = self.register_program(
+                key, _built_static(self.name, key, builder),
+                precompile=precompile)
         else:
             self._verify_program(key, program)
         return program
@@ -241,14 +280,38 @@ class StaticPlanRegistry:
                 plan_keys: Sequence[str] = (),
                 program_keys: Sequence[str] = (),
                 expect_apply_calls: Optional[int] = None,
-                expect_program_launches: Optional[int] = None):
+                expect_program_launches: Optional[int] = None,
+                audit_host_syncs: bool = False):
         """Assert the wrapped block's schedule signature is call-invariant
         for this (name, shapes, backend), and optionally its exact pass
-        and program-launch counts."""
+        and program-launch counts.
+
+        ``audit_host_syncs=True`` also forbids host syncs inside the block
+        (``telemetry.no_host_sync``): a scalar read of any tensor, or on a
+        card any synchronizing CUDA call, raises ``FixedLatencyError``; so
+        does a fake tensor's refusal of a value read
+        (``DataDependentOutputException``) when the block runs under a
+        fake mode.  Zero-copy reads of CPU tensors stay invisible to it:
+        ``audit_constant_time`` is the device-independent static check.
+        """
+        audit = (telemetry.no_host_sync() if audit_host_syncs
+                 else contextlib.nullcontext())
         t0 = time.perf_counter()
-        with _obs.span("registry_observe", op=str(name), registry=self.name,
-                       backend=backend or ""), telemetry.delta() as d:
-            yield
+        try:
+            with _obs.span("registry_observe", op=str(name),
+                           registry=self.name, backend=backend or ""), \
+                    telemetry.delta() as d, audit:
+                yield
+        except telemetry.HostSyncError as e:
+            raise FixedLatencyError(
+                f"{self.name}:{name}: value-dependent host sync inside "
+                f"an observed fixed-latency region — {e}") from e
+        except DataDependentOutputException as e:
+            if not audit_host_syncs:
+                raise
+            raise FixedLatencyError(
+                f"{self.name}:{name}: read of a fake tensor's value "
+                f"inside an observed fixed-latency region — {e}") from e
         delta = d()
         calls = delta["apply_calls"]
         if expect_apply_calls is not None and calls != expect_apply_calls:
@@ -281,6 +344,45 @@ class StaticPlanRegistry:
                 f"for shapes={tuple(shapes)} backend={backend!r}: first "
                 f"call signature {prev} != this call {sig}")
 
+    def audit_constant_time(self, name: Any, fn: Callable, *example_args,
+                            **example_kwargs):
+        """Statically assert ``fn``'s schedule cannot read payload values.
+
+        The region is abstract-evaluated: ``fn`` runs under
+        ``FakeTensorMode`` with every tensor argument replaced by a fake
+        tensor of the same shape, dtype and device.  Any value-dependent
+        host sync in the implementation — ``int()`` / ``.item()`` /
+        ``.tolist()`` / ``.numpy()`` of a payload-derived value, a
+        data-dependent Python branch — raises, and becomes
+        ``FixedLatencyError``.  No data moves and no FLOPs run.  Static
+        control (plans, schedules, program tables) is built and read for
+        real, and no cache keeps a fake tensor afterwards.
+
+        Returns the output's ``ShapeDtype(shape, dtype)`` tree, so callers
+        can pin the output geometry too.
+        """
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        leaky = (f"{self.name}:{name}: implementation performs a "
+                 "value-dependent host sync (int()/.item()/.numpy()/branch "
+                 "on payload values) — schedule is not a function of "
+                 "static control information alone. Root cause: ")
+        try:
+            with mode:
+                args, kwargs = tree_map(
+                    lambda a: (mode.from_tensor(a)
+                               if isinstance(a, torch.Tensor) else a),
+                    (example_args, example_kwargs))
+                out = fn(*args, **kwargs)
+        except DataDependentOutputException as e:
+            raise FixedLatencyError(leaky + repr(e)) from e
+        except RuntimeError as e:
+            if _FAKE_NUMPY_MESSAGE not in str(e):
+                raise
+            raise FixedLatencyError(leaky + repr(e)) from e
+        return tree_map(
+            lambda t: (ShapeDtype(tuple(t.shape), t.dtype)
+                       if isinstance(t, torch.Tensor) else t), out)
+
     # -- execution ----------------------------------------------------------
 
     def execute(self, key: str, x, *, merge=None, backend: str = "einsum",
@@ -290,12 +392,10 @@ class StaticPlanRegistry:
 
         With ``fixed_latency=True`` the pass is observed: exactly one
         ``apply_plan`` call, schedule fingerprint invariant across calls
-        for this (key, payload shape/dtype, backend).
+        for this (key, payload shape/dtype, backend);
+        ``audit_host_syncs=True`` also forbids host syncs during the pass
+        (see ``observe``).
         """
-        if audit_host_syncs:
-            raise NotImplementedError(
-                "audit_host_syncs needs telemetry.no_host_sync, which "
-                "comes with ROADMAP item 9 of the port")
         plan = self[key]
         if not fixed_latency:
             return xb.apply_plan(plan, x, merge=merge, backend=backend,
@@ -303,7 +403,8 @@ class StaticPlanRegistry:
         with self.observe(("execute", key),
                           shapes=(tuple(x.shape), str(x.dtype)),
                           backend=backend, plan_keys=(key,),
-                          expect_apply_calls=1):
+                          expect_apply_calls=1,
+                          audit_host_syncs=audit_host_syncs):
             out = xb.apply_plan(plan, x, merge=merge, backend=backend,
                                 out_mask=out_mask)
         return out

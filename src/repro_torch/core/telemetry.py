@@ -12,8 +12,9 @@ all; ``delta()`` measures a block:
     assert d()["apply_calls"] == 1
 
 ``reset()`` also resets ``repro_torch.obs`` (spans, histograms, drift
-baselines) when that package is loaded.  (``no_host_sync``, the
-constant-time audit primitive, waits for a later slice.)
+baselines) when that package is loaded.  ``no_host_sync()`` is the
+host-sync audit primitive: a block inside it that reads a tensor's value
+back to the host raises ``HostSyncError``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import contextlib
 import sys
 import threading
 
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from repro_torch import kernels as _kernels
 from repro_torch.core import crossbar as xb
 from repro_torch.core import integrity as _integrity
@@ -29,6 +33,12 @@ from repro_torch.core import plan_algebra as pa
 from repro_torch.core import plan_program as pp
 
 _BACKENDS = ("einsum", "kernel", "sparse", "reference")
+
+
+
+class HostSyncError(RuntimeError):
+    """A device->host sync happened inside a no-host-sync region."""
+
 
 LOCK = threading.RLock()
 _COUNTERS: "dict[str, int]" = {}
@@ -113,3 +123,66 @@ def delta():
         return out
 
     yield diff
+
+
+class _ScalarReadGuard(TorchDispatchMode):
+    """Refuses ``aten._local_scalar_dense``: the op behind ``int()``,
+    ``float()``, ``bool()`` and ``.item()`` on a tensor of any device."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise HostSyncError(
+                "device->host sync inside a no-host-sync region: a scalar "
+                f"read ({func}) of a tensor's value")
+        return func(*args, **(kwargs or {}))
+
+
+# The error torch raises for a synchronizing CUDA call under
+# ``torch.cuda.set_sync_debug_mode("error")``.
+_CUDA_SYNC_MESSAGE = "called a synchronizing cuda operation"
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise ``HostSyncError`` on a read of a tensor's value in the block.
+
+    The constant-time audit primitive: a fixed-latency region's schedule
+    must be a function of static control information only, so any
+    value-dependent host sync inside it is a data-dependent-schedule bug.
+    A dispatch mode refuses every scalar read (``int()`` / ``float()`` /
+    ``bool()`` / ``.item()``) on any device; on a machine with a card,
+    ``torch.cuda.set_sync_debug_mode("error")`` also refuses every
+    synchronizing CUDA call (a device->host copy among them) for the
+    block, and the previous mode is restored on exit.
+
+    The hole that stays open: ``.numpy()`` and ``.tolist()`` of a CPU
+    tensor are zero-copy reads that dispatch no op and sync nothing, so
+    neither guard sees them (the reference's docstring names the same
+    hole for JAX's transfer guard on CPU hosts).  Use
+    ``StaticPlanRegistry.audit_constant_time`` for a device-independent
+    static check.
+
+    The dispatch mode is the calling thread's, but the CUDA sync debug
+    mode is the process's: while the block runs, a synchronizing CUDA
+    call on any other thread (a serving engine's prep or feed thread)
+    raises too.  Run the block where no other thread drives the card.
+    """
+    cuda = torch.cuda.is_available()
+    saved = torch.cuda.get_sync_debug_mode() if cuda else None
+    try:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        with _ScalarReadGuard():
+            yield
+    except RuntimeError as e:
+        # Only rebrand the sync guard's own error, never an unrelated
+        # RuntimeError.
+        if (not isinstance(e, HostSyncError)
+                and _CUDA_SYNC_MESSAGE in str(e).lower()):
+            raise HostSyncError(
+                f"device->host sync inside a no-host-sync region: {e}"
+            ) from e
+        raise
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(saved)

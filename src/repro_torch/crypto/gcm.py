@@ -579,6 +579,23 @@ def gcm_program(key: bytes, pt_len: int, aad_len: int, *,
     return prog_key, program, _layout(m, a)
 
 
+def seal_device_fn(key: bytes, pt_len: int, aad_len: int, *,
+                   open_mode: bool = False, device=None):
+    """(fn, layout) where ``fn(bits)`` is the whole device part of a fused
+    seal or open: one program launch from packed record bits to
+    ciphertext+tag bits.  This is the region
+    ``StaticPlanRegistry.audit_constant_time`` abstract-evaluates;
+    everything outside it is host marshalling of data the schedule never
+    reads."""
+    _, program, lay = gcm_program(key, pt_len, aad_len, open_mode=open_mode,
+                                  device=device)
+
+    def fn(bts: torch.Tensor) -> torch.Tensor:
+        return pp.run_program(program, bts, backend="megakernel")
+
+    return fn, lay
+
+
 # ---------------------------------------------------------------------------
 # Record packing (host <-> bit-state marshalling)
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ Port of ``repro/kernels/ops.py``.  For the two crossbar kernels:
   mod 2 at emission);
 * a CUDA payload launches the CUDA kernel or raises
   ``KernelLaunchError``; a CPU payload runs the kernel's plain version
-  (``kernels/ref.py``).  Nothing falls back from one to the other.
+  (``kernels/ref.py``), and so does a fake one (the constant-time
+  audit's abstract evaluation: no data to launch on).  Nothing falls
+  back from one to the other.
 
 ``moe_route_transform`` and ``fused_vcompress`` follow the same device
 rule.  Neither pads: the CUDA kernels take any T and any N.
@@ -28,6 +30,7 @@ import contextlib
 
 import torch
 
+from repro_torch.core import abstract as _abstract
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import KernelBuildError
 from repro_torch.kernels.crossbar_permute import (
@@ -68,6 +71,12 @@ def _surface_kernel_errors(kernel: str, plan):
         ) from e
 
 
+def _launches(x) -> bool:
+    """A CUDA payload launches the kernel; a CPU or fake one runs the
+    plain version."""
+    return x.is_cuda and not _abstract.is_fake(x)
+
+
 def _is_int(x) -> bool:
     return not (x.dtype.is_floating_point or x.dtype.is_complex)
 
@@ -76,7 +85,11 @@ def _as_f32_payload(x):
     """Integer/bool payloads -> float32, refusing |x| >= 2^24."""
     if not _is_int(x):
         return x
-    if x.dtype != torch.bool and x.element_size() > 2 and x.numel():
+    # A fake payload (the constant-time audit's abstract evaluation) has
+    # no values to check: the caller's responsibility, as a traced
+    # payload is in the reference.
+    if (x.dtype != torch.bool and x.element_size() > 2 and x.numel()
+            and not _abstract.is_fake(x)):
         hi, lo = int(x.max()), int(x.min())
         if hi >= _F32_EXACT_INT_BOUND or -lo >= _F32_EXACT_INT_BOUND:
             raise ValueError(
@@ -134,7 +147,7 @@ def crossbar_permute(plan, x, *, merge=None, block_o=DEFAULT_BLOCK_O):
     x: (n_in, D).  Returns (n_out, D) in x's dtype.
     """
     idxp, xf, kw = dense_operands(plan, x, merge=merge, block_o=block_o)
-    if xf.is_cuda:
+    if _launches(xf):
         with _surface_kernel_errors("dense crossbar kernel", plan):
             out = crossbar_permute_cuda(idxp, xf, block_o=block_o, **kw)
     else:
@@ -163,7 +176,7 @@ def crossbar_permute_sparse(plan, x, *, compiled=None, block_o=128,
     out = kw["out"]
     if args[2].shape[0] == 0:          # no active pair: nothing to visit
         out.zero_()
-    elif out.is_cuda:
+    elif _launches(x):
         with _surface_kernel_errors("sparse crossbar kernel", plan):
             crossbar_permute_sparse_cuda(*args, **kw)
     else:
@@ -217,7 +230,7 @@ def moe_route_transform(expert_ids, *, num_experts, capacity):
     rows = expert_ids.reshape(-1 if expert_ids.dim() == 3 else 1,
                               shape[-2] * shape[-1])
     rows = rows.to(torch.int32).contiguous()
-    if rows.is_cuda:
+    if _launches(rows):
         pos, dest = moe_route_cuda(rows, num_experts=num_experts,
                                    capacity=capacity)
     else:
@@ -237,7 +250,7 @@ def fused_vcompress(mask, x, *, tail="zero"):
     if x.dim() != 2 or tuple(mask.shape) != (x.shape[0],):
         raise ValueError(f"need mask (N,) and x (N, D), got "
                          f"{tuple(mask.shape)} and {tuple(x.shape)}")
-    if x.is_cuda:
+    if _launches(x):
         return fused_vcompress_cuda(mask, x.contiguous(), tail=tail)
     return ref.fused_vcompress(mask, x, tail=tail)
 

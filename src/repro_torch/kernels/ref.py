@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import abstract as _abstract
 from repro_torch.core import transform as _t
 
 GATHER, SCATTER = "gather", "scatter"
@@ -159,7 +160,7 @@ def crossbar_sparse(run_o, run_ptr, pair_n, idx, x, *, mode, n_out, out,
                         device=x.device)
     tiles[run_o.long()] = True
     rows = torch.repeat_interleave(tiles, block_o)[:n_out]
-    out[rows] = acc[rows].to(out.dtype)
+    out.copy_(torch.where(rows[:, None], acc.to(out.dtype), out))
     return out
 
 
@@ -178,16 +179,24 @@ def _from_u32(v, dtype):
 def plan_program_vm(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
                     consts, *, n_regs, rounds=1, const_stride=0):
     """Plain VM: the megakernel's operands, a Python loop over rounds and
-    steps, wrapping 32-bit arithmetic on int64 carriers."""
+    steps, wrapping 32-bit arithmetic on int64 carriers (a PERMUTE sums
+    its selects a chunk at a time: the sum mod 2^32 and the parity are
+    those of the select-by-select loop)."""
     from repro_torch.kernels.plan_program_kernel import OPCODES
 
     n = state.shape[0]
     regs = [_to_u32(state)] + [torch.zeros_like(_to_u32(state))
                                for _ in range(n_regs - 1)]
-    rows = steps.tolist()
-    koff_l, kcnt_l, folds_l, woff_l = (t.tolist() for t in
-                                       (koff, kcnt, folds, woff))
+    # The walk reads the program's static control (real under the audit's
+    # fake mode, refused if it were derived from the payload).
+    with _abstract.concrete(steps, koff, kcnt, folds, woff):
+        rows = steps.tolist()
+        koff_l, kcnt_l, folds_l, woff_l = (t.tolist() for t in
+                                           (koff, kcnt, folds, woff))
     tbl = plan_tbl.to(torch.int64)
+    # Selects are gathered a chunk at a time, the chunk's (c, n, D) int64
+    # block held to 2^22 elements.
+    chunk = max(1, min(32, (1 << 22) // max(1, n * state[0].numel())))
     wts = None if w_flat is None else _to_u32(w_flat)
     cst = _to_u32(consts)
     for rnd in range(rounds):
@@ -197,15 +206,17 @@ def plan_program_vm(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
             if op == "permute":
                 acc_add = torch.zeros_like(av)
                 acc_xor = torch.zeros_like(av)
-                for j in range(kcnt_l[p]):
-                    src = tbl[koff_l[p] + j]
-                    valid = ((src >= 0) & (src < n))[:, None]
-                    g = av[src.clamp(0, n - 1)]
+                for j0 in range(0, kcnt_l[p], chunk):
+                    j1 = min(j0 + chunk, kcnt_l[p])
+                    src = tbl[koff_l[p] + j0:koff_l[p] + j1]      # (c, n)
+                    valid = ((src >= 0) & (src < n))[..., None]
+                    g = av[src.clamp(0, n - 1)]                  # (c, n, D)
                     if woff_l[p] >= 0:
-                        g = (g * wts[woff_l[p] + j][:, None]) & _MASK32
+                        w = wts[woff_l[p] + j0:woff_l[p] + j1]
+                        g = (g * w[..., None]) & _MASK32
                     g = torch.where(valid, g, torch.zeros_like(g))
-                    acc_add = (acc_add + g) & _MASK32
-                    acc_xor = acc_xor ^ (g & 1)
+                    acc_add = (acc_add + g.sum(0)) & _MASK32
+                    acc_xor = acc_xor ^ ((g & 1).sum(0) & 1)
                 val = acc_xor if folds_l[p] else acc_add
             elif op == "xor":
                 val = av ^ regs[b]

@@ -88,8 +88,10 @@ def _sdpa_chunk(q_c, k, v, mask, cfg):
     return out.reshape(b, c, h * hd).to(q_c.dtype)
 
 
-def attn_apply(p, x, cfg, *, positions=None):
-    """Causal prefill attention.  x (B, S, D) -> (B, S, D)."""
+def attn_apply(p, x, cfg, *, positions=None, causal=True):
+    """Training / prefill attention.  x (B, S, D) -> (B, S, D).  Causal
+    (with the config's sliding window) by default; ``causal=False`` is
+    the encoder's: every query sees every key."""
     dtype = x.dtype
     b, s, _ = x.shape
     if positions is None:
@@ -100,10 +102,26 @@ def attn_apply(p, x, cfg, *, positions=None):
         chunk = s  # one chunk for ragged lengths
     outs = []
     for off in range(0, s, chunk):
-        m = sliding_window_mask(chunk, s, cfg.sliding_window,
-                                q_offset=off, device=x.device)
+        if causal:
+            m = sliding_window_mask(chunk, s, cfg.sliding_window,
+                                    q_offset=off, device=x.device)
+        else:
+            m = torch.ones((chunk, s), dtype=torch.bool, device=x.device)
         outs.append(_sdpa_chunk(q[:, off:off + chunk], k, v, m, cfg))
     return L.dense(p["wo"], torch.cat(outs, dim=1), dtype)
+
+
+def cross_attn_apply(p, x, kv_src, cfg, *, positions=None):
+    """Encoder-decoder cross attention: queries from ``x`` (B, S, D),
+    keys and values from ``kv_src`` (B, F, D); no mask and no rope."""
+    dtype = x.dtype
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = L.dense(p["wq"], x, dtype).reshape(b, s, h, hd)
+    k = L.dense(p["wk"], kv_src, dtype).reshape(b, -1, kv, hd)
+    v = L.dense(p["wv"], kv_src, dtype).reshape(b, -1, kv, hd)
+    m = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
+    return L.dense(p["wo"], _sdpa_chunk(q, k, v, m, cfg), dtype)
 
 
 # -- decode path ---------------------------------------------------------------

@@ -6,8 +6,9 @@
   given).
 * ``params_from_numpy(tree, cfg, device=None)`` turns a parameter tree of
   the JAX package's ``lm_init`` — numpy leaves, each layer's weights
-  stacked on a leading L axis under ``blocks`` — into the port's tree,
-  whose ``blocks`` is a list of per-layer dicts.  The tests carry the
+  stacked on a leading L axis under every ``*blocks`` key (``blocks``;
+  encdec's ``enc_blocks`` and ``dec_blocks``) — into the port's tree,
+  where each of them is a list of per-layer dicts.  The tests carry the
   reference's weights across with it.
 * ``to_device(params, device)`` copies the port's tree to another device.
 """
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve
-from repro_torch._tree import tree_map
+from repro_torch._tree import leaves, tree_map
 
 
 def _to_tensor(a, device):
@@ -34,9 +35,15 @@ def family_module(cfg):
     if cfg.family == "moe":
         from repro_torch.models import moe
         return moe
+    if cfg.family == "vlm":
+        from repro_torch.models import vlm
+        return vlm
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        return encdec
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet; the port builds the "
-        "'dense' and 'moe' families (ROADMAP.md, Queue 1)")
+        "'dense', 'moe', 'vlm' and 'encdec' families (ROADMAP.md, Queue 1)")
 
 
 def init_params(cfg, generator=None, device=None):
@@ -51,13 +58,14 @@ def params_from_numpy(tree, cfg, device=None):
     """The port's parameters from a reference ``lm_init`` tree."""
     family_module(cfg)
     dev = resolve(device)
-    blocks = tree["blocks"]
-    layers = []
-    for i in range(cfg.num_layers):
-        layers.append(tree_map(lambda a, i=i: _to_tensor(a[i], dev), blocks))
-    out = {k: tree_map(lambda a: _to_tensor(a, dev), v)
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = layers
+    out = {}
+    for key, sub in tree.items():
+        if key.endswith("blocks"):
+            n = len(np.asarray(leaves(sub)[0]))
+            out[key] = [tree_map(lambda a, i=i: _to_tensor(a[i], dev), sub)
+                        for i in range(n)]
+        else:
+            out[key] = tree_map(lambda a: _to_tensor(a, dev), sub)
     return out
 
 

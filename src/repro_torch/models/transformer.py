@@ -128,17 +128,25 @@ def decode_step(params, tokens1, caches, pos, cfg):
 
 def prefill(params, tokens, cfg, *, max_seq=None, cache_dtype=torch.bfloat16):
     """Process a full prompt: (last-token logits (B, 1, V), caches primed
-    for decode at position S).
+    for decode at position S)."""
+    x = L.embed_lookup(params["embed"], tokens, L.dtype_of(cfg.compute_dtype))
+    return prefill_embeds(params, x, cfg, max_seq=max_seq,
+                          cache_dtype=cache_dtype)
+
+
+def prefill_embeds(params, x, cfg, *, max_seq=None,
+                   cache_dtype=torch.bfloat16):
+    """``prefill`` from the input embeddings x (B, S, D) (a frontend
+    prefix joined to the text by the vlm family).
 
     The stack runs the training path for the hidden states; each layer's
     K/V is projected again from its normed input and placed in the (ring)
     cache layout, slot = pos % W.
     """
-    b, s = tokens.shape
+    b, s, _ = x.shape
     max_seq = max_seq or s
-    dtype = L.dtype_of(cfg.compute_dtype)
-    x = L.embed_lookup(params["embed"], tokens, dtype)
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None]
+    dtype = x.dtype
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
     w = cfg.sliding_window if cfg.sliding_window > 0 else max_seq
     w = min(w, max_seq)
 

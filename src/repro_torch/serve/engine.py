@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch._tree import leaves
 from repro_torch.core import crossbar as xb
 from repro_torch.core import moe_dispatch as md
 from repro_torch.core import plan_algebra as pa
@@ -106,8 +107,8 @@ class ServingEngine:
         dev = self.api.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        for c in self._caches.values():   # a fresh cache, as in the reference
-            c.zero_()
+        for c in leaves(self._caches):    # the initial caches, as in the
+            c.zero_()                     # reference (nested for encdec)
         n = len(prompts)
         maxlen = max(len(p) for p in prompts)
         padded = np.zeros((b, maxlen), dtype=np.int32)

@@ -25,6 +25,7 @@ from repro_torch.core import integrity
 from repro_torch.core import semiring as tsr
 from repro_torch.core import telemetry
 from repro_torch.core.integrity import IntegrityError
+from repro_torch.core.static_registry import FixedLatencyError
 from repro_torch.crypto import aes as TA
 from repro_torch.crypto import aes_layers as TL
 from repro_torch.crypto.registry import registry
@@ -324,8 +325,14 @@ def test_registry_execute_keys_info():
     st = torch.arange(32, dtype=torch.int32).reshape(16, 2)
     assert_bitexact(reg.execute("aes/mix_columns", st, backend="sparse"),
                     reg.execute("aes/mix_columns", st, backend="reference"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        reg.execute("aes/mix_columns", st, audit_host_syncs=True)
+    assert_bitexact(reg.execute("aes/mix_columns", st, fixed_latency=True,
+                                audit_host_syncs=True),
+                    reg.execute("aes/mix_columns", st, backend="reference"))
+    # The kernels' check that an integer payload fits float32 reads its
+    # values on the host (as the reference's does): the audit refuses it.
+    with pytest.raises(FixedLatencyError, match="host sync"):
+        reg.execute("aes/mix_columns", st, backend="sparse",
+                    fixed_latency=True, audit_host_syncs=True)
 
 
 def test_bad_arguments():

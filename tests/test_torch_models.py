@@ -280,25 +280,34 @@ def test_model_zoo_builds_moe_and_refuses_other_families():
     assert logits.shape == (2, 1, cfg.padded_vocab)
     assert logits.dtype == torch.float32 and bool(torch.isfinite(
         logits).all())
-    for family in ("rwkv", "hybrid", "vlm", "encdec"):
+    for family in ("rwkv", "hybrid"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model_zoo.build(dataclasses.replace(cfg, family=family),
                             device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["lm_init", "init_caches", "init_cache",
-                                   "init_params", "build"])
+                                   "init_params", "build", "encdec_lm_init",
+                                   "encdec_init_caches", "launch_serve"])
 def test_model_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device given, every entry point that makes tensors asks
     for the card and raises without one; nothing lands on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import seamless_m4t_large_v2 as tsm
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import encdec as tE
     cfg = reduced(tphi.CONFIG)
+    encdec_cfg = reduced(tsm.CONFIG)
     calls = {
         "lm_init": lambda: tM.lm_init(torch.Generator(), cfg),
         "init_caches": lambda: tM.init_caches(cfg, 2, 6),
         "init_cache": lambda: tA.init_cache(cfg, 2, 6),
         "init_params": lambda: tP.init_params(cfg),
         "build": lambda: model_zoo.build(cfg),
+        "encdec_lm_init": lambda: tE.lm_init(torch.Generator(), encdec_cfg),
+        "encdec_init_caches": lambda: tE.init_caches(encdec_cfg, 2, 6),
+        "launch_serve": lambda: tserve.main(["--arch", "internvl2-26b"],
+                                            log_fn=lambda _: None),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
