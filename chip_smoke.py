@@ -70,7 +70,13 @@ set to 0 just before and read just after:
   requests of 1024 frame slots packed by ``encode``, ``prime_cross``
   and 16 greedy decode steps against the teacher-forced decoder;
 * the launcher phase (``launcher_phase``): ``launch.serve.main`` on
-  SeamlessM4T at full width and on a reduced config of each family;
+  SeamlessM4T, RWKV6-7B and Zamba2-2.7B at full width and on a reduced
+  config of each family;
+* the recurrent phase (``recurrent_phase``): RWKV6-7B and Zamba2-2.7B
+  whole at published width: 4 x 64 tokens through the parallel forward
+  and 64 decode steps (bf16 and float32 compute, logit rows against the
+  parallel forward), 4 greedy requests through ``ServingEngine``,
+  Zamba2's shared-attention ring of 32; no kernel on this path;
 * the training phase (``train_phase``, last): Phi-3.5-MoE at full
   width, 2 of 32 layers, 4 train steps (remat, moe_route counted,
   routing equal to the plain version's, step ms, tokens/s, peak memory);
@@ -2979,7 +2985,8 @@ ENCDEC_SLOTS, ENCDEC_VALID = 1024, (1024, 768, 512, 256)
 ENCDEC_BF16_DRIFT, ENCDEC_F32_DRIFT = 3e-2, 1e-4
 FRONT_NEW = 16
 LAUNCH_ARCHS = (("dense", "minicpm-2b"), ("moe", "phi3.5-moe-42b-a6.6b"),
-                ("vlm", "internvl2-26b"), ("encdec", "seamless-m4t-large-v2"))
+                ("vlm", "internvl2-26b"), ("encdec", "seamless-m4t-large-v2"),
+                ("rwkv", "rwkv6-7b"), ("hybrid", "zamba2-2.7b"))
 
 
 def audit_phase(dev):
@@ -3412,18 +3419,20 @@ def encdec_phase(dev, compare):
 
 
 def launcher_phase(dev):
-    """``launch.serve.main`` on the card: SeamlessM4T-large-v2 at full
-    width with the reference's defaults (4 slots, 16 new tokens, max_seq
-    128), then one reduced config of each served family.  Every token in
-    the padded vocabulary the engine samples over.  Returns the launches
-    (counted over all five runs)."""
+    """``launch.serve.main`` on the card: SeamlessM4T-large-v2, RWKV6-7B
+    and Zamba2-2.7B at full width with the reference's defaults (4 slots,
+    16 new tokens, max_seq 128), then one reduced config of each of the
+    six families.  Every token in the padded vocabulary the engine
+    samples over.  Returns the launches (counted over all nine runs)."""
     import torch
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launch_serve
 
-    runs = [("encdec, full", "seamless-m4t-large-v2", ["--full"])]
+    runs = [(f"{fam}, full", arch, ["--full"]) for fam, arch in
+            (("encdec", "seamless-m4t-large-v2"), ("rwkv", "rwkv6-7b"),
+             ("hybrid", "zamba2-2.7b"))]
     runs += [(f"{fam}, reduced", arch, []) for fam, arch in LAUNCH_ARCHS]
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -3440,6 +3449,255 @@ def launcher_phase(dev):
         torch.cuda.empty_cache()
     counts = dict(launch_counts())
     log(f"  launcher launches {counts}")
+    return counts
+
+
+# Slice 12's phase.  RWKV6-7B (configs/rwkv6_7b.py, arXiv:2404.05892: 32
+# layers, d_model 4096, 64 heads of 64, d_ff 14336, vocab 65536; ~7.5 B
+# parameters, ~30 GB in float32) and Zamba2-2.7B (configs/zamba2_2_7b.py,
+# arXiv:2411.15242: 54 Mamba2 layers, one shared attention block every
+# 6th, d_model 2560, 32 heads of 80, d_ff 10240, SSM state 64, head dim
+# 64, expand 2, conv 4, vocab 32000; ~2.4 B parameters, ~10 GB), whole,
+# float32 master weights and bf16 compute.  Neither reaches a kernel: the
+# WKV and SSD chunks, the conv and the shared attention are plain PyTorch,
+# as the reference's are plain JAX.
+REC_ARCHS = (("rwkv", "rwkv6-7b"), ("hybrid", "zamba2-2.7b"))
+REC_BATCH, REC_TOKENS, REC_NEW = 4, 64, 16
+REC_PROMPTS = (64, 48, 32, 16)
+REC_WINDOW = 32
+# Decode logits against the parallel forward, worst row L2 relative error,
+# held on the first REC_DRIFT_LAYERS layers of the same weights (RWKV6-7B's
+# first 2, Zamba2-2.7B's first group): float32 compute to 1e-4; bf16
+# compute to 2x the larger reading of the JAX reference's own bf16 drift
+# on a CPU at that depth (tests/torch_decode_drift.py, published widths;
+# PERF.md section 6).  The whole model's drift is printed beside its floor,
+# the parallel forward of the first REC_FLOOR tokens against that of all
+# 64 (no decode step in it): the seeded whole RWKV6-7B amplifies a
+# float32 rounding difference about 2x a layer (the reference's package
+# as much as the port, on the same weights on a CPU), so on the card its
+# parallel forward disagrees with itself by ~0.2 across batch shapes.
+REC_DRIFT_LAYERS = {"rwkv": 2, "hybrid": 6}
+REC_LIMITS = {"bfloat16": 5.066e-2, "float32": 1e-4}
+REC_FLOOR = 4
+REC_RING_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _row_drift(steps, parallel):
+    """The worst row's L2 relative error of each step's logits (B, V)
+    against the parallel forward's position j, as floats."""
+    import torch
+    out = []
+    for j, lg in enumerate(steps):
+        got, want = lg.float(), parallel[:, j].float()
+        check(bool(torch.isfinite(got).all()), f"decode step {j}: not finite")
+        out.append(float((torch.linalg.vector_norm(got - want, dim=-1)
+                          / torch.linalg.vector_norm(want, dim=-1)).max()))
+    return out
+
+
+def _decode_all(api, params, toks, caches):
+    """Feed (B, S) tokens through S decode steps; the last-position logits
+    of each step."""
+    steps = []
+    for j in range(toks.shape[1]):
+        logits, caches = api.decode_fn(params, toks[:, j:j + 1], caches, j)
+        steps.append(logits[:, -1])
+    return steps
+
+
+def _first_layers(family, params, cfg, layers):
+    """The model of ``cfg``'s first ``layers`` layers, on the same
+    weights (the hybrid's cut at a group boundary)."""
+    import dataclasses
+    if family == "rwkv":
+        cut = dict(params, blocks=params["blocks"][:layers])
+    else:
+        groups = layers // cfg.shared_attn_period
+        cut = dict(params, mamba=params["mamba"][:groups],
+                   lora=params["lora"][:groups])
+    return cut, dataclasses.replace(cfg, num_layers=layers)
+
+
+def _state_bytes(caches, batch):
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves(caches) if t is not None) / batch
+
+
+def _drift(M, api, params, toks):
+    """Decode against the parallel forward on one model: the per-step
+    worst-row drift, the floor (the first ``REC_FLOOR`` tokens' parallel
+    forward against the whole sequence's) and the decode steps."""
+    import torch
+    cfg = api.cfg
+    with torch.inference_mode():
+        parallel = M.lm_logits(params, M.lm_hidden(params, toks, cfg))
+        prefix = M.lm_logits(params, M.lm_hidden(params, toks[:, :REC_FLOOR],
+                                                 cfg))
+        caches = api.init_caches(REC_BATCH, REC_TOKENS, torch.float32)
+        steps = _decode_all(api, params, toks, caches)
+    floor = _row_drift(list(prefix.unbind(1)), parallel)
+    return _row_drift(steps, parallel), max(floor), steps
+
+
+def recurrent_phase(dev, smi):
+    """RWKV6-7B and Zamba2-2.7B whole at published width on the card, each
+    through ``model_zoo.build``, on seeded weights and 4 x 64 seeded
+    tokens.  In bf16 and in float32 compute: the tokens through
+    ``lm_hidden`` and the logits projection, then through 64 ``decode_step``
+    calls, each step's logit rows against the parallel forward's in L2 —
+    held to ``REC_LIMITS`` on the first ``REC_DRIFT_LAYERS`` layers of the
+    same weights, printed for the whole model beside its floor.
+    ``ServingEngine`` answers 4 greedy requests of 64/48/32/16 prompt
+    tokens with 16 new tokens each, every token in the padded vocabulary.
+    Zamba2's shared-attention ring (``init_caches(..., window=32)``)
+    decodes 64 steps, every logit finite in bf16 and float32, its first 32
+    float32 steps within ``REC_RING_TOL`` of the unwindowed decode on the
+    first group (printed for the whole model).
+    Prints the parallel forward's ms, the decode ms a step, its idle share
+    and device kernels (``profile_call``) and the decode state bytes a
+    slot, each with the card's name and power limit.  The families reach
+    no kernel: every counter stays 0.  Returns the counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import hybrid, model_zoo, rwkv
+    from repro_torch.serve import ServeOptions, ServingEngine
+
+    module = {"rwkv": rwkv, "hybrid": hybrid}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for family, arch in REC_ARCHS:
+        M = module[family]
+        cfg = get_config(arch)
+        api = model_zoo.build(cfg, device=dev)
+        secs, params = host_s(lambda: api.init(
+            torch.Generator(device=dev).manual_seed(0)))
+        n_params = sum(t.numel() for t in _tree.leaves(params))
+        g = torch.Generator(device=dev).manual_seed(61)
+        toks = torch.randint(0, cfg.vocab_size, (REC_BATCH, REC_TOKENS),
+                             generator=g, device=dev, dtype=torch.int32)
+        log(f"recurrent phase: {arch} whole ({cfg.num_layers} layers, "
+            f"d_model {cfg.d_model}), {n_params / 1e9:.3f} B float32 "
+            f"parameters drawn in {secs:.2f} s; {REC_BATCH} x {REC_TOKENS} "
+            "tokens")
+
+        def forward():
+            return M.lm_logits(params, M.lm_hidden(params, toks, cfg))
+
+        with torch.inference_mode():
+            first, _ = host_s(forward)
+            fwd_ms = time_ms(forward, 3)
+            caches = api.init_caches(REC_BATCH, REC_TOKENS, torch.float32)
+            t_dec, _ = host_s(lambda: _decode_all(api, params, toks, caches))
+
+        layers = REC_DRIFT_LAYERS[family]
+        cut, cut_cfg = _first_layers(family, params, cfg, layers)
+        steps32 = {}
+        for compute, limit in REC_LIMITS.items():
+            whole_api = model_zoo.build(
+                dataclasses.replace(cfg, compute_dtype=compute), device=dev)
+            cut_api = model_zoo.build(
+                dataclasses.replace(cut_cfg, compute_dtype=compute),
+                device=dev)
+            drift, floor, steps = _drift(M, whole_api, params, toks)
+            cut_drift, cut_floor, cut_steps = _drift(M, cut_api, cut, toks)
+            check(max(cut_drift) <= limit,
+                  f"{arch} {compute} decode, first {layers} layers: worst "
+                  f"row L2 relative error {max(cut_drift)} > {limit}")
+            log(f"  {arch} {compute} decode vs the parallel forward, worst "
+                f"row L2 relative error a step: first {layers} layers max "
+                f"{max(cut_drift):.3e} (step "
+                f"{cut_drift.index(max(cut_drift))}; <= {limit}; floor "
+                f"{cut_floor:.3e}); whole model max {max(drift):.3e} (step "
+                f"{drift.index(max(drift))}), last {drift[-1]:.3e}, floor "
+                f"{floor:.3e} ({smi})")
+            if compute == "float32":
+                steps32 = {"whole": (whole_api, params, steps),
+                           "cut": (cut_api, cut, cut_steps)}
+
+        if family == "hybrid":
+            # The ring against the full cache: every logit finite in both
+            # precisions; the first REC_WINDOW float32 steps held on the
+            # first group, printed for the whole model (only the
+            # attention's key length differs, and the seeded model
+            # amplifies a float32 rounding difference with depth).
+            with torch.inference_mode():
+                ring = _decode_all(api, params, toks, api.init_caches(
+                    REC_BATCH, REC_TOKENS, torch.float32, window=REC_WINDOW))
+                diffs = {}
+                for name, (a, p, full) in steps32.items():
+                    ring32 = _decode_all(a, p, toks, a.init_caches(
+                        REC_BATCH, REC_TOKENS, torch.float32,
+                        window=REC_WINDOW))
+                    check(all(bool(torch.isfinite(t).all())
+                              for t in ring + ring32),
+                          f"{arch} ring of {REC_WINDOW} ({name}): a logit "
+                          "not finite")
+                    diffs[name] = [float((r - f).abs().max())
+                                   for r, f in zip(ring32, full)]
+                    if name == "cut":
+                        for j in range(REC_WINDOW):
+                            check(torch.allclose(ring32[j], full[j],
+                                                 **REC_RING_TOL),
+                                  f"{arch} ring step {j}, first {layers} "
+                                  f"layers: max |diff| {diffs[name][j]} "
+                                  "from the unwindowed decode, outside "
+                                  f"{REC_RING_TOL}")
+            log(f"  {arch} ring of {REC_WINDOW}: {REC_TOKENS} steps finite "
+                f"(bf16 and float32); the first {REC_WINDOW} float32 steps' "
+                f"max |diff| from the unwindowed decode: first {layers} "
+                f"layers {max(diffs['cut'][:REC_WINDOW]):.3e} "
+                f"({REC_RING_TOL}), whole model "
+                f"{max(diffs['whole'][:REC_WINDOW]):.3e}; after the wrap "
+                f"{max(diffs['whole'][REC_WINDOW:]):.3e} ({smi})")
+            del ring, ring32
+        del steps32, cut
+
+        prompts = [toks[i, :n].tolist() for i, n in enumerate(REC_PROMPTS)]
+        engine = ServingEngine(api, ServeOptions(batch_slots=REC_BATCH,
+                                                 max_new_tokens=REC_NEW),
+                               max_seq=REC_TOKENS + REC_NEW)
+        t_serve, outs = host_s(lambda: engine.generate(
+            params, prompts, generator=torch.Generator(device=dev)))
+        check(len(outs) == REC_BATCH and all(
+            len(o) == REC_NEW and all(0 <= t < cfg.padded_vocab for t in o)
+            for o in outs), f"{arch} serving: tokens {outs}")
+        n_steps = max(REC_PROMPTS) - 1 + REC_NEW
+        log(f"  {arch} serving: {REC_BATCH} greedy requests of "
+            f"{REC_PROMPTS} prompt tokens, {REC_NEW} new each in [0, "
+            f"{cfg.padded_vocab}): {t_serve:.2f} s, {n_steps} decode steps, "
+            f"{REC_BATCH * REC_NEW / t_serve:.1f} new tokens/s ({smi})")
+        del engine
+
+        def one_step():
+            with torch.inference_mode():
+                return api.decode_fn(params, toks[:, -1:], caches,
+                                     REC_TOKENS - 1)
+        prof = profile_call(f"{arch} decode step ({REC_BATCH} slots)",
+                            one_step, rows=6)
+        kernels = sum(c for c, _ in prof["kernels"].values())
+        state = _state_bytes(caches, REC_BATCH)
+        kv = _state_bytes([caches.get("attn_k"), caches.get("attn_v")],
+                          REC_BATCH)
+        log(f"  {arch}: parallel forward {REC_BATCH} x {REC_TOKENS} "
+            f"{first * 1e3:.2f} ms (first call), {fwd_ms:.2f} ms (warm, CUDA "
+            f"events); decode {t_dec * 1e3 / REC_TOKENS:.2f} ms a step (mean "
+            f"of {REC_TOKENS}), idle share "
+            f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}, {kernels} device "
+            f"kernels a step; decode state {state / 2**20:.2f} MiB a slot "
+            f"in float32 caches ({(state - kv) / 2**20:.2f} MiB recurrent, "
+            f"constant in length; {kv / 2**20:.2f} MiB of K/V at "
+            f"{REC_TOKENS} positions) ({smi})")
+        del params, caches
+        torch.cuda.empty_cache()
+    counts = dict(launch_counts())
+    check(sum(counts.values()) == 0, f"recurrent path launches {counts}: "
+          "rwkv and hybrid reach no kernel")
+    log(f"  recurrent launches {counts}")
     return counts
 
 
@@ -4085,6 +4343,7 @@ def main(argv) -> int:
                       ("vlm", lambda: vlm_phase(dev, compare)),
                       ("encdec", lambda: encdec_phase(dev, compare)),
                       ("launcher", lambda: launcher_phase(dev)),
+                      ("recurrent", lambda: recurrent_phase(dev, smi)),
                       ("training", lambda: train_phase(dev))):
         t_phase = time.perf_counter()
         phase = run()

@@ -2,8 +2,7 @@
 
 Port of ``repro.configs``.  Every assigned architecture is a module
 exporting ``CONFIG``; reduced smoke-test variants come from
-``base.reduced``.  The port builds the ``dense`` and ``moe`` families
-(``models/model_zoo.py``); the others' configs are data only.
+``base.reduced``.  ``models/model_zoo.py`` builds every family.
 """
 
 from __future__ import annotations

@@ -2,8 +2,7 @@
 
 Port of ``repro.configs.base`` — the port keeps its own copy (no import
 of the reference).  Families: dense | moe | rwkv | hybrid | vlm |
-encdec; the port builds ``dense`` and ``moe`` so far
-(``models/model_zoo.py``).
+encdec, all built by ``models/model_zoo.py``.
 ``reduced()`` derives the small CPU smoke-test version of the same
 family.  ``dispatch_backend`` names a ``core.crossbar`` backend:
 'einsum' | 'kernel' (dense CUDA crossbar) | 'sparse' (tile-skipping

@@ -5,8 +5,8 @@ functions, same error messages), duck-typed on ``mesh.axis_names`` and
 ``mesh.shape`` as the reference is.  Physical convention as in the
 reference: batch data-parallel over ("pod", "data"), tensor-parallel
 over "model".  ``param_shardings`` / ``cache_shardings`` /
-``batch_shardings`` place a model's state and wait for the port's
-training and model-family slice (ROADMAP item 16).
+``batch_shardings`` place a model's state and are ported with the
+launchers' mesh and dry runs (ROADMAP Queue 1, slice 13).
 """
 
 from __future__ import annotations

@@ -1,27 +1,30 @@
 """Model zoo: one API over the model families the port builds.
 
-Port of ``repro.models.model_zoo`` for the ``dense``, ``moe``, ``vlm``
-and ``encdec`` families.  ``build(cfg)`` returns a ``ModelAPI``:
+Port of ``repro.models.model_zoo`` for all six families: ``dense``,
+``moe``, ``rwkv``, ``hybrid``, ``vlm`` and ``encdec``.  ``build(cfg)``
+returns a ``ModelAPI``:
 
     init(generator=None)                     -> params (on the device)
     loss_fn(params, batch)                   -> (loss, metrics)
     batch_specs(batch, seq)                  -> {name: (shape, dtype)}
     make_batch(generator, batch, seq)        -> the same tree, real tensors
-    init_caches(batch, max_seq, dtype)       -> decode caches
+    init_caches(batch, max_seq, dtype, window=0)  -> decode caches
     decode_fn(params, tokens1, caches, pos)  -> (logits, caches)
 
 ``make_batch`` draws every value from ``generator`` (a
 ``torch.Generator`` on the API's device).  Input shapes, as in the
 reference:
 
-* dense / moe: tokens (B, S);
+* dense / moe / rwkv / hybrid: tokens (B, S);
 * vlm: a patch prefix of F = min(256, frontend_seq) slots (with
   ``patch_valid``) and text of max(S - F, 8) tokens;
 * encdec: frames and tokens of max(S // 2, 8) each; the cross-attention
   K/V (zeros from a max_seq // 2-frame encoding, as the reference's)
   live in the caches tree, so ``decode_fn`` stays uniform.
 
-The other families raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+``window`` caps the hybrid's shared-attention K/V at a ring of that
+many slots; the other families ignore it, as the reference's do.  An
+unknown family raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -115,17 +118,21 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
     dev = resolve(device)
     specs = functools.partial(_token_specs, cfg)
     make = functools.partial(_token_batch, cfg)
-    init_caches = (lambda batch, max_seq, dtype=torch.bfloat16:
+    init_caches = (lambda batch, max_seq, dtype=torch.bfloat16, window=0:
                    M.init_caches(cfg, batch, max_seq, dtype, dev))
     decode_fn = (lambda p, t1, c, pos: M.decode_step(p, t1, c, pos, cfg))
 
-    if cfg.family == "vlm":
+    if cfg.family == "hybrid":
+        init_caches = (lambda batch, max_seq, dtype=torch.bfloat16, window=0:
+                       M.init_caches(cfg, batch, max_seq, dtype, dev,
+                                     window=window))
+    elif cfg.family == "vlm":
         specs, make = _vlm_batch(
             cfg, min(VLM_PATCHES, cfg.frontend_seq or VLM_PATCHES))
     elif cfg.family == "encdec":
         specs, make = _encdec_batch(cfg)
 
-        def init_caches(batch, max_seq, dtype=torch.bfloat16):
+        def init_caches(batch, max_seq, dtype=torch.bfloat16, window=0):
             caches = M.init_caches(cfg, batch, max_seq, dtype, dev)
             f = max(max_seq // 2, 8)
             shape = (cfg.num_layers, batch, f, cfg.num_kv_heads, cfg.hd)

@@ -5,11 +5,13 @@
   the CPU) from a ``torch.Generator`` on that device (seed 0 if none is
   given).
 * ``params_from_numpy(tree, cfg, device=None)`` turns a parameter tree of
-  the JAX package's ``lm_init`` — numpy leaves, each layer's weights
-  stacked on a leading L axis under every ``*blocks`` key (``blocks``;
-  encdec's ``enc_blocks`` and ``dec_blocks``) — into the port's tree,
-  where each of them is a list of per-layer dicts.  The tests carry the
-  reference's weights across with it.
+  the JAX package's ``lm_init`` (numpy leaves) into the port's tree.  The
+  reference stacks layers on leading axes: (L, ...) under every
+  ``*blocks`` key (``blocks``; encdec's ``enc_blocks`` and
+  ``dec_blocks``) and the hybrid's ``lora``, (G, period, ...) under the
+  hybrid's ``mamba``.  The port's tree holds a list of per-layer dicts
+  for each stacked axis (``mamba``: G lists of ``period`` dicts).  The
+  tests carry the reference's weights across with it.
 * ``to_device(params, device)`` copies the port's tree to another device.
 """
 
@@ -27,8 +29,8 @@ def _to_tensor(a, device):
 
 
 def family_module(cfg):
-    """The module of ``cfg``'s model family; raises for families the port
-    does not build yet."""
+    """The module of ``cfg``'s model family; raises ``ValueError`` for an
+    unknown family."""
     if cfg.family == "dense":
         from repro_torch.models import transformer
         return transformer
@@ -41,9 +43,13 @@ def family_module(cfg):
     if cfg.family == "encdec":
         from repro_torch.models import encdec
         return encdec
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet; the port builds the "
-        "'dense', 'moe', 'vlm' and 'encdec' families (ROADMAP.md, Queue 1)")
+    if cfg.family == "rwkv":
+        from repro_torch.models import rwkv
+        return rwkv
+    if cfg.family == "hybrid":
+        from repro_torch.models import hybrid
+        return hybrid
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def init_params(cfg, generator=None, device=None):
@@ -58,15 +64,25 @@ def params_from_numpy(tree, cfg, device=None):
     """The port's parameters from a reference ``lm_init`` tree."""
     family_module(cfg)
     dev = resolve(device)
-    out = {}
-    for key, sub in tree.items():
-        if key.endswith("blocks"):
-            n = len(np.asarray(leaves(sub)[0]))
-            out[key] = [tree_map(lambda a, i=i: _to_tensor(a[i], dev), sub)
-                        for i in range(n)]
-        else:
-            out[key] = tree_map(lambda a: _to_tensor(a, dev), sub)
-    return out
+    return {key: _unstack(sub, _stacked_axes(key), dev)
+            for key, sub in tree.items()}
+
+
+def _stacked_axes(key):
+    """How many leading layer axes the reference stacks under ``key``."""
+    if key.endswith("blocks") or key == "lora":
+        return 1
+    return 2 if key == "mamba" else 0
+
+
+def _unstack(sub, axes, dev):
+    """``sub`` with ``axes`` leading stacked axes split into nested lists
+    of per-layer trees."""
+    if axes == 0:
+        return tree_map(lambda a: _to_tensor(a, dev), sub)
+    n = len(np.asarray(leaves(sub)[0]))
+    return [_unstack(tree_map(lambda a, i=i: np.asarray(a)[i], sub),
+                     axes - 1, dev) for i in range(n)]
 
 
 def to_device(params, device):

@@ -117,13 +117,19 @@ class Histogram:
     def cumulative_buckets(self) -> list:
         """[(le_bound, cumulative_count)] + (+Inf, n) — Prometheus
         histogram convention."""
+        return self.exposition()[0]
+
+    def exposition(self) -> tuple:
+        """(cumulative buckets, count, sum), read under one lock: an
+        export stays consistent (+Inf bucket == count) while other
+        threads keep observing."""
         with self._lock:
             out, acc = [], 0
             for bound, c in zip(BUCKET_BOUNDS, self.counts):
                 acc += c
                 out.append((bound, acc))
             out.append((math.inf, self.n))
-            return out
+            return out, self.n, self.total
 
 
 class Gauge:
@@ -249,16 +255,16 @@ class MetricsRegistry:
             lines.append("# TYPE repro_span_seconds histogram")
             for name, h in hists:
                 label = _label_value(name)
-                for bound, acc in h.cumulative_buckets():
+                buckets, count, total = h.exposition()
+                for bound, acc in buckets:
                     le = "+Inf" if math.isinf(bound) else _fmt_float(bound)
                     lines.append(
                         f'repro_span_seconds_bucket{{span="{label}",'
                         f'le="{le}"}} {acc}')
-                st = h.stats()
                 lines.append(f'repro_span_seconds_sum{{span="{label}"}} '
-                             f'{_fmt_float(st["sum_s"])}')
+                             f'{_fmt_float(total)}')
                 lines.append(f'repro_span_seconds_count{{span="{label}"}} '
-                             f'{st["count"]}')
+                             f'{count}')
         for name, val in sorted(self._gauge_values().items()):
             metric = f"repro_{_sanitize(name)}"
             lines.append(f"# TYPE {metric} gauge")

@@ -222,8 +222,4 @@ def test_every_config_is_the_reference_config(arch):
         assert dataclasses.asdict(tshape) == dataclasses.asdict(shape)
         assert (tconfigs.cell_applicable(tcfg, tshape)
                 == jconfigs.cell_applicable(jcfg, shape))
-    if tcfg.family in ("dense", "moe", "vlm", "encdec"):
-        assert model_zoo.build(tconfigs.reduced(tcfg), device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_zoo.build(tcfg, device="cpu")
+    assert model_zoo.build(tconfigs.reduced(tcfg), device="cpu")

@@ -268,6 +268,10 @@ def _leaves(tree):
 
 
 def test_model_zoo_builds_moe_and_refuses_other_families():
+    """``build`` makes every one of the six families (MoE at length, the
+    others one decode step each, ``window`` taken by every family's
+    ``init_caches``) and refuses an unknown family with the reference's
+    ``ValueError``."""
     cfg = reduced(tphi.CONFIG)
     api = model_zoo.build(cfg, device="cpu")
     params = api.init()
@@ -280,24 +284,46 @@ def test_model_zoo_builds_moe_and_refuses_other_families():
     assert logits.shape == (2, 1, cfg.padded_vocab)
     assert logits.dtype == torch.float32 and bool(torch.isfinite(
         logits).all())
-    for family in ("rwkv", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model_zoo.build(dataclasses.replace(cfg, family=family),
-                            device="cpu")
+    from repro_torch.configs import get_config
+    families = {}
+    for arch in ("minicpm-2b", "phi3.5-moe", "rwkv6-7b", "zamba2-2.7b",
+                 "internvl2-26b", "seamless-m4t-large-v2"):
+        fcfg = reduced(get_config(arch))
+        fapi = model_zoo.build(fcfg, device="cpu")
+        fparams = fapi.init()
+        fcaches = fapi.init_caches(2, 6, torch.float32, window=4)
+        logits, _ = fapi.decode_fn(fparams, torch.ones((2, 1),
+                                                       dtype=torch.int32),
+                                   fcaches, 0)
+        assert logits.shape == (2, 1, fcfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all())
+        families[fcfg.family] = fapi
+    assert sorted(families) == ["dense", "encdec", "hybrid", "moe", "rwkv",
+                                "vlm"]
+    with pytest.raises(ValueError, match="unknown family 'ssm'"):
+        model_zoo.build(dataclasses.replace(cfg, family="ssm"),
+                        device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["lm_init", "init_caches", "init_cache",
                                    "init_params", "build", "encdec_lm_init",
-                                   "encdec_init_caches", "launch_serve"])
+                                   "encdec_init_caches", "launch_serve",
+                                   "rwkv_lm_init", "rwkv_init_caches",
+                                   "hybrid_lm_init", "hybrid_init_caches"])
 def test_model_entry_points_default_to_the_card(monkeypatch, entry):
     """With no device given, every entry point that makes tensors asks
     for the card and raises without one; nothing lands on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import rwkv6_7b, zamba2_2_7b
     from repro_torch.configs import seamless_m4t_large_v2 as tsm
     from repro_torch.launch import serve as tserve
     from repro_torch.models import encdec as tE
+    from repro_torch.models import hybrid as tH
+    from repro_torch.models import rwkv as tR
     cfg = reduced(tphi.CONFIG)
     encdec_cfg = reduced(tsm.CONFIG)
+    rwkv_cfg = reduced(rwkv6_7b.CONFIG)
+    hybrid_cfg = reduced(zamba2_2_7b.CONFIG)
     calls = {
         "lm_init": lambda: tM.lm_init(torch.Generator(), cfg),
         "init_caches": lambda: tM.init_caches(cfg, 2, 6),
@@ -308,6 +334,11 @@ def test_model_entry_points_default_to_the_card(monkeypatch, entry):
         "encdec_init_caches": lambda: tE.init_caches(encdec_cfg, 2, 6),
         "launch_serve": lambda: tserve.main(["--arch", "internvl2-26b"],
                                             log_fn=lambda _: None),
+        "rwkv_lm_init": lambda: tR.lm_init(torch.Generator(), rwkv_cfg),
+        "rwkv_init_caches": lambda: tR.init_caches(rwkv_cfg, 2, 6),
+        "hybrid_lm_init": lambda: tH.lm_init(torch.Generator(), hybrid_cfg),
+        "hybrid_init_caches": lambda: tH.init_caches(hybrid_cfg, 2, 6,
+                                                     window=4),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

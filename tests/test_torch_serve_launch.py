@@ -1,11 +1,12 @@
 """The serving launcher of the port against the reference's engine.
 
-``repro_torch.launch.serve.main`` for one reduced config of each served
-family (dense, moe, vlm, encdec) on the CPU.  With the reference's
-weights carried across, its greedy tokens equal, token for token, those
-of the reference's ``ServingEngine`` on the launcher's prompts and
-options (float32 caches).  The engine starts every ``generate`` from the
-initial caches, nested ones (encdec's self and cross K/V) included.
+``repro_torch.launch.serve.main`` for one reduced config of each of the
+six families (dense, moe, rwkv, hybrid, vlm, encdec) on the CPU.  With
+the reference's weights carried across, its greedy tokens equal, token
+for token, those of the reference's ``ServingEngine`` on the launcher's
+prompts and options (float32 caches).  The engine starts every
+``generate`` from the initial caches, nested ones (encdec's self and
+cross K/V, the hybrid's Mamba2 states) included.
 """
 
 import dataclasses
@@ -24,6 +25,7 @@ from test_torch_support import (carried_params, jax_ref_alias,  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCHS = {"dense": "minicpm-2b", "moe": "phi3.5-moe-42b-a6.6b",
+         "rwkv": "rwkv6-7b", "hybrid": "zamba2-2.7b",
          "vlm": "internvl2-26b", "encdec": "seamless-m4t-large-v2"}
 SLOTS, NEW, MAX_SEQ = 4, 4, 16
 ARGV = ["--slots", str(SLOTS), "--max-new-tokens", str(NEW),
@@ -108,6 +110,16 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_launcher_serves_the_recurrent_families(arch):
+    """``--arch rwkv6-7b`` and ``--arch zamba2-2.7b`` with the launcher's
+    defaults: 4 slots of 16 new tokens, each in the padded vocabulary."""
+    outs = tserve.main(["--arch", arch], device="cpu", log_fn=lambda _: None)
+    vocab = reduced(get_config(arch)).padded_vocab
+    assert [len(o) for o in outs] == [16] * 4
+    assert all(0 <= t < vocab for o in outs for t in o)
 
 
 def test_parse_args_defaults_are_the_references():

@@ -60,11 +60,13 @@ def jax_ref_alias():
         yield
 
 
-def carried_params(japi, tcfg, seed=0):
+def carried_params(japi, tcfg, seed=0, leaf_fn=None):
     """Seeded numpy weights in the layout of the reference model
     ``japi``'s ``init`` (norm scales 1, biases N(0, 0.1), tables and
     routers N(0, 0.02), matrices N(0, 1/d_in)), as (reference params,
-    the port's params on the CPU)."""
+    the port's params on the CPU).  ``leaf_fn(name, shape, rng)`` may
+    draw a leaf itself (a family's own parameter ranges): it returns the
+    array, or None for the rule above."""
     import jax
     import jax.numpy as jnp
     from repro_torch.models import params as tP
@@ -73,6 +75,10 @@ def carried_params(japi, tcfg, seed=0):
 
     def leaf(path, spec):
         name = jax.tree_util.keystr(path)
+        if leaf_fn is not None:
+            own = leaf_fn(name, spec.shape, rng)
+            if own is not None:
+                return np.asarray(own, np.float32)
         if "scale" in name:
             return np.ones(spec.shape, np.float32)
         if "bias" in name or name.endswith("['b']"):

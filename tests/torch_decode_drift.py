@@ -1,5 +1,6 @@
-"""SeamlessM4T-large-v2's bf16 decode against its teacher-forced decoder,
-on the CPU, in the JAX reference or in the port.
+"""bf16 decode against the parallel forward, on the CPU, in the JAX
+reference or in the port: SeamlessM4T-large-v2's decoder, RWKV6-7B and
+Zamba2-2.7B.
 
 A decode step multiplies a few rows (one token a request) where the
 parallel decoder multiplies many, and a bf16 product's rounding depends on
@@ -11,12 +12,25 @@ position late, the reading of a planted fault.
 
 Published widths and vocabulary, the whole decoder, seeded weights (each
 package its own draw); the encoder is cut to 2 layers and 256 frames a
-request: it only feeds the cross K/V.  Not a test: pytest does not
-collect it.  Run one package a process (the weights are ~4.5 GB in
-float32):
+request: it only feeds the cross K/V.
+
+``--model rwkv`` / ``--model hybrid``: RWKV6-7B at 2 layers and
+Zamba2-2.7B at one group (6 Mamba2 layers and one shared attention
+application), published widths and vocabularies, seeded weights: 4 x 64
+random tokens through ``lm_hidden`` and the logits projection, then the
+same tokens through 64 ``decode_step`` calls (float32 caches), each
+step's logits against the parallel forward's at its position, in bf16
+and in float32 compute.  The port also decodes every step one token late
+(the reading of a planted fault).
+
+Not a test: pytest does not collect it.  Run one package a process (the
+weights are ~4.5 GB in float32 for SeamlessM4T, ~4 GB for RWKV6-7B at 2
+layers, ~2 GB for Zamba2-2.7B at one group):
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_decode_drift.py --impl jax
     PYTHONPATH=src python tests/torch_decode_drift.py --impl torch
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_decode_drift.py --impl jax --model rwkv
+    PYTHONPATH=src python tests/torch_decode_drift.py --impl torch --model hybrid
 """
 
 import argparse
@@ -26,6 +40,8 @@ import time
 import numpy as np
 
 BATCH, STEPS, ENC_LAYERS, FRAMES = 4, 16, 2, 256
+TOKENS = 64
+RECURRENT = {"rwkv": ("rwkv6-7b", 2), "hybrid": ("zamba2-2.7b", 6)}
 
 
 def worst_rows(steps, parallel):
@@ -124,16 +140,111 @@ def run_torch():
     return cfg, readings
 
 
+def _tokens(cfg):
+    return np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (BATCH, TOKENS)).astype(np.int32)
+
+
+def _recurrent_cfg(get_config, model, layers, attn_chunk):
+    arch, default = RECURRENT[model]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers or default,
+                               attn_chunk=attn_chunk or cfg.attn_chunk)
+
+
+def run_jax_recurrent(model, layers=None, attn_chunk=None):
+    import jax
+    import jax.numpy as jnp
+    from jax._src import core as jax_core
+    jax.core.trace_state_clean = jax_core.trace_state_clean
+    from repro.configs import get_config
+    from repro.models import hybrid, model_zoo, rwkv
+    from repro.models import layers as L
+
+    M = rwkv if model == "rwkv" else hybrid
+    base = _recurrent_cfg(get_config, model, layers, attn_chunk)
+    params = model_zoo.build(base).init(jax.random.PRNGKey(0))
+    toks = jnp.asarray(_tokens(base))
+    readings = {}
+    for compute in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        api = model_zoo.build(cfg)
+
+        @jax.jit
+        def parallel_logits(p, t):
+            hidden = M.lm_hidden(p, t, cfg)
+            return L.logits_projection(p.get("lm_head", p["embed"]), hidden,
+                                       hidden.dtype)
+
+        parallel = np.asarray(parallel_logits(params, toks), np.float32)
+        decode = jax.jit(api.decode_fn)
+        caches = api.init_caches(BATCH, TOKENS, jnp.float32)
+        steps = []
+        for j in range(TOKENS):
+            logits, caches = decode(params, toks[:, j:j + 1], caches, j)
+            steps.append(np.asarray(logits[:, -1], np.float32))
+        readings[f"{compute} decode"] = worst_rows(steps, parallel)
+    return base, readings
+
+
+def run_torch_recurrent(model, layers=None, attn_chunk=None):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid, model_zoo, rwkv
+
+    M = rwkv if model == "rwkv" else hybrid
+    base = _recurrent_cfg(get_config, model, layers, attn_chunk)
+    toks = torch.as_tensor(_tokens(base))
+    readings = {}
+    with torch.inference_mode():
+        params = model_zoo.build(base, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        for compute in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(base, compute_dtype=compute)
+            api = model_zoo.build(cfg, device="cpu")
+            parallel = M.lm_logits(params, M.lm_hidden(params, toks, cfg))
+            parallel = parallel.float().numpy()
+            for late in ((0, 1) if compute == "bfloat16" else (0,)):
+                caches = api.init_caches(BATCH, TOKENS + 1, torch.float32)
+                steps = []
+                for j in range(TOKENS):
+                    src = max(j - late, 0)
+                    logits, caches = api.decode_fn(
+                        params, toks[:, src:src + 1], caches, j)
+                    steps.append(logits[:, -1].float().numpy())
+                name = f"{compute} decode" + (" one token late" if late
+                                              else "")
+                readings[name] = worst_rows(steps, parallel)
+    return base, readings
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", choices=("jax", "torch"), required=True)
+    ap.add_argument("--model", choices=("seamless",) + tuple(RECURRENT),
+                    default="seamless")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="rwkv / hybrid: depth (default 2 / 6)")
+    ap.add_argument("--attn-chunk", type=int, default=None,
+                    help="rwkv / hybrid: the SSD chunk bound (default: the "
+                    "config's)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
-    cfg, readings = run_jax() if args.impl == "jax" else run_torch()
-    print(f"{args.impl}: seamless-m4t-large-v2, {cfg.encoder_layers} "
-          f"encoder + {cfg.num_layers} decoder layers, d_model {cfg.d_model}"
-          f", vocab {cfg.vocab_size}, {BATCH} x {FRAMES} frames, "
-          f"{cfg.compute_dtype} compute, {time.perf_counter() - t0:.1f} s")
+    if args.model != "seamless":
+        run = run_jax_recurrent if args.impl == "jax" else run_torch_recurrent
+        cfg, readings = run(args.model, args.layers, args.attn_chunk)
+        print(f"{args.impl}: {cfg.name}, {cfg.num_layers} of its layers, "
+              f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, attn_chunk "
+              f"{cfg.attn_chunk}, {BATCH} x {TOKENS} tokens, "
+              f"{time.perf_counter() - t0:.1f} s")
+    else:
+        cfg, readings = run_jax() if args.impl == "jax" else run_torch()
+        print(f"{args.impl}: seamless-m4t-large-v2, {cfg.encoder_layers} "
+              f"encoder + {cfg.num_layers} decoder layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab_size}, {BATCH} x {FRAMES} "
+              f"frames, {cfg.compute_dtype} compute, "
+              f"{time.perf_counter() - t0:.1f} s")
     for name, rel in readings.items():
         print(f"  {name}: worst row L2 relative error a step "
               + ", ".join(f"{r:.3e}" for r in rel)
