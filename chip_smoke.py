@@ -77,12 +77,20 @@ set to 0 just before and read just after:
   and 64 decode steps (bf16 and float32 compute, logit rows against the
   parallel forward), 4 greedy requests through ``ServingEngine``,
   Zamba2's shared-attention ring of 32; no kernel on this path;
-* the training phase (``train_phase``, last): Phi-3.5-MoE at full
+* the training phase (``train_phase``): Phi-3.5-MoE at full
   width, 2 of 32 layers, 4 train steps (remat, moe_route counted,
   routing equal to the plain version's, step ms, tokens/s, peak memory);
   reduced MiniCPM-2B through ``launch.train`` (loss falls, checkpoint
   resume); MiniCPM-2B at full width, 2 of 40 layers, prefill and greedy
-  decode against the parallel forward.
+  decode against the parallel forward;
+* the sharding phase (``sharding_phase``, last): a model's state over a
+  (2 data x 2 model) mesh of four shards of the card — Phi-3.5-MoE at
+  full width, 1 of 32 layers, 2 steps of the sharded executor against
+  the single-device step (loss, parameters, moe_route launches, the
+  placement's bytes), MiniCPM-2B's 2 of 40 layers decoding 8 greedy
+  steps on sharded caches against one device, and the dry runs
+  (``launch.dryrun``) of two production cells on 16 x 16 placeholders
+  and of the phase's own cell.
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
@@ -3701,6 +3709,296 @@ def recurrent_phase(dev, smi):
     return counts
 
 
+# Slice 13: a model's state over a mesh.  (a) Phi-3.5-MoE at its published
+# width, 1 of 32 layers (1.569 B parameters: 6.27 GB of float32 weights,
+# 18.82 GB with both AdamW moments), its TrainState placed by
+# ``param_shardings`` on make_host_mesh(data=2, model=2), four shards of
+# the card, and trained 2 steps at 4 x 512 by the sharded executor against
+# the single-device make_train_step from the same state and batches.  The
+# card holds the single-device state and the four shards at once (2 x
+# 18.82 GB) and, in a sharded step, the gathered parameters, their
+# gradients and the float32 accumulators (3 x 6.27 GB): ~60 GB with the
+# activations, inside 80 GB, so the batch stays 4 x 512.  (b) MiniCPM-2B
+# at its published width, 2 of 40 layers: a prompt of 4 x 64 prefilled on
+# one device, its caches placed by ``cache_shardings``, then 8 greedy
+# decode steps sharded against single-device ``decode_fn``.  (c) The dry
+# runs on the 16 x 16 mesh of placeholders, and (a)'s own cell on (a)'s
+# mesh of placeholders.
+SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 1, 4, 512, 2
+SHARD_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)      # the reference test's
+SHARD_DEC_LAYERS, SHARD_DEC_PROMPT, SHARD_DEC_STEPS = 2, 64, 8
+DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
+                ("minicpm-2b", "decode_32k"))
+ALLOC_GRANULE = 512        # the CUDA caching allocator rounds to 512 bytes
+
+
+def alloc_slack():
+    """Bytes that ``memory_allocated`` counts beyond the live blocks'
+    requests at the allocator's 512-byte granule: a cached block handed out
+    whole because what it would leave is too small to split off (up to 1
+    MiB of a large block).  It depends on what earlier phases freed."""
+    import torch
+    return sum(b["size"] - -(-b["requested_size"] // ALLOC_GRANULE)
+               * ALLOC_GRANULE
+               for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+               if b["state"] == "active_allocated")
+
+
+def sharding_phase(dev, compare):
+    """A model's state over a mesh of four shards of the card.
+
+    (a) ``spmd.make_sharded_train_step`` on Phi-3.5-MoE (above) with the
+    reference test's options (``TrainOptions(peak_lr=1e-3)``): each step's
+    loss within ``DENSE_RESUME_TOL`` of the single-device step's, every
+    parameter after 2 steps within ``SHARD_PARAM_TOL`` and every first
+    moment (the gradient's trace) within ``TOL_BF16``'s rtol in L2;
+    moe_route launches = data shards x (forward + recompute) x steps;
+    the bytes the placement asks of the allocator equal to every shard's
+    bytes, and ``memory_allocated``'s growth equal to them at the
+    allocator's 512-byte granule plus the cached blocks it handed out
+    whole (``alloc_slack``).
+    Prints the step ms of both, the peak memory and the replicas' bytes;
+    the routing of one sharded forward against the kernel's plain version
+    (``compare``, after the counters are read).  (b)
+    ``spmd.sharded_decode_step`` against ``decode_fn``: the same greedy
+    tokens, each logit row within ``TOL_BF16``'s rtol in L2.  (c)
+    ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` (per_device, roofline,
+    wall seconds) and ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
+    placeholders: its argument bytes over the mesh equal to (a)'s placed
+    bytes, its temp bytes and step-time bound printed beside (a)'s peak
+    and step.  Returns (a)'s counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import minicpm_2b, phi3_5_moe
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainOptions, make_train_step
+    from repro_torch.train.trainer import init_state
+
+    # ------------------------------------- (a) sharded MoE training ---
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(phi3_5_moe.CONFIG, num_layers=SHARD_LAYERS)
+    mesh = make_host_mesh(data=2, model=2)
+    check(all(d == dev for d in mesh.devices.reshape(-1)),
+          f"host mesh devices {mesh}")
+    api = model_zoo.build(cfg, device=dev)
+    state = init_state(api.init(torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(t.numel() for t in _tree.leaves(state.params))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=SHARD_SEQ,
+                       global_batch=SHARD_BATCH)
+    batches = [{k: v.to(dev) for k, v in data.batch(s).items()}
+               for s in range(SHARD_STEPS)]
+    # the placement: the state and the first batch
+    args = (state, batches[0])
+    sh = (spmd.train_state_shardings(state, mesh, cfg),
+          shd.batch_shardings(batches[0], mesh))
+    shard_bytes = [shd.shard_nbytes(t.shape, t.dtype, s)
+                   for t, s in zip(_tree.leaves(args), _tree.leaves(sh))]
+    exact = mesh.size * sum(shard_bytes)
+    rounded = mesh.size * sum(-(-b // ALLOC_GRANULE) * ALLOC_GRANULE
+                              for b in shard_bytes)
+    replicas = sum((mesh.size - len(s.blocks(t.shape))) * b for t, s, b in
+                   zip(_tree.leaves(args), _tree.leaves(sh), shard_bytes))
+    log(f"sharding phase (a): phi3.5-moe, full width, {SHARD_LAYERS} of "
+        f"{phi3_5_moe.CONFIG.num_layers} layers, {n_params / 1e9:.4f} B "
+        f"float32 parameters; mesh {dict(mesh.shape)} of {dev}; batch "
+        f"{SHARD_BATCH} x {SHARD_SEQ}, {SHARD_STEPS} steps; the placement "
+        f"(TrainState and the first batch): {len(shard_bytes) * mesh.size} "
+        f"shards, {exact} bytes ({rounded} at the allocator's granule), of "
+        f"which replicas {replicas} bytes")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    slack = alloc_slack()
+    placed, batch0 = shd.device_put(args, sh)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked
+    slack = alloc_slack() - slack
+    check(asked == exact, f"placement asked the allocator for {asked} "
+          f"bytes, not the shards' {exact}")
+    check(grown == rounded + slack, f"placement grew memory_allocated by "
+          f"{grown}, not the shards' {rounded} bytes at the 512-byte granule"
+          f" ({exact} unrounded) + {slack} of unsplit cached blocks")
+    log(f"  placement: the allocator was asked for {asked} bytes = the "
+        f"shards' bytes; memory_allocated grew by {grown} = {rounded} at the"
+        f" 512-byte granule + {slack} of cached blocks too small to split")
+    opts = TrainOptions(peak_lr=1e-3)
+    single = make_train_step(api.loss_fn, opts)
+    hist_1 = []
+    for s in range(SHARD_STEPS):
+        secs, (state, m) = host_s(lambda: single(state, batches[s]))
+        hist_1.append((secs, {k: float(v) for k, v in m.items()}))
+
+    transfers = []
+    step = spmd.make_sharded_train_step(api.loss_fn, opts, mesh, *sh,
+                                        transfers=transfers)
+    real_route = ops.moe_route_transform
+    seen = []
+
+    def record(ids, **kw):
+        if not seen:
+            seen.append((ids.clone(), kw))
+        return real_route(ids, **kw)
+
+    hist_s = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ops.moe_route_transform = record
+    try:
+        for s in range(SHARD_STEPS):
+            secs, (placed, m) = host_s(lambda: step(
+                placed, batch0 if s == 0 else batches[s]))
+            hist_s.append((secs, {k: float(v) for k, v in m.items()}))
+    finally:
+        ops.moe_route_transform = real_route
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    want = mesh.shape["data"] * 2 * SHARD_LAYERS * SHARD_STEPS
+    check(counts["moe_route"] == want,
+          f"the sharded steps launched moe_route {counts['moe_route']} "
+          f"times, not {want} (data shards x (forward + recompute) x steps)")
+    for s, ((t1, m1), (ts, ms)) in enumerate(zip(hist_1, hist_s)):
+        check(all(math.isfinite(ms[k]) for k in ("loss", "grad_norm")),
+              f"sharded step {s}: loss {ms['loss']}")
+        check(math.isclose(ms["loss"], m1["loss"],
+                           rel_tol=DENSE_RESUME_TOL["rtol"],
+                           abs_tol=DENSE_RESUME_TOL["atol"]),
+              f"step {s}: sharded loss {ms['loss']} != single-device "
+              f"{m1['loss']} ({DENSE_RESUME_TOL})")
+        log(f"  step {s}: loss sharded {ms['loss']:.7f} single "
+            f"{m1['loss']:.7f} (diff {ms['loss'] - m1['loss']:.3e}); grad "
+            f"norm {ms['grad_norm']:.6f} / {m1['grad_norm']:.6f}; lr "
+            f"{ms['lr']:.2e}; host ms sharded {ts * 1e3:.1f}, single "
+            f"{t1 * 1e3:.1f}")
+    worst_p = worst_mu = 0.0
+    for got, want_p in zip(_tree.leaves(placed.params),
+                           _tree.leaves(state.params)):
+        g = shd.gather(got)
+        worst_p = max(worst_p, float((g - want_p.detach()).abs().max()))
+        check(torch.allclose(g, want_p.detach(), **SHARD_PARAM_TOL),
+              f"a parameter {tuple(g.shape)} differs beyond "
+              f"{SHARD_PARAM_TOL}: {worst_p}")
+        del g
+    for got, want_m in zip(_tree.leaves(placed.opt.mu),
+                           _tree.leaves(state.opt.mu)):
+        g = shd.gather(got)
+        rel = float(torch.linalg.vector_norm(g - want_m)
+                    / torch.clamp(torch.linalg.vector_norm(want_m),
+                                  min=1e-30))
+        worst_mu = max(worst_mu, rel)
+        del g
+    check(worst_mu <= TOL_BF16["rtol"], f"first moments differ by "
+          f"{worst_mu} in L2 (> {TOL_BF16['rtol']})")
+    by_op = {}
+    for t in transfers:
+        by_op[t.op] = by_op.get(t.op, 0.0) + t.traffic
+    step_ms = hist_s[-1][0] * 1e3
+    log(f"  parameters after {SHARD_STEPS} steps: max |diff| {worst_p:.3e} "
+        f"({SHARD_PARAM_TOL}); first moments worst L2 relative "
+        f"{worst_mu:.3e} (<= {TOL_BF16['rtol']}); moe_route launches "
+        f"{counts['moe_route']}; sharded step {step_ms:.1f} ms (step 1, host "
+        f"clock ending in a synchronise), single-device "
+        f"{hist_1[-1][0] * 1e3:.1f} ms; max_memory_allocated over the "
+        f"sharded steps {peak / 2**30:.2f} GiB (the single-device state "
+        "and the four shards on one card); transfers recorded (ring "
+        f"bytes, every mesh index) {by_op}")
+    ids, kw = seen[0]
+    rows = ids.reshape(-1, ids.shape[-2] * ids.shape[-1]).to(torch.int32)
+    compare("moe_route", f"sharded step's routing {tuple(ids.shape)}, E="
+            f"{kw['num_experts']}, C={kw['capacity']}",
+            torch.stack(ops.moe_route_transform(ids, **kw)),
+            torch.stack([t.reshape(ids.shape) for t in
+                         ref.moe_route_transform(rows, **kw)]))
+    a_bytes = exact
+    del state, placed, step, single, batches, batch0, args, seen
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- (b) sharded decode ---
+    cfg_b = dataclasses.replace(minicpm_2b.CONFIG,
+                                num_layers=SHARD_DEC_LAYERS)
+    api_b = model_zoo.build(cfg_b, device=dev)
+    params_b = api_b.init(torch.Generator(device=dev).manual_seed(1))
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg_b.vocab_size, (SHARD_BATCH,
+                                                 SHARD_DEC_PROMPT),
+                           generator=g, device=dev, dtype=torch.int32)
+    max_seq = SHARD_DEC_PROMPT + SHARD_DEC_STEPS
+    meta = model_zoo.build(cfg_b, device="meta")
+    dims = spmd.cache_batch_dims(lambda b: meta.init_caches(b, max_seq))
+    with torch.inference_mode():
+        logits, caches = T.prefill(params_b, prompt, cfg_b, max_seq=max_seq)
+        pc = shd.device_put(params_b, shd.param_shardings(params_b, mesh))
+        cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
+        specs = [c.sharding.spec for c in _tree.leaves(cc)]
+        t1 = t2 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ms_1, ms_s = [], []
+        for j in range(SHARD_DEC_STEPS):
+            pos = SHARD_DEC_PROMPT + j
+            s1, (l1, caches) = host_s(lambda: api_b.decode_fn(
+                params_b, t1, caches, pos))
+            s2, (l2, cc) = host_s(lambda: spmd.sharded_decode_step(
+                api_b.decode_fn, mesh, pc, t2, cc, pos, batch_dims=dims))
+            ms_1.append(s1 * 1e3)
+            ms_s.append(s2 * 1e3)
+            close_rows(f"sharded decode step {j} logits vs single-device",
+                       l2[:, -1], l1[:, -1], TOL_BF16["rtol"])
+            t1 = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
+            t2 = l2[:, -1].argmax(-1).to(torch.int32)[:, None]
+            check(torch.equal(t1, t2), f"sharded decode step {j}: greedy "
+                  f"tokens {t2.flatten().tolist()} != {t1.flatten().tolist()}")
+    log(f"sharding phase (b): minicpm-2b full width, {SHARD_DEC_LAYERS} of "
+        f"{minicpm_2b.CONFIG.num_layers} layers, {SHARD_BATCH} slots, prompt "
+        f"{SHARD_DEC_PROMPT}, caches {specs[0]} on {dict(mesh.shape)}: "
+        f"{SHARD_DEC_STEPS} greedy steps, the same tokens; decode ms a step "
+        f"sharded {sorted(ms_s)[len(ms_s) // 2]:.2f}, single-device "
+        f"{sorted(ms_1)[len(ms_1) // 2]:.2f} (medians, host clock)")
+    del params_b, pc, cc, caches
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- (c) dry runs ---
+    for arch, shape in DRYRUN_CELLS:
+        secs, r = host_s(lambda: dryrun.run_cell(arch, shape, verbose=False))
+        check(r["status"] == "ok", f"dry run {arch} x {shape}: {r}")
+        log(f"sharding phase (c): dry run {arch} x {shape} on {r['mesh']} "
+            f"placeholders, {secs:.1f} s wall: per_device "
+            f"{json.dumps(r['per_device'])}; roofline "
+            f"{json.dumps(r['roofline'])}")
+    cell = ShapeCell("sharding_a", SHARD_SEQ, SHARD_BATCH, "train")
+    place = make_host_mesh(data=2, model=2, devices=["meta"] * 4)
+    secs, r = host_s(lambda: dryrun.analyse(cfg, cell, place, grad_accum=1,
+                                            arch="phi3.5-moe (1 layer)"))
+    pd, rf = r["per_device"], r["roofline"]
+    check(pd["mesh_argument_bytes"] == a_bytes,
+          f"the dry run's argument bytes over the mesh "
+          f"{pd['mesh_argument_bytes']} != (a)'s placed {a_bytes}")
+    log(f"sharding phase (c): dry run of (a)'s cell on (a)'s mesh of "
+        f"placeholders, {secs:.1f} s wall: argument bytes a device "
+        f"{pd['argument_bytes']}, over the mesh {pd['mesh_argument_bytes']}"
+        f" = (a)'s placed {a_bytes}; temp bytes a device {pd['temp_bytes']} "
+        f"(peak {pd['peak_hbm_gib']} GiB a device; (a) held every shard on "
+        f"one card: {peak / 2**30:.2f} GiB); step-time bound "
+        f"{rf['step_time_bound_s'] * 1e3:.2f} ms ({rf['dominant']}; compute "
+        f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.2f}, "
+        f"collective {rf['collective_s'] * 1e3:.3f} ms) beside (a)'s "
+        f"measured {step_ms:.1f} ms for the mesh's 4 shards on one card")
+    return counts
+
+
 def main(argv) -> int:
     import torch
     parent = None
@@ -4344,7 +4642,8 @@ def main(argv) -> int:
                       ("encdec", lambda: encdec_phase(dev, compare)),
                       ("launcher", lambda: launcher_phase(dev)),
                       ("recurrent", lambda: recurrent_phase(dev, smi)),
-                      ("training", lambda: train_phase(dev))):
+                      ("training", lambda: train_phase(dev)),
+                      ("sharding", lambda: sharding_phase(dev, compare))):
         t_phase = time.perf_counter()
         phase = run()
         log(f"phase {name}: {time.perf_counter() - t_phase:.1f} s wall "

@@ -1,7 +1,8 @@
 """Device meshes: one controller over a grid of shards.
 
 The port's counterpart of ``jax.sharding.Mesh`` and ``jax.make_mesh``
-(and of ``launch/mesh.py::make_host_mesh``).  The reference runs one
+(``launch/mesh.py`` builds the reference's production and host meshes
+over it).  The reference runs one
 process over a mesh and lets ``shard_map`` place each shard; the port
 does the same from one Python process: a ``Mesh`` is an array of
 ``torch.device`` s with named axes, and the executors of

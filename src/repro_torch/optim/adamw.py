@@ -61,17 +61,21 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, lr, *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 grad_norm=None):
     """One AdamW step, in place.  Returns (params, state,
     {"grad_norm": norm}): ``params`` and the moment and master trees of
     ``state`` are the given ones, updated.
 
     ``lr`` is a float (or a 0-d tensor); ``grads`` has ``params``'
-    structure.
+    structure.  ``grad_norm``, when given, is the global norm to clip by
+    in place of the norm of ``grads``: a sharded step updates each
+    shard's slice of the tree with the norm of the whole
+    (``dist.spmd``).
     """
     flat_p = _tree.leaves(params)
     flat_g = _tree.leaves(grads)
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, max_grad_norm)
     step = state.step + 1
     dev = flat_p[0].device if flat_p else step.device
