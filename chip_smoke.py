@@ -83,6 +83,15 @@ set to 0 just before and read just after:
   reduced MiniCPM-2B through ``launch.train`` (loss falls, checkpoint
   resume); MiniCPM-2B at full width, 2 of 40 layers, prefill and greedy
   decode against the parallel forward;
+* the train_families phase (``train_families_phase``): RWKV6-7B (2 of 32
+  layers), Zamba2-2.7B (12 of 54), InternVL2-26B (2 of 48) and
+  SeamlessM4T-large-v2 (whole) at published width, 4 train steps each
+  (finite losses, every gradient leaf nonzero, InternVL2's patch pack on
+  the tile-skipping crossbar once a forward and bit-equal to its plain
+  version, step ms, tokens/s, peak memory, AdamW ms, a profiled step);
+  one layer of each on the card against the CPU in float32 (loss,
+  every gradient leaf); ``launch.train`` on each reduced config through
+  a checkpoint resume;
 * the sharding phase (``sharding_phase``, last): a model's state over a
   (2 data x 2 model) mesh of four shards of the card — Phi-3.5-MoE at
   full width, 1 of 32 layers, 2 steps of the sharded executor against
@@ -3709,6 +3718,380 @@ def recurrent_phase(dev, smi):
     return counts
 
 
+# Slice 14: the vlm, encdec, rwkv and hybrid families train on the card.
+# (a) Published width, float32 master weights, the config's bf16 compute,
+# remat "full" and AdamW; depth is the one cut (None: whole).  RWKV6-7B 2
+# of 32 layers (~0.94 B parameters, ~15 GB with gradients and moments),
+# Zamba2-2.7B 12 of 54 (two groups: the shared block sums both groups'
+# gradients; ~0.77 B), InternVL2-26B 2 of 48 (~1.94 B, ~31 GB; its two
+# vocabulary tables are ~1.14 B), SeamlessM4T-large-v2 whole (24 + 24
+# layers, ~1.64 B).  Batch 4 x 512 from ``api.make_batch``: InternVL2 256
+# patch slots (~0.9 valid) + 256 text tokens, SeamlessM4T 256 frames +
+# 256 tokens.  (b) The card against the CPU, float32 compute with TF32
+# off: one layer (the hybrid one group, encdec one encoder and one
+# decoder layer), 1 x 64 text tokens (InternVL2 + 256 patch slots,
+# SeamlessM4T + 64 frames).  (c) ``launch.train.main`` on each reduced
+# config, a checkpoint at step 10 of 12, a resume.
+FAMILY_TRAIN = (("rwkv", "rwkv6-7b", 2), ("hybrid", "zamba2-2.7b", 12),
+                ("vlm", "internvl2-26b", 2),
+                ("encdec", "seamless-m4t-large-v2", None))
+FAM_BATCH, FAM_SEQ, FAM_STEPS = 4, 512, 4
+FAM_CMP_SEQ = {"vlm": 256 + 64, "encdec": 2 * 64}    # make_batch's seq
+FAM_CMP_TEXT = 64
+FAM_LOSS_RTOL, FAM_GRAD_L2 = 1e-5, 1e-4
+FAM_LAUNCH_STEPS, FAM_LAUNCH_CKPT, FAM_RESUME_STEPS = 12, 10, 3
+
+
+def init_zero_grad(family, path):
+    """A leaf whose gradient is zero by construction at init: the
+    hybrid's LoRA ``a`` (each LoRA's ``b`` starts at zero)."""
+    return family == "hybrid" and path[0] == "lora" and path[-1] == "a"
+
+
+def host_rss_gib():
+    """(current, peak) resident set of this process in GiB."""
+    import resource
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return rss / 2**20, peak / 2**20
+
+
+def train_families_phase(dev, compare):
+    """The vlm, encdec, rwkv and hybrid families train on the card through
+    ``model_zoo.build(...).loss_fn``, ``make_train_step``, ``Trainer`` and
+    ``launch.train`` (the families above), one family at a time with the
+    card emptied between them: (a) ``family_steps``, (b)
+    ``family_vs_cpu``, (c) ``family_launcher``.  Returns the counted
+    launches of all three.
+    """
+    total, rows = {}, []
+    for family, arch, layers in FAMILY_TRAIN:
+        counts, row = family_steps(dev, compare, family, arch, layers)
+        add_counts(total, counts)
+        rows.append(row)
+    for family, arch, _ in FAMILY_TRAIN:
+        add_counts(total, family_vs_cpu(dev, family, arch))
+    for _, arch, _ in FAMILY_TRAIN:
+        add_counts(total, family_launcher(dev, arch))
+    for arch, ms, tps, gib, adamw, idle, kernels in rows:
+        log(f"  train_families {arch}: step {ms:.1f} ms, {tps:.1f} tokens/s, "
+            f"peak {gib:.2f} GiB, AdamW {adamw:.1f} ms, idle share "
+            f"{idle:.4f}, {kernels} kernels a step")
+    log(f"  train_families launches {total}")
+    return total
+
+
+def family_steps(dev, compare, family, arch, layers):
+    """(a) ``FAM_STEPS`` train steps at ``FAM_BATCH`` x ``FAM_SEQ``,
+    counted: finite loss and grad norm each step; in step 0's gradient
+    hook a nonzero gradient on every leaf but the ones zero by
+    construction at init (``init_zero_grad``), which the last step's hook
+    finds nonzero; InternVL2's patch pack on the tile-skipping crossbar
+    once a forward (the pack is outside the checkpointed layers, so the
+    recompute adds none), step 0's packed embeddings bit-equal to the
+    plain version's; no kernel launched by the other families.  Steps
+    1.. timed: step ms, tokens/s, peak memory, AdamW ms by a CUDA event;
+    one more step profiled (idle share, device kernels a step).  Returns
+    the counted launches and (arch, step ms, tokens/s, peak GiB, AdamW
+    ms, idle share, kernels a step)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import permute as P
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model_zoo
+    from repro_torch.models import vlm as V
+    from repro_torch.train import TrainOptions, make_train_step
+    from repro_torch.train.trainer import init_state
+
+    t_fam = time.perf_counter()
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, num_layers=layers) if layers else base
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    api = model_zoo.build(cfg, device=dev)
+    secs, params = host_s(lambda: api.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [api.make_batch(gen, FAM_BATCH, FAM_SEQ)
+               for _ in range(FAM_STEPS)]
+    shapes = {k: tuple(v.shape) for k, v in batches[0].items()}
+    log(f"train_families (a): {arch}, full width, {cfg.num_layers} of "
+        f"{base.num_layers} layers"
+        f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+        f", {n_params / 1e9:.3f} B float32 parameters drawn in {secs:.2f} s;"
+        f" batch {shapes}, remat={cfg.remat}, compute {cfg.compute_dtype}")
+    paths = [p for p, _ in _tree.leaves_with_path(params)]
+    nonzero, marks = {}, []
+
+    def nonzero_at(step):
+        def hook(_, grads):           # enqueued: read after the step
+            nonzero[step] = torch.stack(
+                [g.ne(0).any() for g in _tree.leaves(grads)])
+        return hook
+
+    def mark(*_):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    def mark_and_check(p, g):
+        mark()
+        nonzero_at(FAM_STEPS - 1)(p, g)
+
+    # step 0 checks its gradients and is not timed; steps 1.. record a CUDA
+    # event between the gradients and the update, the last also checks
+    # the leaves that were zero at init
+    opts = TrainOptions(warmup_steps=0, total_steps=FAM_STEPS)
+    steps = ([make_train_step(api.loss_fn, opts, grad_hook=nonzero_at(0))]
+             + [make_train_step(api.loss_fn, opts, grad_hook=mark)]
+             * (FAM_STEPS - 2)
+             + [make_train_step(api.loss_fn, opts, grad_hook=mark_and_check)])
+    state = init_state(params, 0)
+    del params
+    packs = []
+    real_pack = V.pack_patches
+
+    def capture(x, valid):
+        out = real_pack(x, valid)
+        if not packs:
+            packs.append((x, valid, out))
+        return out
+
+    hist = []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    V.pack_patches = capture
+    try:
+        for s, step in enumerate(steps):
+            if s == 1:
+                torch.cuda.synchronize()
+                peak0 = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = step(state, batches[s])
+            end.record()
+            m = {k: float(v) for k, v in m.items()}
+            m["step_s"] = time.perf_counter() - t0
+            if s:
+                end.synchronize()
+                m["grads_ms"] = start.elapsed_time(marks[-1])
+                m["update_ms"] = marks[-1].elapsed_time(end)
+            hist.append(m)
+    finally:
+        V.pack_patches = real_pack
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    for s, m in enumerate(hist):
+        check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+              f"{arch} step {s}: loss {m['loss']} grad norm {m['grad_norm']}")
+    first = nonzero[0].cpu().tolist()
+    last = nonzero[FAM_STEPS - 1].cpu().tolist()
+    excepted = [p for p in paths if init_zero_grad(family, p)]
+    zero = [p for p, nz in zip(paths, first)
+            if not nz and not init_zero_grad(family, p)]
+    check(not zero, f"{arch} step 0: zero gradient on {zero}")
+    still = [p for p, nz in zip(paths, last)
+             if not nz and init_zero_grad(family, p)]
+    check(not still, f"{arch} step {FAM_STEPS - 1}: the leaves zero at init "
+          f"still have zero gradient: {still}")
+    zero_at_init = [p for p, nz in zip(paths, first)
+                    if not nz and init_zero_grad(family, p)]
+    want = {}
+    if family == "vlm":
+        want = {"crossbar_sparse": FAM_STEPS}
+        x, valid, out = packs[0]
+        plain = P.vcompress_batched(x.cpu(), valid.cpu(), tail="zero",
+                                    backend="sparse")
+        compare("crossbar_sparse", f"{arch} train step 0: the patch pack "
+                f"{tuple(x.shape)} {x.dtype} (tile-skipping kernel) vs its "
+                "plain version", out, plain.to(dev))
+    check({k: v for k, v in counts.items() if v} == want,
+          f"{arch} training launches {counts}, not {want}")
+    tok = FAM_BATCH * FAM_SEQ
+    for s, m in enumerate(hist):
+        split = (f"{m['step_s'] * 1e3:.1f} ms (device: forward, recompute "
+                 f"and backward {m['grads_ms']:.1f} ms, AdamW "
+                 f"{m['update_ms']:.1f} ms)" if s else
+                 "gradient checks in the step, not timed")
+        log(f"  step {s}: loss {m['loss']:.6f}, grad norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.2e}, {split}")
+    warm = sorted(m["step_s"] for m in hist[1:])
+    med = warm[len(warm) // 2]
+    adamw = sorted(m["update_ms"] for m in hist[1:])
+    plain_step = make_train_step(api.loss_fn, opts)
+    prof = profile_call(f"{arch} train step ({FAM_BATCH} x {FAM_SEQ})",
+                        lambda: plain_step(state, batches[0]), rows=8)
+    kernels = sum(c for c, _ in prof["kernels"].values())
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    log(f"  {arch} training: step {med * 1e3:.1f} ms median of steps "
+        f"1-{FAM_STEPS - 1} ({warm[0] * 1e3:.1f}-{warm[-1] * 1e3:.1f}), "
+        f"{tok / med:.1f} tokens/s ({tok} positions a step); AdamW "
+        f"{adamw[0]:.1f}-{adamw[-1]:.1f} ms; max_memory_allocated over steps"
+        f" 1-{FAM_STEPS - 1} {peak / 2**30:.2f} GiB (step 0 with its checks "
+        f"{peak0 / 2**30:.2f} GiB); a profiled step: idle share {idle:.4f}, "
+        f"{kernels} device kernels; every gradient leaf of {len(paths)} "
+        f"nonzero at step 0 but the leaves zero by construction at init "
+        f"{excepted} (zero at step 0: {zero_at_init}), nonzero at step "
+        f"{FAM_STEPS - 1}; launches {counts}; "
+        f"{time.perf_counter() - t_fam:.1f} s")
+    del state, steps, plain_step, batches, packs, nonzero
+    torch.cuda.empty_cache()
+    return counts, (arch, med * 1e3, tok / med, peak / 2**30,
+                    adamw[len(adamw) // 2], idle, kernels)
+
+
+def family_vs_cpu(dev, family, arch):
+    """(b) One layer (the hybrid one group; encdec one encoder and one
+    decoder layer) at published width, float32 compute: loss and every
+    gradient of the card (TF32 off) against the CPU from the same weights
+    and batch, the loss within ``FAM_LOSS_RTOL``, each leaf within
+    ``FAM_GRAD_L2`` of the CPU's in relative L2; the host's resident
+    memory.  Returns the counted launches of the card's side."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch._device import no_tf32
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import model_zoo
+    from repro_torch.models import params as MP
+
+    t_fam = time.perf_counter()
+    base = get_config(arch)
+    one = dict(num_layers=base.shared_attn_period or 1,
+               compute_dtype="float32")
+    if family == "encdec":
+        one["encoder_layers"] = 1
+    cfg = dataclasses.replace(base, **one)
+    torch.cuda.empty_cache()
+    api = model_zoo.build(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(2))
+    batch = api.make_batch(torch.Generator(device=dev).manual_seed(3), 1,
+                           FAM_CMP_SEQ.get(family, FAM_CMP_TEXT))
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+
+    def loss_and_grads(a, p, b):
+        leaves = _tree.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = a.loss_fn(p, b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with no_tf32():
+        loss_d, grads_d = loss_and_grads(api, params, batch)
+        torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    params_c = MP.to_device(_tree.tree_map(lambda t: t.detach(), params),
+                            "cpu")
+    del params
+    t_cpu = time.perf_counter()
+    loss_c, grads_c = loss_and_grads(
+        model_zoo.build(cfg, device="cpu"), params_c,
+        {k: v.cpu() for k, v in batch.items()})
+    t_cpu = time.perf_counter() - t_cpu
+    rss, rss_peak = host_rss_gib()
+    rel_loss = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    check(rel_loss <= FAM_LOSS_RTOL, f"{arch}: card loss {float(loss_d)} vs "
+          f"CPU {float(loss_c)}: {rel_loss:.3e} > {FAM_LOSS_RTOL}")
+    worst, worst_path = 0.0, None
+    paths = [p for p, _ in _tree.leaves_with_path(params_c)]
+    for path, gd, gc in zip(paths, grads_d, grads_c):
+        norm = float(torch.linalg.vector_norm(gc.double()))
+        diff = float(torch.linalg.vector_norm(gd.cpu().double()
+                                              - gc.double()))
+        check(math.isfinite(diff), f"{arch}: gradient {path} not finite")
+        if norm == 0.0:
+            check(diff == 0.0, f"{arch}: gradient {path} zero on the CPU, "
+                  f"{diff} on the card")
+            continue
+        if diff / norm > worst:
+            worst, worst_path = diff / norm, path
+        check(diff / norm <= FAM_GRAD_L2, f"{arch}: gradient {path} relative"
+              f" L2 {diff / norm:.3e} > {FAM_GRAD_L2}")
+    log(f"train_families (b): {arch} published width, one "
+        f"{'group' if family == 'hybrid' else 'layer'}"
+        f"{' each side' if family == 'encdec' else ''}, float32, batch "
+        f"{shapes}: loss card {float(loss_d):.7f} CPU {float(loss_c):.7f} "
+        f"({rel_loss:.3e} relative); {len(paths)} gradient leaves, worst "
+        f"relative L2 {worst:.3e} at {worst_path}; CPU forward and backward "
+        f"{t_cpu:.1f} s; host RSS {rss:.2f} GiB (peak {rss_peak:.2f}); "
+        f"launches {counts}; {time.perf_counter() - t_fam:.1f} s")
+    del grads_d, grads_c, params_c
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_launcher(dev, arch):
+    """(c) ``launch.train.main`` with ``device=None`` (the card) on the
+    reduced config: ``FAM_LAUNCH_STEPS`` steps, a checkpoint at step
+    ``FAM_LAUNCH_CKPT`` restored into a second trainer, whose
+    ``FAM_RESUME_STEPS`` steps' losses equal the first trainer's at the
+    same steps within ``DENSE_RESUME_TOL`` (bit-equality printed).
+    Returns the counted launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import Trainer
+
+    t_fam = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        out = launch_train.main(
+            ["--arch", arch, "--steps", str(FAM_LAUNCH_STEPS), "--ckpt-dir",
+             d, "--ckpt-every", str(FAM_LAUNCH_CKPT)],
+            device=None, log_fn=lambda s: log("    " + s))
+        tr_a, hist = out["trainer"], out["history"]
+        check(tr_a.api.device == dev, f"{arch}: launch.train ran on "
+              f"{tr_a.api.device}, not the card")
+        check(all(math.isfinite(h["loss"]) for h in hist),
+              f"{arch}: launch.train losses {[h['loss'] for h in hist]}")
+        tr_b = Trainer(tr_a.api, tr_a.options, pipeline=tr_a.pipeline,
+                       ckpt_dir=d)
+        state_b = tr_b.init_or_restore(0)
+        check(int(state_b.step) == FAM_LAUNCH_CKPT,
+              f"{arch}: restored step {int(state_b.step)}")
+        _, ha = tr_a.run(out["state"], steps=FAM_RESUME_STEPS, log_every=0)
+        _, hb = tr_b.run(state_b, steps=FAM_RESUME_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    # the first trainer's steps 10, 11 from its run, 12 from the 3 more
+    la = [h["loss"] for h in (hist + ha)[FAM_LAUNCH_CKPT:]][:FAM_RESUME_STEPS]
+    lb = [h["loss"] for h in hb]
+    check(len(la) == len(lb) and all(
+        math.isclose(a, b, rel_tol=DENSE_RESUME_TOL["rtol"],
+                     abs_tol=DENSE_RESUME_TOL["atol"])
+        for a, b in zip(la, lb)),
+        f"{arch}: resumed losses {lb} != the first trainer's {la}")
+    log(f"train_families (c): launch.train --arch {arch} (reduced) on the "
+        f"card: loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f} over "
+        f"{FAM_LAUNCH_STEPS} steps; step {FAM_LAUNCH_CKPT} restored into a "
+        f"second trainer, steps {FAM_LAUNCH_CKPT}-"
+        f"{FAM_LAUNCH_CKPT + FAM_RESUME_STEPS - 1}: first {la}, resumed {lb} "
+        f"({'bit-equal' if la == lb else f'within {DENSE_RESUME_TOL}'}); "
+        f"launches {counts}; {time.perf_counter() - t_fam:.1f} s")
+    del out, tr_a, tr_b, state_b
+    torch.cuda.empty_cache()
+    return counts
+
+
 # Slice 13: a model's state over a mesh.  (a) Phi-3.5-MoE at its published
 # width, 1 of 32 layers (1.569 B parameters: 6.27 GB of float32 weights,
 # 18.82 GB with both AdamW moments), its TrainState placed by
@@ -4643,6 +5026,8 @@ def main(argv) -> int:
                       ("launcher", lambda: launcher_phase(dev)),
                       ("recurrent", lambda: recurrent_phase(dev, smi)),
                       ("training", lambda: train_phase(dev)),
+                      ("train_families",
+                       lambda: train_families_phase(dev, compare)),
                       ("sharding", lambda: sharding_phase(dev, compare))):
         t_phase = time.perf_counter()
         phase = run()

@@ -1,11 +1,36 @@
 """Hand-written CUDA kernels of the port and their plain versions.
 
+Kernels (``csrc/*.cu``, built for ``sm_90a`` at first use), each with its
+raw wrapper here, its plain PyTorch version in ``ref`` and its padded
+entry point in ``ops``:
+
+  crossbar_permute_cuda / crossbar_permute_sparse_cuda — the dense and
+      the tile-skipping crossbar (gather and scatter, weights, merge,
+      GF(2) fold);
+  plan_program_cuda — the plan-program megakernel VM;
+  fused_vcompress_cuda — the whole vcompress in one launch;
+  moe_route_cuda — the MoE routing transform.
+
 ``launch_counts()`` reads every wrapper's launch counter (a counter
 moves only where its wrapper launches its CUDA kernel); the plain
 versions run on CPU tensors and count nothing.
 """
 
 from __future__ import annotations
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.crossbar_permute import (crossbar_permute_cuda,
+                                                  crossbar_permute_sparse_cuda)
+from repro_torch.kernels.fused_compress import fused_vcompress_cuda
+from repro_torch.kernels.moe_route import moe_route_cuda
+from repro_torch.kernels.plan_program_kernel import plan_program_cuda
+
+__all__ = [
+    "ops", "ref",
+    "crossbar_permute_cuda", "crossbar_permute_sparse_cuda",
+    "fused_vcompress_cuda", "moe_route_cuda", "plan_program_cuda",
+    "launch_counts", "reset_launch_counts",
+]
 
 
 def _wrappers():

@@ -6,7 +6,9 @@ full assigned config at the shape cell's sequence length and global
 batch (cluster scale: beyond one card for most architectures).  The
 batches are uniform random tokens (``ModelAPI.make_batch``, generator
 seeded by the step), as the reference's launcher draws them, or with
-``--data synthetic`` the learnable Markov pipeline (``data.SyntheticLM``).
+``--data synthetic`` the learnable Markov pipeline (``data.SyntheticLM``),
+which yields tokens only: the vlm and encdec families, whose batches also
+carry frontend embeddings, refuse it.
 
 ``main(argv, device=None)`` runs the same code from Python (``device=
 "cpu"`` for a CPU run) and returns the trainer, its final state and the
@@ -24,6 +26,9 @@ from repro_torch.configs import SHAPES, get_config, reduced
 from repro_torch.data import SyntheticLM
 from repro_torch.models.model_zoo import build
 from repro_torch.train import TrainOptions, Trainer
+
+# families whose batch carries frontend embeddings beside the tokens
+FRONTEND_FAMILIES = ("vlm", "encdec")
 
 
 class _RandomTokens:
@@ -69,6 +74,11 @@ def main(argv=None, *, device=None, log_fn=print) -> dict:
         seq, batch = args.seq_len, args.batch
     else:
         seq, batch = shape.seq_len, shape.global_batch
+    if args.data == "synthetic" and cfg.family in FRONTEND_FAMILIES:
+        raise ValueError(
+            f"--data synthetic yields tokens only, and a {cfg.family} batch "
+            f"also carries frontend embeddings ({cfg.name}); use --data "
+            "random")
 
     log_fn(f"arch={cfg.name} family={cfg.family} "
            f"N={cfg.param_count()/1e6:.0f}M seq={seq} batch={batch} "

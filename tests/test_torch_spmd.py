@@ -157,9 +157,9 @@ def test_sharded_step_equals_single_device_and_reference(reference, family,
             (ref["params"], params, single.params, PARAM_TOL),
             (ref["mu"], mu, single.opt.mu, MU_TOL),
             (ref["nu"], nu, single.opt.nu, NU_TOL)):
-        for path, layer, want in reference_leaves(want_tree):
-            g = port_leaf(got_tree, path, layer).numpy()
-            s = port_leaf(single_tree, path, layer).detach().numpy()
+        for path, want in reference_leaves(want_tree):
+            g = port_leaf(got_tree, path).numpy()
+            s = port_leaf(single_tree, path).detach().numpy()
             leaf_tol = tol
             if "router" in str(path) and tol is not PARAM_TOL:
                 # the router's product runs in bf16, so its gradient sums

@@ -20,6 +20,7 @@ import the helpers on a machine without it.
 """
 
 import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -92,32 +93,32 @@ def carried_params(japi, tcfg, seed=0, leaf_fn=None):
             tP.params_from_numpy(tree, tcfg, "cpu"))
 
 
-def port_leaf(tree, path, layer=None):
-    """The port's leaf at a reference pytree key path; ``layer`` picks
-    the layer of a leaf under the reference's stacked ``blocks``."""
+def port_leaf(tree, path):
+    """The port's leaf at a path of ``reference_leaves``."""
     node = tree
-    for k in path:
-        key = getattr(k, "key", getattr(k, "idx", k))
+    for key in path:
         node = node[key]
-        if key == "blocks" and layer is not None:
-            node = node[layer]
     return node
 
 
 def reference_leaves(jtree):
-    """(key path, layer or None, numpy leaf) for every reference leaf,
-    stacked ``blocks`` leaves split by layer."""
+    """(path in the port's tree, numpy float32 leaf) for every leaf of a
+    reference tree of parameters, gradients or moments.  The tree goes
+    through ``models.params.params_from_numpy``, which splits the
+    reference's stacked layer axes as the port lays them out (``blocks``,
+    encdec's ``enc_blocks`` / ``dec_blocks``, the hybrid's (G,) ``lora``
+    and (G, period) ``mamba``): each layer's leaf is its own leaf."""
     import jax
-    out = []
-    for path, leaf in jax.tree_util.tree_leaves_with_path(jtree):
-        arr = np.asarray(leaf.astype("float32") if str(leaf.dtype) ==
-                         "bfloat16" else leaf)
-        if getattr(path[0], "key", None) == "blocks":
-            for i in range(arr.shape[0]):
-                out.append((path, i, arr[i]))
-        else:
-            out.append((path, None, arr))
-    return out
+    from repro_torch import _tree
+    from repro_torch.models import params as tP
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jtree)
+    port = tP.params_from_numpy(tree, _ANY_FAMILY, "cpu")
+    return [(path, leaf.numpy())
+            for path, leaf in _tree.leaves_with_path(port)]
+
+
+# params_from_numpy splits by key, whatever the family
+_ANY_FAMILY = types.SimpleNamespace(family="dense")
 
 
 @pytest.fixture(scope="module")
