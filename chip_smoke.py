@@ -92,6 +92,14 @@ set to 0 just before and read just after:
   one layer of each on the card against the CPU in float32 (loss,
   every gradient leaf); ``launch.train`` on each reduced config through
   a checkpoint resume;
+* the examples phase (``examples_phase``): the eight scripts of
+  ``examples_torch/`` through ``main([], device=dev)`` at their own
+  configurations (train_moe_e2e's ~155 M-parameter MoE for its 300
+  steps), failing on any of their assertions, with each one's output,
+  wall seconds and kernel launches: the dense crossbar once
+  (quickstart), the megakernel once a fused GCM call (crypto_aead) and
+  on every serving batch (observe_serving), ``moe_route`` once a layer
+  a microbatch (train_moe_e2e), none on the einsum examples;
 * the sharding phase (``sharding_phase``, last): a model's state over a
   (2 data x 2 model) mesh of four shards of the card — Phi-3.5-MoE at
   full width, 1 of 32 layers, 2 steps of the sharded executor against
@@ -4115,6 +4123,107 @@ DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
 ALLOC_GRANULE = 512        # the CUDA caching allocator rounds to 512 bytes
 
 
+# The eight scripts of examples_torch/, each the port of its counterpart in
+# examples/.  Their own assertions hold what they compute (digests against
+# hashlib, the FIPS-197 and NIST GCM vectors, InvalidTagError(3,), the
+# drift report); the phase holds their kernel launches.
+EXAMPLES = ("quickstart", "paper_fig1_demo", "crypto_hash", "crypto_block",
+            "crypto_aead", "serving", "observe_serving", "train_moe_e2e")
+# Examples whose path runs no kernel: the einsum backend throughout.
+EINSUM_EXAMPLES = ("paper_fig1_demo", "crypto_hash", "crypto_block",
+                   "serving")
+# crypto_aead's fused calls, one megakernel launch each: the NIST vector's
+# seal, the batch seal, its open, the tampered open, two fixed-latency
+# seals.
+AEAD_FUSED_CALLS = 6
+
+
+def load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(dev):
+    """Every script of ``examples_torch/`` through ``main([], device=dev)``
+    at its own configuration, with launch counters set to 0 before each:
+    quickstart launches the dense crossbar once; crypto_aead the
+    megakernel once a fused seal or open; observe_serving the megakernel
+    (no crossbar: no fallback rung answered); train_moe_e2e trains its
+    ~155 M-parameter MoE for its default 300 steps and launches
+    ``moe_route`` once a layer a microbatch; the rest run on the einsum
+    backend and launch nothing.  observe_serving's exports and
+    train_moe_e2e's checkpoints go to a temporary directory.  Logs each
+    example's output, wall seconds and launches; returns the launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            mod = load_example(name)
+            argv, kw = [], {}
+            if name == "observe_serving":
+                kw["out_dir"] = tmp
+            if name == "train_moe_e2e":
+                argv = ["--ckpt-dir", str(Path(tmp) / "ckpt")]
+            lines = []
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            secs, out = host_s(lambda: mod.main(
+                argv, device=dev, log_fn=lines.append, **kw))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            for line in "\n".join(lines).splitlines():
+                log(f"    {line}")
+            log(f"  example {name}: {secs:.2f} s wall, launches {counts}")
+            if name == "quickstart":
+                check(counts == {"crossbar_dense": 1},
+                      f"quickstart launched {counts}, not one dense crossbar")
+            elif name == "crypto_aead":
+                check(counts == {"plan_program": AEAD_FUSED_CALLS},
+                      f"crypto_aead launched {counts}, not "
+                      f"{AEAD_FUSED_CALLS} megakernels")
+            elif name == "observe_serving":
+                check(set(counts) == {"plan_program"},
+                      f"observe_serving launched {counts}")
+                check(len(out) == len(mod.PAYLOADS), "observe_serving "
+                      f"answered {len(out)} of {len(mod.PAYLOADS)}")
+            elif name == "train_moe_e2e":
+                cfg = mod.CONFIG
+                steps = len(out)
+                want = cfg.num_layers * steps * mod.GRAD_ACCUM
+                check(counts == {"moe_route": want},
+                      f"train_moe_e2e launched {counts}, not moe_route "
+                      f"{want} times ({cfg.num_layers} layers x {steps} "
+                      f"steps x {mod.GRAD_ACCUM} microbatches)")
+                losses = [h["loss"] for h in out]
+                check(all(math.isfinite(x) for x in losses)
+                      and losses[-1] < losses[0],
+                      f"train_moe_e2e losses {losses[0]} -> {losses[-1]}")
+                step_ms = sorted(h["step_time_s"] * 1e3 for h in out[1:])
+                tokens = mod.SEQ_LEN * mod.GLOBAL_BATCH
+                med = step_ms[len(step_ms) // 2]
+                log(f"  train_moe_e2e: loss {losses[0]:.4f} -> "
+                    f"{losses[-1]:.4f} in {steps} steps; step ms median "
+                    f"{med:.2f} (min {step_ms[0]:.2f}, max "
+                    f"{step_ms[-1]:.2f}; step 0 "
+                    f"{out[0]['step_time_s'] * 1e3:.2f}), "
+                    f"{tokens / med * 1e3:.1f} tokens/s")
+            else:
+                check(name in EINSUM_EXAMPLES and not counts,
+                      f"{name} launched {counts}")
+            add_counts(total, counts)
+            torch.cuda.empty_cache()
+    log(f"  examples launches {total}")
+    return total
+
+
 def alloc_slack():
     """Bytes that ``memory_allocated`` counts beyond the live blocks'
     requests at the allocator's 512-byte granule: a cached block handed out
@@ -5028,6 +5137,7 @@ def main(argv) -> int:
                       ("training", lambda: train_phase(dev)),
                       ("train_families",
                        lambda: train_families_phase(dev, compare)),
+                      ("examples", lambda: examples_phase(dev)),
                       ("sharding", lambda: sharding_phase(dev, compare))):
         t_phase = time.perf_counter()
         phase = run()

@@ -36,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch._device import resolve
 from repro_torch.core import abstract as _abstract
 from repro_torch.core import crossbar as xb
@@ -293,6 +294,9 @@ _EXEC_STATS = {"hits": 0, "misses": 0}
 def program_cache_info() -> dict:
     return dict(_EXEC_STATS, size=len(_EXEC_CACHE),
                 capacity=_EXEC_CACHE_CAPACITY)
+
+
+_obs.metrics.gauge_fn("program_exec_cache_size", lambda: len(_EXEC_CACHE))
 
 
 def clear_program_cache() -> None:

@@ -419,6 +419,21 @@ def test_crossbar_spans_carry_host_values_only():
     assert gauges["compile_cache_pinned"] == 0
 
 
+def test_program_exec_cache_gauge():
+    """The megakernel's control cache is a lazy gauge, as the reference's
+    (``program_exec_cache_size``): it reads the cache's size."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import keccak
+    pp.clear_program_cache()
+    gauges = obs.snapshot(include_telemetry=False)["gauges"]
+    assert gauges["program_exec_cache_size"] == 0
+    keccak.keccak_f1600(torch.zeros(1600, dtype=torch.int32),
+                        backend="megakernel", device="cpu")
+    gauges = obs.snapshot(include_telemetry=False)["gauges"]
+    assert gauges["program_exec_cache_size"] == pp.program_cache_info()[
+        "size"] == 1
+
+
 def test_integrity_gauges_info_and_fault_event():
     obs.enable()
     plan = xb.gather_plan(torch.tensor([1, 0, 2], dtype=torch.int32), 3)
