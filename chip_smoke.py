@@ -100,14 +100,30 @@ set to 0 just before and read just after:
   (quickstart), the megakernel once a fused GCM call (crypto_aead) and
   on every serving batch (observe_serving), ``moe_route`` once a layer
   a microbatch (train_moe_e2e), none on the einsum examples;
-* the sharding phase (``sharding_phase``, last): a model's state over a
+* the sharding phase (``sharding_phase``): a model's state over a
   (2 data x 2 model) mesh of four shards of the card — Phi-3.5-MoE at
   full width, 1 of 32 layers, 2 steps of the sharded executor against
   the single-device step (loss, parameters, moe_route launches, the
   placement's bytes), MiniCPM-2B's 2 of 40 layers decoding 8 greedy
   steps on sharded caches against one device, and the dry runs
   (``launch.dryrun``) of two production cells on 16 x 16 placeholders
-  and of the phase's own cell.
+  and of the phase's own cell;
+* the configs phase (``configs_phase``, last): the four configurations
+  no earlier phase runs, at published width, one at a time.
+  Mixtral-8x22B, 4 of 56 layers: layer 0's routing (the cluster form at
+  (2, 10240) ids), dispatch and combine on the moe_route and both
+  crossbar kernels against their plain versions (bit-exact); the prompt
+  forward (2 x 5120 tokens, window 4096) under 'auto', 'kernel' and
+  'sparse', counted, logit rows of the three within 1e-2 in L2;
+  ``ServingEngine`` answering 4 greedy requests at a window cut to 32
+  in bf16 and in float32 compute, every decode row within 3e-2 (bf16)
+  or 1e-2 (float32) in L2 of the parallel forward teacher-forced on
+  decode's tokens and experts (the free parallel forward's routing
+  differences and rows printed beside it).  Qwen1.5-110B (2 of 80
+  layers), StarCoder2-15B and StableLM-12B (4 of 40): ``transformer.prefill`` of 1 x 5120 tokens
+  (StarCoder2's ring of 4096) and 16 greedy decode steps, each logit row
+  within 1e-2 in L2 of the parallel forward.  Times, launches, peak
+  memory and idle shares beside the card's name and power limit.
 
 Then it times each kernel (device time by CUDA-graph replay, and the
 eager call), its plain version and, where one exists, a single PyTorch
@@ -132,6 +148,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -224,6 +241,26 @@ def bound(nbytes, ops_):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def crossbar_bound(plan, d, itemsize):
+    """``bound`` of one crossbar pass of ``plan`` over (n_in, d) rows of
+    ``itemsize`` bytes, from the bytes it must move: each payload row that
+    a live select reads (once), every output row (once), the control and
+    weights; a multiply-add a live select and column.  Returns (ms, by,
+    rows read, bytes)."""
+    import torch
+    idx = plan.idx
+    live = (idx >= 0) & (idx < (plan.n_out if plan.mode == "scatter"
+                                else plan.n_in))
+    rows_in = int(live.any(-1).sum() if plan.mode == "scatter"
+                  else torch.unique(idx[live]).numel())
+    nb = ((rows_in + plan.n_out) * d * itemsize
+          + idx.numel() * idx.element_size()
+          + (0 if plan.weights is None
+             else plan.weights.numel() * plan.weights.element_size()))
+    ms, by = bound(nb, 2 * int(live.sum()) * d)
+    return ms, by, rows_in, nb
+
+
 def host_s(fn):
     """Seconds of ``fn()`` on the host clock, ending in a synchronise."""
     import torch
@@ -292,11 +329,14 @@ def profiled_window(fn, tries=5):
 
     The profiler can lose device records at the edges of a window
     (CUPTI had not delivered them when the profile stopped, or was not
-    yet collecting): pad kernels come before the opening sentinel and
-    after the closing one, then a pause, so that what is lost is
-    padding.  A window in which either sentinel is still missing
-    proves nothing either way; it is taken again, at most ``tries``
-    times, and the run fails if none is whole."""
+    yet collecting): a pause and pad kernels come before the opening
+    sentinel, pad kernels and a pause after the closing one, so that
+    what is lost is padding.  (A Mixtral decode step late in a whole
+    run lost its first 33 records, 16 pads, the sentinel and 16 of its
+    own, in 5 windows of 5 before the opening pause.)  A window in which
+    either sentinel is still missing proves nothing either way; it is
+    taken again, at most ``tries`` times, and the run fails if none is
+    whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -304,7 +344,8 @@ def profiled_window(fn, tries=5):
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(16):
+            time.sleep(0.05)
+            for _ in range(64):
                 pad.fill_(0.0)
             torch.cuda.synchronize()
             torch.cuda._sleep(20000)
@@ -4491,6 +4532,513 @@ def sharding_phase(dev, compare):
     return counts
 
 
+# Slice 16: the four configurations no earlier phase ran, at published
+# width with seeded weights (float32 master, bf16 compute); depth is the
+# one cut, so that each model fits the card one at a time.  Parameters by
+# ``ModelConfig.param_count``: Mixtral-8x22B 4 of 56 layers 10.42 B
+# (~41.7 GB), Qwen1.5-110B 2 of 80 5.23 B (~20.9 GB), StarCoder2-15B and
+# StableLM-12B 4 of 40 2.14 B each (~8.6 GB).  The prompt length is a
+# multiple of every attn_chunk (1024, Qwen's 512): a ragged length would
+# take one chunk, a (B, H, S, S) float32 score tensor.
+CONFIG_SEQ = 5120
+MIXTRAL_LAYERS, MIXTRAL_BATCH = 4, 2
+# Serving decode: 4 requests of 16 prompt tokens, 48 greedy steps.  The
+# window is cut to 32 (a second cut) so that the ring wraps in the run.
+MIXTRAL_SLOTS, MIXTRAL_PROMPT, MIXTRAL_NEW, MIXTRAL_WINDOW = 4, 16, 48, 32
+# Decode rows against the parallel forward, each in L2 relative to the
+# row: bf16 compute rounds differently in a decode step's few rows than
+# in the parallel forward's many, 1.15e-2 at worst over 4 layers on the
+# H100 (as SeamlessM4T's decoder, ``ENCDEC_BF16_DRIFT``); float32
+# compute reads 2.9e-3, and is held to 6e-3, which the bf16 reading
+# fails.
+MIXTRAL_BF16_DRIFT, MIXTRAL_F32_DRIFT = 3e-2, 6e-3
+# Decode's experts may differ from the parallel forward's own top-k on
+# the same history only at near-ties: the parallel forward's router
+# logits of the two experts at most ``MIXTRAL_NEAR_TIE`` apart (a few
+# bf16 ulps of a router logit), at no more than ``MIXTRAL_MAX_FLIPS`` of
+# the (step, layer, slot) choices.
+MIXTRAL_NEAR_TIE, MIXTRAL_MAX_FLIPS = 0.0625, 1 / 32
+DENSE_CONFIGS = (("qwen1.5-110b", 2), ("starcoder2-15b", 4),
+                 ("stablelm-12b", 4))
+DENSE_NEW = 16
+
+
+@contextlib.contextmanager
+def recorded_routing(forced=None):
+    """Record every ``moe_dispatch.make_routing`` call's (expert ids,
+    router logits), in call order (the model code calls it through the
+    module).  With ``forced``, a list of expert ids (G, T, K) a call, the
+    i-th call routes to the i-th entry instead of its own top-k: gates
+    the softmax of its router logits at those experts, then the
+    capacity check, as ``make_routing`` does."""
+    import torch
+
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.kernels import ops
+    make, seen = md.make_routing, []
+
+    def recording(router_logits, *, num_experts, k, capacity, **kw):
+        if forced is None:
+            routing = make(router_logits, num_experts=num_experts, k=k,
+                           capacity=capacity, **kw)
+        else:
+            ids = forced[len(seen)]
+            gates = torch.softmax(torch.gather(
+                router_logits, -1, ids.long()).float(), dim=-1)
+            pos, dest = ops.moe_route_transform(
+                ids, num_experts=num_experts, capacity=capacity)
+            routing = md.Routing(
+                ids, torch.where(pos < capacity, gates, 0.0), pos, dest,
+                torch.softmax(router_logits.float(), dim=-1), num_experts,
+                capacity)
+        seen.append((routing.expert_ids.clone(),
+                     router_logits.float().clone()))
+        return routing
+    md.make_routing = recording
+    try:
+        yield seen
+    finally:
+        md.make_routing = make
+
+
+def peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def mixtral_config(dev, compare, smi):
+    """Mixtral-8x22B, 4 of 56 layers.  Layer 0's routing on the moe_route
+    kernel and its dispatch and combine on both crossbar kernels against
+    their plain versions (bit-exact); the prompt forward (2 x 5120 tokens,
+    window 4096) under 'auto', 'kernel' and 'sparse', counted, logit rows
+    of the three within 1e-2 in L2; ``ServingEngine`` at a window of 32,
+    in bf16 and in float32 compute, every decode row within
+    ``MIXTRAL_BF16_DRIFT`` / ``MIXTRAL_F32_DRIFT`` in L2 of the parallel
+    forward at that window, teacher-forced on decode's tokens and
+    experts, where decode's experts differ from that forward's own top-k
+    only at near-ties (``MIXTRAL_NEAR_TIE``, ``MIXTRAL_MAX_FLIPS``).
+    Returns the counted launches (the bf16 serving run's)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.core import moe_dispatch as md
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels import crossbar_permute as xbk
+    from repro_torch.kernels import moe_route as mrk
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo
+    from repro_torch.models import moe as M
+    from repro_torch.models import params as MP
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeOptions, ServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(mixtral_8x22b.CONFIG,
+                              num_layers=MIXTRAL_LAYERS,
+                              dispatch_backend="auto")
+    e_, k_, d = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model
+    secs, params = host_s(lambda: MP.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    log(f"configs phase: mixtral-8x22b, full width (d_model {d}, "
+        f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv, d_ff {cfg.d_ff}, "
+        f"{e_} experts top-{k_}, window {cfg.sliding_window}), "
+        f"{MIXTRAL_LAYERS} of {mixtral_8x22b.CONFIG.num_layers} layers: "
+        f"{n_params / 1e9:.3f} B float32 parameters (param_count "
+        f"{cfg.param_count() / 1e9:.3f} B) drawn on the card in {secs:.2f} s"
+        f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    dtype = L.dtype_of(cfg.compute_dtype)
+    cap = M.capacity_of(cfg, CONFIG_SEQ)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (MIXTRAL_BATCH, CONFIG_SEQ),
+                           generator=g, device=dev, dtype=torch.int32)
+
+    # ---- layer 0's kernels against their plain versions ----
+    blk = params["blocks"][0]
+    h = L.embed_lookup(params["embed"], tokens, dtype)
+    x1 = h + A.attn_apply(blk["attn"], L.apply_norm(blk["ln1"], h,
+                                                    cfg.norm), cfg)
+    u = L.apply_norm(blk["ln2"], x1, cfg.norm)
+    routing = md.make_routing(
+        L.dense(blk["moe"]["router"], u, torch.bfloat16).float(),
+        num_experts=e_, k=k_, capacity=cap)
+    ids = routing.expert_ids.reshape(MIXTRAL_BATCH, -1).contiguous()
+    geo = mrk.launch_geometry(*ids.shape, e_)
+    want = ref.moe_route_transform(ids, num_experts=e_, capacity=cap)
+    got = mrk.moe_route_cuda(ids, num_experts=e_, capacity=cap)
+    for part, a, b, c in zip(("positions", "destinations"), got, want,
+                             (routing.positions, routing.dest)):
+        compare("moe_route", f"mixtral layer 0 routing {part} "
+                f"{tuple(ids.shape)} E={e_} C={cap}, {geo['form']} form "
+                f"(cluster {geo['cluster']}, {geo['threads']} threads, "
+                f"{geo['chunks']} chunks)", a, b)
+        compare("moe_route", f"mixtral layer 0 routing {part} through "
+                "make_routing", c.reshape(MIXTRAL_BATCH, -1), b)
+    route_ms = graph_ms(lambda: mrk.moe_route_cuda(
+        ids, num_experts=e_, capacity=cap), 50)
+    y = torch.randn((MIXTRAL_BATCH, e_, cap, d), generator=g,
+                    device=dev).to(dtype)
+    xb_ms, xb_bound = {}, {}
+    for part, plan, xin in (("dispatch", md.dispatch_plan(routing), u),
+                            ("combine", md.combine_plan(routing), y)):
+        x2 = xin.reshape(-1, d).contiguous()
+        xb_bound[part] = crossbar_bound(plan, d, x2.element_size())
+        args, kw = ops.sparse_operands(plan, x2)
+        kw["out"].fill_(-7.0)
+        kw_p = dict(kw, out=kw["out"].clone())
+        compare("crossbar_sparse", f"mixtral layer 0 {part} "
+                f"{plan.n_in}->{plan.n_out} D={d} bf16, tile-skipping "
+                "kernel vs plain version",
+                xbk.crossbar_permute_sparse_cuda(*args, **kw),
+                ref.crossbar_sparse(*args, **kw_p))
+        idxp, xf, kwd = ops.dense_operands(plan, x2)
+        compare("crossbar_dense", f"mixtral layer 0 {part} "
+                f"{plan.n_in}->{plan.n_out} D={d} bf16, dense kernel "
+                "vs plain version",
+                xbk.crossbar_permute_cuda(idxp, xf, **kwd),
+                ref.crossbar_dense(idxp, xf, **kwd))
+        xb_ms[part] = (
+            graph_ms(lambda: xbk.crossbar_permute_sparse_cuda(*args,
+                                                              **kw), 10),
+            graph_ms(lambda: xbk.crossbar_permute_cuda(idxp, xf, **kwd),
+                     10))
+    log(f"  mixtral layer 0 at the prompt shape, device ms by graph "
+        f"replay: moe_route {route_ms:.4f}; dispatch tile-skipping "
+        f"{xb_ms['dispatch'][0]:.4f}, dense {xb_ms['dispatch'][1]:.4f}; "
+        f"combine tile-skipping {xb_ms['combine'][0]:.4f}, dense "
+        f"{xb_ms['combine'][1]:.4f}; "
+        f"{float(md.dropped_fraction(routing).mean()):.4f} of "
+        f"assignments over capacity ({smi})")
+    for part, (bms, by, rows_in, nb) in xb_bound.items():
+        check(min(xb_ms[part]) >= bms, f"mixtral layer 0 {part}: "
+              f"{min(xb_ms[part])} ms under its bound {bms} ms")
+        log(f"  mixtral layer 0 {part} bound {bms:.4f} ms by {by} ({nb} B: "
+            f"{rows_in} payload rows read, each output row written once); "
+            f"tile-skipping {xb_ms[part][0] / bms:.2f}x, dense "
+            f"{xb_ms[part][1] / bms:.2f}x of it")
+    del h, x1, u, routing, y, args, kw, kw_p, idxp, xf, kwd
+
+    with torch.inference_mode():
+        # ---- the prompt forward under each backend, counted ----
+        def forward(c):
+            hid, aux = M.lm_hidden(params, tokens, c)
+            return T.lm_logits(params, hid, c), aux
+
+        total, heads = {}, {}
+        for b in ("auto", "kernel", "sparse"):
+            cb = dataclasses.replace(cfg, dispatch_backend=b)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            first, (logits, aux) = host_s(lambda: forward(cb))
+            counts = dict(launch_counts())
+            check(tuple(logits.shape) == (MIXTRAL_BATCH, CONFIG_SEQ,
+                                          cfg.padded_vocab)
+                  and bool(torch.isfinite(logits).all()),
+                  f"mixtral prompt forward ({b}): logits "
+                  f"{tuple(logits.shape)} not finite or misshapen")
+            crossbars = counts["crossbar_dense"] + counts["crossbar_sparse"]
+            check(counts["moe_route"] == MIXTRAL_LAYERS
+                  and crossbars == 2 * MIXTRAL_LAYERS
+                  and (b == "auto" or counts[KERNEL_OF[b]] == crossbars),
+                  f"mixtral prompt forward ({b}): launches {counts}, not "
+                  f"one routing, one dispatch and one combine a layer")
+            add_counts(total, counts)
+            warm, _ = host_s(lambda: forward(cb))
+            log(f"  mixtral prompt forward {MIXTRAL_BATCH} x {CONFIG_SEQ} "
+                f"({b}): {first * 1e3:.2f} ms (counted, first), "
+                f"{warm * 1e3:.2f} ms (warm); launches {counts}; dropped "
+                f"{float(aux['dropped']):.4f}; peak {peak_gib():.2f} GiB "
+                f"({smi})")
+            heads[b] = logits
+            del logits, aux
+        for b in ("kernel", "sparse"):
+            close_rows(f"mixtral prompt logits {b} vs auto", heads[b],
+                       heads["auto"], TOL_BF16["rtol"])
+        del heads
+        prof = profile_call("mixtral prompt forward (auto)",
+                            lambda: forward(cfg), rows=8)
+        log(f"  mixtral prompt forward (auto): idle share "
+            f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}, "
+            f"{sum(c for c, _ in prof['kernels'].values())} device kernels "
+            f"({smi})")
+        torch.cuda.empty_cache()
+
+    # ---- serving at a window of 32 against the parallel forward ----
+    # The router's logits are bf16, so a near-tie between two experts
+    # can order them one way in decode and the other in the parallel
+    # forward, whose inputs differ in the last bits: such a token takes
+    # another expert, and its row differs by far more than rounding.  So
+    # the rows are held to the parallel forward teacher-forced on decode's
+    # tokens and on its experts (``recorded_routing(forced)``); the free
+    # parallel forward's routing and rows are printed beside it.  Decode
+    # routes one token a group at capacity 2 and drops nothing; the
+    # parallel forward gets the capacity factor E / K, so that nothing
+    # drops there either.
+    cfg_w = dataclasses.replace(cfg, sliding_window=MIXTRAL_WINDOW)
+    prompts = torch.randint(0, cfg.vocab_size, (MIXTRAL_SLOTS, MIXTRAL_PROMPT),
+                            generator=g, device=dev).tolist()
+    steps = MIXTRAL_PROMPT - 1 + MIXTRAL_NEW
+
+    def serve(c):
+        """4 greedy requests through ``ServingEngine`` on ``c``: seconds,
+        tokens, decode logit rows (B, steps, V), each routing call's
+        (expert ids, router logits), launches, the model API."""
+        api = model_zoo.build(c, dev)
+        rows = []
+
+        def recording_decode(p, t1, caches, pos):
+            logits, caches = api.decode_fn(p, t1, caches, pos)
+            rows.append(logits[:, -1].clone())
+            return logits, caches
+
+        engine = ServingEngine(
+            dataclasses.replace(api, decode_fn=recording_decode),
+            ServeOptions(batch_slots=MIXTRAL_SLOTS,
+                         max_new_tokens=MIXTRAL_NEW),
+            max_seq=MIXTRAL_PROMPT + MIXTRAL_NEW)
+        reset_launch_counts()
+        with recorded_routing() as seen:
+            secs, outs = host_s(lambda: engine.generate(params, prompts))
+        counts = dict(launch_counts())
+        check(len(outs) == MIXTRAL_SLOTS and all(
+            len(o) == MIXTRAL_NEW and all(0 <= t < cfg.padded_vocab
+                                          for t in o) for o in outs)
+            and len(rows) == steps,
+            f"mixtral serving: {[len(o) for o in outs]} tokens, "
+            f"{len(rows)} decode steps")
+        check(counts["moe_route"] == MIXTRAL_LAYERS * steps,
+              f"mixtral serving launches {counts}: not one routing a layer "
+              "a step")
+        return secs, outs, torch.stack(rows, dim=1), seen, counts, api
+
+    def against_parallel(c, outs, decoded, seen, limit):
+        """Hold decode's rows to the parallel forward on its tokens and
+        experts within ``limit``; print the free parallel forward's
+        routing differences and rows."""
+        label = f"mixtral {c.compute_dtype} decode"
+        c_par = dataclasses.replace(c, capacity_factor=e_ / k_)
+        full = torch.as_tensor([p + o for p, o in zip(prompts, outs)],
+                               device=dev)
+        with torch.inference_mode(), recorded_routing() as par:
+            hid, aux = M.lm_hidden(params, full, c_par)
+            free = T.lm_logits(params, hid, c_par)
+        check(float(aux["dropped"]) == 0.0,
+              f"{label}: the parallel forward dropped {float(aux['dropped'])}")
+        dec = [[seen[j * MIXTRAL_LAYERS + li] for j in range(steps)]
+               for li in range(MIXTRAL_LAYERS)]
+        forced = [torch.cat([i_ for i_, _ in dec[li]]
+                            + [par[li][0][:, steps:]], dim=1)
+                  for li in range(MIXTRAL_LAYERS)]
+        with torch.inference_mode(), recorded_routing(forced) as took:
+            hid, aux = M.lm_hidden(params, full, c_par)
+            parallel = T.lm_logits(params, hid, c_par)
+        check(float(aux["dropped"]) == 0.0 and all(
+            torch.equal(a, f) for (a, _), f in zip(took, forced)),
+            f"{label}: the parallel forward did not take decode's experts")
+
+        def swaps(chosen_of, logits_of):
+            """(step, layer, slot) choices where decode's experts differ
+            from ``chosen_of``, and the largest gap there in
+            ``logits_of``'s router logits between an expert only it chose
+            and one only decode chose."""
+            n, worst = 0, 0.0
+            for li in range(MIXTRAL_LAYERS):
+                for j in range(steps):
+                    pl = logits_of(li, j)
+                    a = dec[li][j][0][:, 0].sort(-1).values
+                    b = chosen_of(li, j).sort(-1).values
+                    for slot in torch.nonzero(
+                            (a != b).any(-1)).flatten().tolist():
+                        n += 1
+                        only_d = [e for e in a[slot].tolist()
+                                  if e not in b[slot].tolist()]
+                        only_p = [e for e in b[slot].tolist()
+                                  if e not in a[slot].tolist()]
+                        worst = max(worst, float(pl[slot, only_p].max()
+                                                 - pl[slot, only_d].min()))
+            return n, worst
+
+        def drift(logits_of):
+            return max(float((dec[li][j][1][:, 0] - logits_of(li, j))
+                             .abs().max())
+                       for li in range(MIXTRAL_LAYERS) for j in range(steps))
+
+        choices = steps * MIXTRAL_LAYERS * MIXTRAL_SLOTS
+        # the free parallel forward, whose history differs once a choice
+        # flips (a flip changes later layers' and positions' inputs)
+        flips, gap = swaps(lambda li, j: par[li][0][:, j],
+                           lambda li, j: par[li][1][:, j])
+        # on decode's history: its own top-k of its router logits
+        own, own_gap = swaps(
+            lambda li, j: took[li][1][:, j].topk(k_, dim=-1).indices,
+            lambda li, j: took[li][1][:, j])
+        log(f"  {label}: the parallel forward on decode's experts would "
+            f"itself pick others at {own} of {choices} (step, layer, slot) "
+            f"choices, its router logits of the swapped experts at most "
+            f"{own_gap:.6f} apart (limits {MIXTRAL_MAX_FLIPS:.4f} of the "
+            f"choices, {MIXTRAL_NEAR_TIE}); its router logits and decode's "
+            f"at most {drift(lambda li, j: took[li][1][:, j]):.6f} apart")
+        free_rel = (torch.linalg.vector_norm(decoded - free[:, :steps], dim=-1)
+                    / torch.linalg.vector_norm(free[:, :steps], dim=-1))
+
+        def agree(logits):
+            return sum(int(o[t] == int(logits[i, MIXTRAL_PROMPT - 1 + t]
+                                       .argmax()))
+                       for i, o in enumerate(outs) for t in range(MIXTRAL_NEW))
+        log(f"  {label}: the free parallel forward picks other experts than "
+            f"decode at {flips} of {choices} (step, layer, slot); the "
+            f"swapped experts' router logits differ by at most {gap:.6f} "
+            f"there, the two paths' router logits by at most "
+            f"{drift(lambda li, j: par[li][1][:, j]):.6f}; rows against the "
+            f"free parallel forward: worst L2 relative error "
+            f"{float(free_rel.max()):.3e}, "
+            f"{int((free_rel > limit).sum())} rows over {limit}; greedy "
+            f"tokens equal its argmax at {agree(free)} of "
+            f"{MIXTRAL_SLOTS * MIXTRAL_NEW}, the forced parallel argmax at "
+            f"{agree(parallel)}")
+        check(own <= MIXTRAL_MAX_FLIPS * choices and own_gap
+              <= MIXTRAL_NEAR_TIE, f"{label}: decode's experts differ from "
+              f"the parallel forward's own top-k at {own} of {choices} "
+              f"choices, by up to {own_gap} in router logit: not near-ties")
+        close_rows(f"{label} rows (positions 0-{steps - 1}, window "
+                   f"{MIXTRAL_WINDOW}) vs the parallel forward on decode's "
+                   "experts", decoded, parallel[:, :steps], limit)
+
+    torch.cuda.reset_peak_memory_stats()
+    secs, outs, decoded, seen, counts, api = serve(cfg_w)
+    add_counts(total, counts)
+    log(f"  mixtral serving, window {MIXTRAL_WINDOW}: {MIXTRAL_SLOTS} greedy "
+        f"requests of {MIXTRAL_PROMPT} prompt tokens, {MIXTRAL_NEW} new each: "
+        f"{secs:.3f} s for {steps} decode steps ({secs / steps * 1e3:.2f} ms "
+        f"a step), launches {counts}; peak {peak_gib():.2f} GiB ({smi})")
+    against_parallel(cfg_w, outs, decoded, seen, MIXTRAL_BF16_DRIFT)
+    # the same requests in float32 compute on the same weights, held to
+    # 6e-3 a row, which bf16 rounding over 4 layers exceeds
+    cfg_32 = dataclasses.replace(cfg_w, compute_dtype="float32")
+    secs32, outs32, decoded32, seen32, _, _ = serve(cfg_32)
+    log(f"  mixtral serving in float32 compute: {secs32 / steps * 1e3:.2f} "
+        f"ms a step ({smi})")
+    against_parallel(cfg_32, outs32, decoded32, seen32, MIXTRAL_F32_DRIFT)
+    del decoded32, seen32
+    caches = api.init_caches(MIXTRAL_SLOTS, MIXTRAL_PROMPT + MIXTRAL_NEW,
+                             torch.float32)
+    tok1 = torch.as_tensor([p[:1] for p in prompts], device=dev)
+
+    def one_step():
+        with torch.inference_mode():
+            return api.decode_fn(params, tok1, caches, 0)
+    prof = profile_call(f"mixtral decode step ({MIXTRAL_SLOTS} slots)",
+                        one_step, rows=6)
+    log(f"  mixtral decode step: idle share "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}, "
+        f"{sum(c for c, _ in prof['kernels'].values())} device kernels a "
+        f"step ({smi})")
+    del params, decoded, seen, caches
+    torch.cuda.empty_cache()
+    return total
+
+
+def dense_config(dev, arch, layers, smi):
+    """One dense config at published width, ``layers`` of its depth:
+    ``transformer.prefill`` of 1 x ``CONFIG_SEQ`` tokens, then
+    ``DENSE_NEW`` greedy decode steps, each logit row (the prefill's
+    included) within 1e-2 in L2 of the parallel forward's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import params as MP
+    from repro_torch.models import transformer as T
+
+    torch.cuda.reset_peak_memory_stats()
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, num_layers=layers)
+    secs, params = host_s(lambda: MP.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), dev))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    g = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (1, CONFIG_SEQ), generator=g,
+                           device=dev, dtype=torch.int32)
+    max_seq = CONFIG_SEQ + DENSE_NEW
+    reset_launch_counts()
+    with torch.inference_mode():
+        T.prefill(params, prompt, cfg, max_seq=max_seq)        # warm-up
+        t_pre, (logits, caches) = host_s(lambda: T.prefill(
+            params, prompt, cfg, max_seq=max_seq))
+        ring = caches["k"].shape[2]
+        steps_logits, fed = [logits[:, -1]], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(DENSE_NEW):
+            tok = steps_logits[-1].argmax(-1).to(torch.int32)[:, None]
+            fed.append(tok)
+            logits, caches = T.decode_step(params, tok, caches,
+                                           CONFIG_SEQ + j, cfg)
+            steps_logits.append(logits[:, -1])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        # The parallel forward over the prompt and the fed tokens, padded
+        # to a whole number of attention chunks (a ragged length would be
+        # one chunk): causal attention keeps the padding out of every
+        # compared row.  Logits only for the compared rows.
+        full = torch.cat([prompt] + fed, dim=1)
+        chunk = min(cfg.attn_chunk, full.shape[1])
+        padded = torch.nn.functional.pad(full, (0, -full.shape[1] % chunk))
+        hid = T.lm_hidden(params, padded, cfg)
+        parallel = T.lm_logits(params, hid[:, CONFIG_SEQ - 1:max_seq], cfg)
+    counts = dict(launch_counts())
+    check(sum(counts.values()) == 0,
+          f"{arch}: launches {counts}; the dense family reaches no kernel")
+    close_rows(f"{arch} prefill and decode logits (positions "
+               f"{CONFIG_SEQ - 1}-{max_seq - 1}) vs the parallel forward",
+               torch.stack(steps_logits, dim=1), parallel, TOL_BF16["rtol"])
+    agree = sum(int(torch.equal(f[:, 0], parallel[:, j].argmax(-1)
+                                .to(torch.int32)))
+                for j, f in enumerate(fed))
+    tok1 = fed[-1]
+
+    def one_step():
+        with torch.inference_mode():
+            return T.decode_step(params, tok1, caches, max_seq - 1, cfg)
+    prof = profile_call(f"{arch} decode step (1 slot)", one_step, rows=6)
+    log(f"  {arch} full width (d_model {cfg.d_model}, {cfg.num_heads} heads"
+        f", {cfg.num_kv_heads} kv, head_dim {cfg.hd}, d_ff {cfg.d_ff} "
+        f"{cfg.act}, {cfg.norm}, vocab {cfg.vocab_size}, window "
+        f"{cfg.sliding_window or 'none'}, rotary {cfg.rotary_pct}, qkv bias "
+        f"{cfg.qkv_bias}), {layers} of {full_cfg.num_layers} layers: "
+        f"{n_params / 1e9:.3f} B float32 parameters (param_count "
+        f"{cfg.param_count() / 1e9:.3f} B) drawn in {secs:.2f} s; prefill "
+        f"1 x {CONFIG_SEQ} {t_pre * 1e3:.2f} ms (warm), K/V cache of "
+        f"{ring} slots; {DENSE_NEW} greedy decode steps "
+        f"{t_dec / DENSE_NEW * 1e3:.2f} ms a step, idle share "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.4f}, "
+        f"{sum(c for c, _ in prof['kernels'].values())} device kernels a "
+        f"step; greedy tokens equal the parallel argmax at {agree} of "
+        f"{DENSE_NEW}; peak {peak_gib():.2f} GiB ({smi})")
+    del params, caches, parallel, hid
+    torch.cuda.empty_cache()
+    return counts
+
+
+def configs_phase(dev, compare, smi):
+    """The four configurations no earlier phase ran, one at a time:
+    Mixtral-8x22B (``mixtral_config``), then Qwen1.5-110B, StarCoder2-15B
+    and StableLM-12B (``dense_config``).  Returns the counted launches."""
+    total = dict(mixtral_config(dev, compare, smi))
+    for arch, layers in DENSE_CONFIGS:
+        add_counts(total, dense_config(dev, arch, layers, smi))
+    log(f"  configs launches {total}")
+    return total
+
+
 def main(argv) -> int:
     import torch
     parent = None
@@ -5138,7 +5686,8 @@ def main(argv) -> int:
                       ("train_families",
                        lambda: train_families_phase(dev, compare)),
                       ("examples", lambda: examples_phase(dev)),
-                      ("sharding", lambda: sharding_phase(dev, compare))):
+                      ("sharding", lambda: sharding_phase(dev, compare)),
+                      ("configs", lambda: configs_phase(dev, compare, smi))):
         t_phase = time.perf_counter()
         phase = run()
         log(f"phase {name}: {time.perf_counter() - t_phase:.1f} s wall "

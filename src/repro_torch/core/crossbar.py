@@ -424,10 +424,6 @@ def _canon_2d(x: torch.Tensor):
     return x.reshape(shp[0], -1), shp
 
 
-def _is_int(x: torch.Tensor) -> bool:
-    return not x.dtype.is_floating_point
-
-
 # Below this occupied-tile fraction the tile-skipping kernel is chosen
 # over the dense one; below AUTO_MIN_CELLS operator cells the einsum path
 # is.  Both thresholds were set on a TPU and are not yet recalibrated
@@ -530,8 +526,9 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
     else:
         raise ValueError(f"unknown backend {backend!r}")
 
+    from repro_torch.kernels import ops as _kops
     sr = plan.semiring
-    if sr.integer_carrier and not _is_int(x2):
+    if sr.integer_carrier and not _kops.is_integer_payload(x2):
         raise ValueError(
             f"semiring {sr.name!r} carries small integers; got payload "
             f"dtype {x2.dtype} — cast to an integer type first")
@@ -556,7 +553,6 @@ def apply_plan(plan: PermutePlan, x: torch.Tensor, *,
             out2 = fast if fast is not None else _apply_gf2k(plan, x2,
                                                             backend)
         elif backend == "kernel":
-            from repro_torch.kernels import ops as _kops
             out2 = _kops.crossbar_permute(plan, x2)
         elif backend == "sparse":
             # merge overwrites the unwritten rows below anyway
@@ -586,6 +582,8 @@ def _apply_sparse(plan: PermutePlan, x2: torch.Tensor, *,
     backend produces.
     """
     from repro_torch.kernels import ops as _kops
+    # before the schedule is compiled: the wrapper refuses too, later
+    _kops.refuse_complex(x2, "sparse crossbar kernel")
     compiled = compile_plan(plan)
     out2 = _kops.crossbar_permute_sparse(plan, x2, compiled=compiled)
     if pin_zeros and compiled.run_o.shape[0] < compiled.n_o_tiles:
@@ -648,10 +646,11 @@ def _apply_einsum(plan: PermutePlan, x2: torch.Tensor) -> torch.Tensor:
     """The dense product.  REAL float payloads: float32 contraction of the
     one-hot operator (exact for unweighted plans).  Integer payloads:
     exact integer sum; GF2 folds it mod 2."""
+    from repro_torch.kernels.ops import is_integer_payload
     fast = _take_fastpath(plan, x2)
     if fast is not None:
         return fast
-    if _is_int(x2):
+    if is_integer_payload(x2):
         out = _int_select_sum(plan, x2)
         if plan.semiring.mod2_fold:
             out = out & 1

@@ -127,12 +127,19 @@ class _Entry:
 class CacheGuard:
     """Digest ledger for one cache family: the digest sealed at insert,
     the hit count and fault epoch of every key, and the family's
-    sealed / hits / checks / faults counts."""
+    sealed / hits / checks / faults counts.  ``sample_every`` fixes the
+    guard's own sampling period; None follows the module's knob."""
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str,
+                 sample_every: Optional[int] = None) -> None:
         self.name = name
+        self._sample_every = sample_every
         self._entries: dict = {}
         self._stats = {"sealed": 0, "hits": 0, "checks": 0, "faults": 0}
+
+    def _effective_sample(self) -> int:
+        return (self._sample_every if self._sample_every is not None
+                else _SAMPLE_EVERY)
 
     def seal(self, key, parts: Optional[Iterable] = None, *,
              digest: Optional[str] = None) -> str:
@@ -163,7 +170,7 @@ class CacheGuard:
             entry.hits += 1
             self._stats["hits"] += 1
             if not (entry.epoch < _FORCE_EPOCH
-                    or hit_index % _SAMPLE_EVERY == 0):
+                    or hit_index % self._effective_sample() == 0):
                 return False
             entry.epoch = _FORCE_EPOCH
             self._stats["checks"] += 1
@@ -186,6 +193,10 @@ class CacheGuard:
         with _LOCK:
             self._entries.pop(key, None)
 
+    def clear(self) -> None:
+        with _LOCK:
+            self._entries.clear()
+
     def depth(self) -> int:
         with _LOCK:
             return len(self._entries)
@@ -193,7 +204,7 @@ class CacheGuard:
     def info(self) -> dict:
         with _LOCK:
             return dict(self._stats, size=len(self._entries),
-                        sample_every=_SAMPLE_EVERY)
+                        sample_every=self._effective_sample())
 
 
 def _telemetry_incr(name: str) -> None:

@@ -138,6 +138,10 @@ class PlanProgram:
         return self.rounds * sum(1 for s in self.steps if s.op == PERMUTE)
 
     @property
+    def total_steps(self) -> int:
+        return self.rounds * len(self.steps)
+
+    @property
     def uses_rotlv(self) -> bool:
         return any(s.op == ROTLV for s in self.steps)
 

@@ -280,6 +280,9 @@ class Semiring:
         return torch.full(tuple(shape), self.one, dtype=self.weight_dtype,
                           device=device)
 
+    def cast_weights(self, w) -> torch.Tensor:
+        return torch.as_tensor(w).to(self.weight_dtype)
+
 
 REAL = Semiring(
     name="real", add=lambda a, b: a + b, mul=lambda a, b: a * b,

@@ -8,6 +8,9 @@ Port of ``repro/kernels/ops.py``.  For the two crossbar kernels:
   not padded — the kernels mask their ragged edges;
 * integer and bool payloads ride the float32 datapath, which holds
   integers exactly only below 2^24: larger magnitudes are refused;
+* complex payloads have no datapath and are refused with
+  ``KernelLaunchError`` on every device, as the reference's kernels
+  refuse them (a cast to float32 would drop the imaginary part);
 * the plan's semiring picks the accumulate mode (REAL sums, GF2 folds
   mod 2 at emission);
 * a CUDA payload launches the CUDA kernel or raises
@@ -77,13 +80,24 @@ def _launches(x) -> bool:
     return x.is_cuda and not _abstract.is_fake(x)
 
 
-def _is_int(x) -> bool:
+def is_integer_payload(x) -> bool:
+    """Integer or bool, the reference's rule (complex is not integer)."""
     return not (x.dtype.is_floating_point or x.dtype.is_complex)
+
+
+def refuse_complex(x, kernel: str) -> None:
+    """Raise ``KernelLaunchError`` naming the dtype of a complex payload:
+    no kernel carries one, and the reference's kernels raise on it."""
+    if x.dtype.is_complex:
+        raise KernelLaunchError(
+            f"{kernel} has no {x.dtype} datapath (the kernels carry real "
+            "and integer payloads; a cast would drop the imaginary part); "
+            "use backend='einsum'")
 
 
 def _as_f32_payload(x):
     """Integer/bool payloads -> float32, refusing |x| >= 2^24."""
-    if not _is_int(x):
+    if not is_integer_payload(x):
         return x
     # A fake payload (the constant-time audit's abstract evaluation) has
     # no values to check: the caller's responsibility, as a traced
@@ -130,6 +144,7 @@ def dense_operands(plan, x, *, merge=None, block_o=DEFAULT_BLOCK_O):
     Gather control is DROP-padded to whole output tiles; the scatter
     kernel streams control in bounded chunks and needs no padding.
     """
+    refuse_complex(x, "dense crossbar kernel")
     mode = plan.mode
     xf = _as_f32_payload(x).to(_payload_dtype(x)).contiguous()
     ctrl_block = block_o if mode == "gather" else 1
@@ -187,8 +202,9 @@ def crossbar_permute_sparse(plan, x, *, compiled=None, block_o=128,
 def sparse_operands(plan, x, *, compiled=None, block_o=128, block_n=128):
     """The tile-skipping kernel's operands for a plan: ((run_o, run_ptr,
     pair_n, idx, x), kwargs), with a fresh output buffer in kwargs."""
-    from repro_torch.core import crossbar as xb  # import cycle at load
+    from repro_torch.core import crossbar as xb  # the layer above: at use
 
+    refuse_complex(x, "sparse crossbar kernel")
     mode = plan.mode
     xf = _as_f32_payload(x).to(_payload_dtype(x)).contiguous()
     # A schedule from a different plan (or blocking) would silently skip
@@ -243,10 +259,12 @@ def fused_vcompress(mask, x, *, tail="zero"):
     """Fused mask -> destinations -> row-move compress.  x: (N, D) ->
     (N, D): selected rows packed to the top in order; the rest follow
     (``tail="bijective"``) or are zeros (``tail="zero"``).  mask: (N,)
-    bool or 0/1 integers.  Any payload dtype: rows move as bits, so
-    integers are exact at any magnitude (the reference routes them
-    through float32 for its one-hot matmul and refuses |x| >= 2^24)."""
+    bool or 0/1 integers.  Any real or integer payload dtype: rows move
+    as bits, so integers are exact at any magnitude (the reference routes
+    them through float32 for its one-hot matmul and refuses |x| >= 2^24).
+    A complex payload is refused, as the reference's kernel refuses it."""
     check_tail(tail)
+    refuse_complex(x, "fused vcompress kernel")
     if x.dim() != 2 or tuple(mask.shape) != (x.shape[0],):
         raise ValueError(f"need mask (N,) and x (N, D), got "
                          f"{tuple(mask.shape)} and {tuple(x.shape)}")

@@ -30,10 +30,13 @@ from test_torch_support import (BF16_TOL, assert_bitexact, assert_close,
 MODEL_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def _jax_cfg(**overrides):
+MOE_ARCHS = ("phi3.5-moe", "mixtral-8x22b")
+
+
+def _jax_cfg(arch="phi3.5-moe", **overrides):
     from repro.configs import base as jb
-    from repro.configs import phi3_5_moe as jphi
-    return jb.reduced(jphi.CONFIG, **overrides)
+    from repro.configs import get_config
+    return jb.reduced(get_config(arch), **overrides)
 
 
 def _port_cfg(jcfg, **overrides):
@@ -63,15 +66,21 @@ def _models(jcfg, seed=0):
     return jparams, tP.params_from_numpy(tree, _port_cfg(jcfg), "cpu")
 
 
-def test_configs_are_the_reference_configs():
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_configs_are_the_reference_configs(arch):
     from repro.configs import base as jb
-    from repro.configs import phi3_5_moe as jphi
-    assert dataclasses.asdict(tphi.CONFIG) == dataclasses.asdict(jphi.CONFIG)
-    assert (dataclasses.asdict(reduced(tphi.CONFIG, d_model=256))
-            == dataclasses.asdict(jb.reduced(jphi.CONFIG, d_model=256)))
-    cfg = tphi.CONFIG
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config
+    jcfg, cfg = jget(arch), get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert (dataclasses.asdict(reduced(cfg, d_model=256))
+            == dataclasses.asdict(jb.reduced(jcfg, d_model=256)))
     assert (cfg.hd, cfg.padded_vocab) == (128, 32768)
-    assert cfg.param_count() == jphi.CONFIG.param_count()
+    assert cfg.param_count() == jcfg.param_count()
+    if arch == "mixtral-8x22b":
+        assert (cfg.sliding_window, cfg.num_experts,
+                cfg.num_experts_per_tok) == (4096, 8, 2)
+        assert reduced(cfg).sliding_window == 8
 
 
 def test_sequence_ops_match_reference(jax_ref):
@@ -168,42 +177,92 @@ def test_wide_layer_covers_the_512_token_capacity_branch(jax_ref):
     assert_close(taux["dropped"], jaux["dropped"], MODEL_F32_TOL)
 
 
-def test_lm_hidden_and_logits_match_reference(jax_ref):
-    import jax.numpy as jnp
-    from repro.models import moe as jM
-    from repro.models import transformer as jT
-    jcfg = _jax_cfg()
-    jparams, tparams = _models(jcfg)
-    tcfg = _port_cfg(jcfg, dispatch_backend="sparse")
-    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, 16))
-    jh, jaux = jM.lm_hidden(jparams, jnp.asarray(toks, jnp.int32), jcfg)
+# Decode runs 14 positions: past Mixtral's reduced window of 8, so its
+# ring cache wraps; Phi-3.5-MoE (no window) keeps all 14 rows.
+DECODE_STEPS = 14
+
+
+@pytest.fixture(scope="module")
+def moe_reference():
+    """One reference run per arch, shared by the model-level tests: the
+    carried weights, the parallel forward (hidden, logits, aux) of 2 x 16
+    tokens, and a 14-step greedy decode of 3 rows (logits, tokens, the
+    final caches).  float32 compute, the reduced config."""
+    from test_torch_support import jax_ref_alias
+    runs = {}
+
+    def run(arch):
+        if arch in runs:
+            return runs[arch]
+        import jax.numpy as jnp
+        from repro.models import moe as jM
+        from repro.models import transformer as jT
+        with jax_ref_alias():
+            jcfg = _jax_cfg(arch)
+            jparams, tparams = _models(jcfg)
+            toks = np.random.default_rng(4).integers(0, jcfg.vocab_size,
+                                                     (2, 16))
+            jh, jaux = jM.lm_hidden(jparams, jnp.asarray(toks, jnp.int32),
+                                    jcfg)
+            out = dict(jcfg=jcfg, tparams=tparams, toks=toks,
+                       hidden=np.asarray(jh),
+                       logits=np.asarray(jT.lm_logits(jparams, jh, jcfg)),
+                       aux={k: np.asarray(v) for k, v in jaux.items()})
+            first = np.random.default_rng(5).integers(0, jcfg.vocab_size,
+                                                      (3, 1))
+            jc = jM.init_caches(jcfg, 3, DECODE_STEPS, jnp.float32)
+            feed, steps = first, []
+            for pos in range(DECODE_STEPS):
+                jl, jc = jM.decode_step(jparams, jnp.asarray(feed, jnp.int32),
+                                        jc, pos, jcfg)
+                jl = np.asarray(jl)
+                steps.append((feed, jl))
+                feed = np.argmax(jl[:, -1, :jcfg.vocab_size], -1)[:, None]
+            out.update(decode=steps, caches={k: np.asarray(v)
+                                             for k, v in jc.items()})
+        runs[arch] = out
+        return out
+
+    return run
+
+
+@pytest.mark.parametrize("backend", ["einsum", "kernel", "sparse"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_lm_hidden_and_logits_match_reference(moe_reference, arch, backend):
+    ref = moe_reference(arch)
+    tcfg = _port_cfg(ref["jcfg"], dispatch_backend=backend)
     with telemetry.delta() as delta:
-        th, taux = tM.lm_hidden(tparams, torch.as_tensor(toks), tcfg)
+        th, taux = tM.lm_hidden(ref["tparams"], torch.as_tensor(ref["toks"]),
+                                tcfg)
     assert delta()["apply_calls"] == 2 * tcfg.num_layers
-    assert_close(th, jh, MODEL_F32_TOL)
-    assert_close(tT.lm_logits(tparams, th, tcfg),
-                 jT.lm_logits(jparams, jh, jcfg), MODEL_F32_TOL)
-    for k in jaux:
-        assert_close(taux[k], jaux[k], MODEL_F32_TOL)
+    assert_close(th, ref["hidden"], MODEL_F32_TOL)
+    assert_close(tT.lm_logits(ref["tparams"], th, tcfg), ref["logits"],
+                 MODEL_F32_TOL)
+    for k in ref["aux"]:
+        assert_close(taux[k], ref["aux"][k], MODEL_F32_TOL)
 
 
-def test_decode_step_matches_reference(jax_ref):
-    import jax.numpy as jnp
-    from repro.models import moe as jM
-    jcfg = _jax_cfg()
-    jparams, tparams = _models(jcfg)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_decode_step_matches_reference(moe_reference, arch):
+    """Greedy decode of 14 positions on the 'kernel' backend, fed the
+    reference's tokens: every step's logits within ``MODEL_F32_TOL``, the
+    port's greedy token equal to the reference's, and the final caches
+    (Mixtral's a ring of 8 slots, overwritten 6 times) equal."""
+    ref = moe_reference(arch)
+    jcfg = ref["jcfg"]
     tcfg = _port_cfg(jcfg, dispatch_backend="kernel")
-    rng = np.random.default_rng(5)
-    jc = jM.init_caches(jcfg, 3, 8, jnp.float32)
-    tc = tM.init_caches(tcfg, 3, 8, torch.float32, device="cpu")
-    for pos in range(4):
-        toks = rng.integers(0, jcfg.vocab_size, (3, 1))
-        jl, jc = jM.decode_step(jparams, jnp.asarray(toks, jnp.int32), jc,
-                                pos, jcfg)
-        tl, tc = tM.decode_step(tparams, torch.as_tensor(toks), tc, pos, tcfg)
+    tc = tM.init_caches(tcfg, 3, DECODE_STEPS, torch.float32, device="cpu")
+    width = jcfg.sliding_window or DECODE_STEPS
+    assert tc["k"].shape[2] == width
+    for pos, (feed, jl) in enumerate(ref["decode"]):
+        if pos:
+            assert np.array_equal(greedy, feed)
+        tl, tc = tM.decode_step(ref["tparams"], torch.as_tensor(feed), tc,
+                                pos, tcfg)
         assert_close(tl, jl, MODEL_F32_TOL)
+        greedy = tl[:, -1, :jcfg.vocab_size].argmax(-1)[:, None].numpy()
     for name in ("k", "v"):
-        assert_close(tc[name], jc[name], MODEL_F32_TOL)
+        assert_close(tc[name], ref["caches"][name], MODEL_F32_TOL)
 
 
 def test_ring_cache_decode_matches_reference(jax_ref):
