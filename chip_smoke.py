@@ -105,19 +105,23 @@ set to 0 just before and read just after:
   full width, 1 of 32 layers, 2 steps of the sharded executor against
   the single-device step (loss, parameters, moe_route launches, the
   placement's bytes), MiniCPM-2B's 2 of 40 layers decoding 8 greedy
-  steps on sharded caches against one device, and the dry runs
-  (``launch.dryrun``) of two production cells on 16 x 16 placeholders
-  and of the phase's own cell;
+  steps on sharded caches against one device, Mixtral-8x22B's 5 of 56
+  layers (48.1 GiB of float32 weights) decoding greedily over the mesh
+  a layer at a time against one device on the same weights, and the dry
+  runs (``launch.dryrun``) of two production cells on 16 x 16
+  placeholders (each within 80 GB a device) and of the phase's own cell;
 * the configs phase (``configs_phase``, last): the four configurations
   no earlier phase runs, at published width, one at a time.
   Mixtral-8x22B, 4 of 56 layers: layer 0's routing (the cluster form at
   (2, 10240) ids), dispatch and combine on the moe_route and both
-  crossbar kernels against their plain versions (bit-exact); the prompt
+  crossbar kernels against their plain versions (bit-exact), timed
+  beside one library call that writes the same whole output
+  (``library_permute``: ``index_select``, ``embedding_bag``); the prompt
   forward (2 x 5120 tokens, window 4096) under 'auto', 'kernel' and
   'sparse', counted, logit rows of the three within 1e-2 in L2;
   ``ServingEngine`` answering 4 greedy requests at a window cut to 32
   in bf16 and in float32 compute, every decode row within 3e-2 (bf16)
-  or 1e-2 (float32) in L2 of the parallel forward teacher-forced on
+  or 6e-3 (float32) in L2 of the parallel forward teacher-forced on
   decode's tokens and experts (the free parallel forward's routing
   differences and rows printed beside it).  Qwen1.5-110B (2 of 80
   layers), StarCoder2-15B and StableLM-12B (4 of 40): ``transformer.prefill`` of 1 x 5120 tokens
@@ -546,6 +550,35 @@ def crossbar_library_call(plan, x2):
     offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
     psw = plan.weights[valid].to(x2.dtype)
     return (lambda: F.embedding_bag(flat, x2, offsets, mode="sum",
+                                    per_sample_weights=psw)), "embedding_bag"
+
+
+def library_permute(plan, x2):
+    """One PyTorch call that writes the whole output of an MoE-shape
+    crossbar pass over the (n_in, D) payload ``x2``, every row, as the
+    dense kernel does, with its index preparation done ahead: the dispatch (a
+    unique-destination scatter) as ``index_select`` of every output row
+    from ``x2`` and a zero row after it, which an empty slot reads; the
+    gate-weighted combine as ``embedding_bag`` sums over every output
+    row's selects, a DROP reading the zero row.  Returns (fn, name)."""
+    import torch
+    import torch.nn.functional as F
+    idx = plan.idx.long()
+    padded = torch.cat([x2, x2.new_zeros((1, x2.shape[1]))])
+    if plan.mode == "scatter":
+        valid = (idx >= 0) & (idx < plan.n_out)
+        dest = idx[valid]
+        check(plan.weights is None
+              and torch.unique(dest).numel() == dest.numel(),
+              "library_permute: a weighted scatter or a repeated destination")
+        src = torch.full((plan.n_out,), plan.n_in, dtype=torch.long,
+                         device=x2.device)
+        src[dest] = torch.nonzero(valid)[:, 0]
+        return (lambda: torch.index_select(padded, 0, src)), "index_select"
+    valid = (idx >= 0) & (idx < plan.n_in)
+    bags = torch.where(valid, idx, plan.n_in)
+    psw = plan.weights.to(x2.dtype)
+    return (lambda: F.embedding_bag(bags, padded, mode="sum",
                                     per_sample_weights=psw)), "embedding_bag"
 
 
@@ -4148,9 +4181,10 @@ def family_launcher(dev, arch):
 # the card, and trained 2 steps at 4 x 512 by the sharded executor against
 # the single-device make_train_step from the same state and batches.  The
 # card holds the single-device state and the four shards at once (2 x
-# 18.82 GB) and, in a sharded step, the gathered parameters, their
-# gradients and the float32 accumulators (3 x 6.27 GB): ~60 GB with the
-# activations, inside 80 GB, so the batch stays 4 x 512.  (b) MiniCPM-2B
+# 18.82 GB) and, in a sharded step, the gathered layer, its gradient and
+# the float32 accumulators (~3 x 6 GB: the one layer is most of the
+# model): ~60 GB with the activations, inside 80 GB, so the batch stays
+# 4 x 512.  (b) MiniCPM-2B
 # at its published width, 2 of 40 layers: a prompt of 4 x 64 prefilled on
 # one device, its caches placed by ``cache_shardings``, then 8 greedy
 # decode steps sharded against single-device ``decode_fn``.  (c) The dry
@@ -4161,6 +4195,20 @@ SHARD_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)      # the reference test's
 SHARD_DEC_LAYERS, SHARD_DEC_PROMPT, SHARD_DEC_STEPS = 2, 64, 8
 DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
                 ("minicpm-2b", "decode_32k"))
+# The bar each cell's peak a device (GiB) meets.
+DRYRUN_PEAK_GIB = {"phi3.5-moe-42b-a6.6b": 40.0, "minicpm-2b": 25.0}
+# (d) A model that only a layer-at-a-time executor can hold on the card.
+# Mixtral-8x22B at its published width, 5 of 56 layers (2.504 B
+# parameters a layer; 12.92 B, 48.1 GiB of float32 weights, one copy in
+# shards over (2, 2) of the card), seeded, float32 master and bf16
+# compute: greedy decode of 4 slots x (16 prompt + 16 new) tokens at a
+# window of 32 (``MIXTRAL_WINDOW``), single-device ``decode_fn`` first
+# (the whole model, ~57 GiB), then the weights placed a leaf at a time
+# and the same decode through ``sharded_decode_step`` (the shards, one
+# layer gathered and its casts: ~69 GiB; a whole-tree gather beside the
+# shards would need ~96 GiB more).
+SHARD_MIX_LAYERS, SHARD_MIX_SLOTS = 5, 4
+SHARD_MIX_PROMPT, SHARD_MIX_NEW = 16, 16
 ALLOC_GRANULE = 512        # the CUDA caching allocator rounds to 512 bytes
 
 
@@ -4294,12 +4342,15 @@ def sharding_phase(dev, compare):
     the routing of one sharded forward against the kernel's plain version
     (``compare``, after the counters are read).  (b)
     ``spmd.sharded_decode_step`` against ``decode_fn``: the same greedy
-    tokens, each logit row within ``TOL_BF16``'s rtol in L2.  (c)
+    tokens, each logit row within ``TOL_BF16``'s rtol in L2.  (d)
+    ``sharded_mixtral``: Mixtral-8x22B, 5 of 56 layers, which the card
+    holds only a layer at a time beside its shards.  (c)
     ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` (per_device, roofline,
-    wall seconds) and ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
+    wall seconds), each within 80 GB and its ``DRYRUN_PEAK_GIB`` a device, and
+    ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
     placeholders: its argument bytes over the mesh equal to (a)'s placed
     bytes, its temp bytes and step-time bound printed beside (a)'s peak
-    and step.  Returns (a)'s counted launches."""
+    and step.  Returns (a)'s and (d)'s counted launches."""
     import dataclasses
 
     import torch
@@ -4503,14 +4554,22 @@ def sharding_phase(dev, compare):
     del params_b, pc, cc, caches
     torch.cuda.empty_cache()
 
+    # ------------------------- (d) Mixtral-8x22B, a layer at a time ---
+    add_counts(counts, sharded_mixtral(dev))
+
     # -------------------------------------------------- (c) dry runs ---
     for arch, shape in DRYRUN_CELLS:
         secs, r = host_s(lambda: dryrun.run_cell(arch, shape, verbose=False))
         check(r["status"] == "ok", f"dry run {arch} x {shape}: {r}")
+        pd = r["per_device"]
+        check(pd["fits_hbm"] and pd["peak_hbm_gib"] <= DRYRUN_PEAK_GIB[arch],
+              f"dry run {arch} x {shape}: peak {pd['peak_hbm_gib']} GiB a "
+              f"device (bar {DRYRUN_PEAK_GIB[arch]}), fits {pd['fits_hbm']}")
         log(f"sharding phase (c): dry run {arch} x {shape} on {r['mesh']} "
-            f"placeholders, {secs:.1f} s wall: per_device "
-            f"{json.dumps(r['per_device'])}; roofline "
-            f"{json.dumps(r['roofline'])}")
+            f"placeholders, {secs:.1f} s wall: peak {pd['peak_hbm_gib']} GiB "
+            f"a device (<= {DRYRUN_PEAK_GIB[arch]}), collectives "
+            f"{json.dumps(r['collectives'])}; per_device "
+            f"{json.dumps(pd)}; roofline {json.dumps(r['roofline'])}")
     cell = ShapeCell("sharding_a", SHARD_SEQ, SHARD_BATCH, "train")
     place = make_host_mesh(data=2, model=2, devices=["meta"] * 4)
     secs, r = host_s(lambda: dryrun.analyse(cfg, cell, place, grad_accum=1,
@@ -4529,6 +4588,171 @@ def sharding_phase(dev, compare):
         f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.2f}, "
         f"collective {rf['collective_s'] * 1e3:.3f} ms) beside (a)'s "
         f"measured {step_ms:.1f} ms for the mesh's 4 shards on one card")
+    return counts
+
+
+def place_leafwise(tree, shardings):
+    """``sharding.device_put`` of a tree of dicts and lists a leaf at a
+    time, in place: each leaf's source tensor leaves ``tree`` as soon as
+    its shards exist, so the card never holds a whole tree beside its
+    shards."""
+    from repro_torch.dist import sharding as shd
+    for k in (list(tree) if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            place_leafwise(tree[k], shardings[k])
+        else:
+            tree[k] = shd.device_put(tree[k], shardings[k])
+    return tree
+
+
+def sharded_mixtral(dev):
+    """Sharding phase (d): Mixtral-8x22B, ``SHARD_MIX_LAYERS`` of 56
+    layers, greedy decode on one device, then over (2, 2) of the card
+    through ``sharded_decode_step`` on the same weights, the sharded run
+    routed to the single-device run's experts (``recorded_routing``, as
+    the configs phase holds Mixtral): the same greedy tokens, each logit
+    row within ``TOL_BF16``'s rtol in L2, the sharded run's own top-k off
+    those experts only at near-ties (``MIXTRAL_NEAR_TIE``,
+    ``MIXTRAL_MAX_FLIPS``).  Prints each run's peak memory and the
+    gathers a step.  Returns the sharded run's counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import mixtral_8x22b
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models import params as MP
+
+    cfg = dataclasses.replace(mixtral_8x22b.CONFIG,
+                              num_layers=SHARD_MIX_LAYERS,
+                              sliding_window=MIXTRAL_WINDOW,
+                              dispatch_backend="auto")
+    n_l, slots = SHARD_MIX_LAYERS, SHARD_MIX_SLOTS
+    max_seq = SHARD_MIX_PROMPT + SHARD_MIX_NEW
+    steps = max_seq - 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resting = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, params = host_s(lambda: MP.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    api = model_zoo.build(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (slots, SHARD_MIX_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    log(f"sharding phase (d): mixtral-8x22b, full width, {n_l} of "
+        f"{mixtral_8x22b.CONFIG.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"float32 parameters drawn in {secs:.2f} s; {slots} slots x "
+        f"({SHARD_MIX_PROMPT} prompt + {SHARD_MIX_NEW} new) tokens, window "
+        f"{MIXTRAL_WINDOW}; {resting / 2**30:.2f} GiB allocated before it")
+
+    def run(step_fn, forced=None):
+        """Greedy decode: the prompt fed a token a step, then its own
+        argmax.  Returns (logit rows (B, steps, V), new tokens, routing
+        calls)."""
+        rows, new, tok = [], [], prompt[:, :1]
+        with torch.inference_mode(), recorded_routing(forced) as seen:
+            for pos in range(steps):
+                logits = step_fn(tok, pos)
+                rows.append(logits[:, -1].float())
+                if pos + 1 < SHARD_MIX_PROMPT:
+                    tok = prompt[:, pos + 1:pos + 2]
+                else:
+                    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                    new.append(tok)
+        return torch.stack(rows, dim=1), torch.cat(new, dim=1), seen
+
+    # ---- one device: the whole model ----
+    caches = api.init_caches(slots, max_seq)
+
+    def single(tok, pos):
+        logits, _ = api.decode_fn(params, tok, caches, pos)
+        return logits
+    secs1, (rows1, toks1, seen1) = host_s(lambda: run(single))
+    peak1 = torch.cuda.max_memory_allocated()
+    del caches
+    log(f"  single device: {secs1 / steps * 1e3:.2f} ms a step (host clock), "
+        f"peak {peak1 / 2**30:.2f} GiB")
+
+    # ---- the shards, placed a leaf at a time ----
+    mesh = make_host_mesh(data=2, model=2)
+    torch.cuda.reset_peak_memory_stats()
+    secs, placed = host_s(lambda: place_leafwise(
+        params, shd.param_shardings(params, mesh, cfg)))
+    del params
+    held = torch.cuda.memory_allocated() - resting
+    log(f"  placed over {dict(mesh.shape)} a leaf at a time in {secs:.2f} s: "
+        f"{held / 2**30:.2f} GiB of shards, placement peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    caches = api.init_caches(slots, max_seq)
+    cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
+    del caches
+    meta = model_zoo.build(cfg, device="meta")
+    dims = spmd.cache_batch_dims(lambda b: meta.init_caches(b, max_seq))
+    windows = mesh.shape["data"]
+    per = slots // windows
+    # the sharded run's routing calls come a window at a time: step,
+    # window, layer
+    forced = [seen1[pos * n_l + li][0][w * per:(w + 1) * per]
+              for pos in range(steps) for w in range(windows)
+              for li in range(n_l)]
+    transfers = []
+
+    def sharded(tok, pos):
+        logits, _ = spmd.sharded_decode_step(
+            api.decode_fn, mesh, placed, tok, cc, pos, batch_dims=dims,
+            transfers=transfers)
+        return logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    secs2, (rows2, toks2, seen2) = host_s(lambda: run(sharded, forced))
+    counts = dict(launch_counts())
+    peak2 = torch.cuda.max_memory_allocated()
+    gathers = [t for t in transfers if t.op == "all-gather"]
+    check(counts["moe_route"] == steps * windows * n_l,
+          f"sharded mixtral launched moe_route {counts['moe_route']} times, "
+          f"not steps x windows x layers = {steps * windows * n_l}")
+    check(all(torch.equal(ids, f) for (ids, _), f in zip(seen2, forced))
+          and len(seen2) == len(forced),
+          "the sharded run did not take the single-device run's experts")
+    flips, gap = 0, 0.0
+    for (ids, lg), f in zip(seen2, forced):
+        own = lg.topk(cfg.num_experts_per_tok, dim=-1).indices
+        a, b = own.sort(-1).values, f.long().sort(-1).values
+        lg, a, b = (t.reshape(-1, t.shape[-1]) for t in (lg, a, b))
+        for slot in torch.nonzero((a != b).any(-1)).flatten().tolist():
+            flips += 1
+            own, took = a[slot].tolist(), b[slot].tolist()
+            only_own = [e for e in own if e not in took]
+            only_forced = [e for e in took if e not in own]
+            gap = max(gap, float(lg[slot, only_own].max()
+                                 - lg[slot, only_forced].min()))
+    choices = steps * n_l * slots
+    check(flips <= MIXTRAL_MAX_FLIPS * choices and gap <= MIXTRAL_NEAR_TIE,
+          f"sharded mixtral: its own top-k differs from the single-device "
+          f"experts at {flips} of {choices} choices, by up to {gap}")
+    check(torch.equal(toks1, toks2), f"sharded mixtral greedy tokens "
+          f"{toks2.tolist()} != single-device {toks1.tolist()}")
+    close_rows(f"sharded mixtral decode rows ({steps} steps) vs single "
+               "device, on its experts", rows2, rows1, TOL_BF16["rtol"])
+    check(peak2 < 80e9, f"sharded mixtral peak {peak2} bytes")
+    log(f"  sharded over {dict(mesh.shape)}: {secs2 / steps * 1e3:.2f} ms a "
+        f"step (host clock), peak {peak2 / 2**30:.2f} GiB ({peak1 / 2**30:.2f}"
+        f" on one device); {len(gathers) / steps:.0f} gathers a step "
+        f"({sum(t.nbytes for t in gathers) / steps / 1e9:.3f} GB received, "
+        f"{len(transfers) / steps:.0f} transfers recorded); the same "
+        f"{toks1.numel()} greedy tokens; own top-k off the single-device "
+        f"experts at {flips} of {choices} choices (gap {gap:.6f}); launches "
+        f"{counts}")
+    del placed, cc, rows1, rows2, seen1, seen2, forced
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4683,7 +4907,7 @@ def mixtral_config(dev, compare, smi):
         ids, num_experts=e_, capacity=cap), 50)
     y = torch.randn((MIXTRAL_BATCH, e_, cap, d), generator=g,
                     device=dev).to(dtype)
-    xb_ms, xb_bound = {}, {}
+    xb_ms, xb_bound, lib_ms = {}, {}, {}
     for part, plan, xin in (("dispatch", md.dispatch_plan(routing), u),
                             ("combine", md.combine_plan(routing), y)):
         x2 = xin.reshape(-1, d).contiguous()
@@ -4707,6 +4931,17 @@ def mixtral_config(dev, compare, smi):
                                                               **kw), 10),
             graph_ms(lambda: xbk.crossbar_permute_cuda(idxp, xf, **kwd),
                      10))
+        # the library yardstick: one call that writes the pass's whole
+        # output, as the dense kernel does (library_permute); held to the
+        # dense kernel's plain version, which writes every row (the
+        # tile-skipping kernel leaves unvisited tiles to apply_plan)
+        lib_fn, lib_name = library_permute(plan, x2)
+        want = ref.crossbar_dense(idxp, xf, **kwd)
+        lib_diff = float((lib_fn().float() - want.float()).abs().max())
+        check(part == "combine" or lib_diff == 0.0,
+              f"mixtral layer 0 {part}: {lib_name} is {lib_diff} off the "
+              "plain version")
+        lib_ms[part] = (graph_ms(lib_fn, 10), lib_name, lib_diff)
     log(f"  mixtral layer 0 at the prompt shape, device ms by graph "
         f"replay: moe_route {route_ms:.4f}; dispatch tile-skipping "
         f"{xb_ms['dispatch'][0]:.4f}, dense {xb_ms['dispatch'][1]:.4f}; "
@@ -4720,8 +4955,10 @@ def mixtral_config(dev, compare, smi):
         log(f"  mixtral layer 0 {part} bound {bms:.4f} ms by {by} ({nb} B: "
             f"{rows_in} payload rows read, each output row written once); "
             f"tile-skipping {xb_ms[part][0] / bms:.2f}x, dense "
-            f"{xb_ms[part][1] / bms:.2f}x of it")
-    del h, x1, u, routing, y, args, kw, kw_p, idxp, xf, kwd
+            f"{xb_ms[part][1] / bms:.2f}x of it; {lib_ms[part][1]} of the "
+            f"whole output {lib_ms[part][0]:.4f} ms by graph replay (max "
+            f"|diff| {lib_ms[part][2]:.3g} from the plain version) ({smi})")
+    del h, x1, u, routing, y, args, kw, kw_p, idxp, xf, kwd, lib_fn, want
 
     with torch.inference_mode():
         # ---- the prompt forward under each backend, counted ----

@@ -15,16 +15,33 @@ order of the gradient sums.
 runs on its compute index, the first mesh index that holds it.  Batch
 leaves lead with the batch dimension.
 
-**The train step** (``make_sharded_train_step``).  For each window in
-turn:
+**What a compute index holds.**  Its shards, and what one layer
+gathers: as the reference's partitioned step holds them, not the whole
+model.  The model functions get a parameter tree whose layer stacks
+(its top-level lists: ``blocks``, ``enc_blocks`` / ``dec_blocks``, the
+hybrid's ``mamba`` and ``lora``) are per-layer views: item i is layer
+i's leaves, gathered onto the compute index's device each time the
+model asks for it (``layers.scan`` asks inside its checkpointed body,
+the decode loops as they walk the stack), and freed when the model is
+done with it.  The other leaves (embeddings, head, final norms, the
+hybrid's shared block) are small beside a stack and are gathered whole
+once a window.  Products are not split over "model": each layer's
+matrices are whole on the compute index while the layer runs.
 
-1. the parameters are gathered onto the compute index's device (fresh
-   leaves: a gradient never reaches a shard's storage);
-2. ``loss_fn`` runs forward and backward on the window's rows,
-   microbatch piece by piece;
-3. the gradients are summed in float32 into one accumulator a parameter
-   block, on the block's first holder: the reduce-scatter over the batch
-   axes.
+**The train step** (``make_sharded_train_step``).  For each window in
+turn, ``loss_fn`` runs forward and backward on the window's rows,
+microbatch piece by piece.  A layer's gathered leaves reach the loss
+through an autograd function (``_GatherLayer``) whose backward adds the
+layer's gradients, in float32, into one accumulator a parameter block
+on the block's first holder (the reduce-scatter over the batch axes)
+and drops the gathered gradient; the other leaves' gradients go into
+their accumulators after each piece's backward.  Under ``cfg.remat ==
+"full"`` the layer is gathered inside the checkpointed body, so the
+recompute gathers it again (as FSDP does, and XLA under
+``jax.checkpoint``); with ``remat == "none"`` autograd keeps each
+gathered layer's saved operands (the float32 leaves or their
+compute-dtype casts) until the backward reaches it, so a compute index
+then holds every layer's copy at the loss.
 
 Then the clip's global norm sums every block once, and the port's AdamW
 updates every mesh index's shards in place, replicas included, with
@@ -46,11 +63,15 @@ microbatch i is rows [i B/n, (i+1) B/n) of the global batch, as in the
 single-device trainer, and every piece is weighted 1/n more.
 
 **The decode step** (``sharded_decode_step``) runs each window of the
-tokens' sharding on its compute index: the parameters gathered, the
-window's cache rows gathered from the shards that hold them (over
-"model"), ``decode_fn`` stepped, the new rows written back to every
-shard that holds them.  ``sharded_forward`` is the train step's forward
-without gradients (prefill cells).
+tokens' sharding on its compute index.  The caches are per-layer views
+too: the model's ``c[i]`` (the hybrid's ``c[g, i]``) gathers layer i's
+cache rows of the window from the shards that hold them (over "model")
+when layer i runs; ``decode_fn`` updates them in place, and they are
+written back to every shard that holds them before the next layer's
+rows or parameters are gathered, and after the step.  A cache leaf
+without a layer axis is gathered whole for the window.
+``sharded_forward`` is the train step's forward without gradients
+(prefill cells).
 
 **One window** (``only=j``): the work of window j's compute index alone
 — its gathers, its forward (and backward, and the reduction into the
@@ -61,16 +82,19 @@ dry run (``launch/dryrun.py``) measures it.
 **Transfers.**  Given a ``transfers`` list, each function appends one
 ``Transfer`` a collective it performs for a receiving mesh index: the
 op, R (the bytes of the result on the receiving index), k (the group
-size), the receiving index and the group.  ``ring_bytes(op, R, k)`` is
-the reference dry run's ring model (``_collective_bytes``).  On a mesh
-that repeats a device the copies stay on the device; the record is what
-a mesh of distinct cards would move.
+size), the receiving index and the group.  Every gather is recorded,
+the recompute's included, and every reduction of a piece's gradients.
+``ring_bytes(op, R, k)`` is the reference dry run's ring model
+(``_collective_bytes``).  On a mesh that repeats a device the copies
+stay on the device; the record is what a mesh of distinct cards would
+move.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Sequence
 from typing import Callable, Optional
 
 import torch
@@ -180,63 +204,210 @@ def _record(transfers, mesh, op, nbytes, k, dst, members):
                                                for m in set(members)))))
 
 
-def _rows(leaf: shd.Sharded, dim: int, r0: int, r1: int, c: int,
-          transfers=None) -> torch.Tensor:
-    """A fresh tensor on mesh index c's device holding rows [r0, r1) of
-    ``leaf`` along ``dim`` (every other dimension whole), gathered from
-    the blocks that hold them (c's own where c holds one)."""
+def _window(leaf: shd.Sharded, ranges: dict, c: int,
+            transfers=None) -> torch.Tensor:
+    """A fresh tensor on mesh index c's device holding ``leaf`` over
+    ``ranges`` ({dim: (lo, hi)}; every other dimension whole), gathered
+    from the blocks that hold it (c's own where c holds one), each
+    block's part cut before it moves."""
     sh = leaf.sharding
     counts = list(sh.counts(leaf.ndim))
-    if leaf.ndim:
-        step = leaf.shape[dim] // counts[dim]
-        lo, hi = r0 // step, -(-r1 // step)
-        counts[dim] = hi - lo
-    src = {}
+    size = sh.shard_shape(leaf.shape)
+    first = [0] * leaf.ndim
+    for d, (r0, r1) in ranges.items():
+        first[d] = r0 // size[d]
+        counts[d] = -(-r1 // size[d]) - first[d]
+    src, parts = {}, {}
     for blk, holders in sh.blocks(leaf.shape).items():
-        if leaf.ndim:
-            if not lo <= blk[dim] < hi:
-                continue
-            blk = blk[:dim] + (blk[dim] - lo,) + blk[dim + 1:]
-        src[blk] = c if c in holders else holders[0]
-    out = shd.assemble({k: leaf.shards[p] for k, p in src.items()}, counts,
-                       _device(sh.mesh, c))
+        rel = tuple(b - f for b, f in zip(blk, first))
+        if any(not 0 <= rel[d] < counts[d] for d in ranges):
+            continue
+        p = c if c in holders else holders[0]
+        part = leaf.shards[p]
+        for d, (r0, r1) in ranges.items():
+            a = blk[d] * size[d]
+            lo, hi = max(r0, a), min(r1, a + size[d])
+            if (lo, hi) != (a, a + size[d]):
+                part = part.narrow(d, lo - a, hi - lo)
+        src[rel], parts[rel] = p, part
+    out = shd.assemble(parts, counts, _device(sh.mesh, c))
     if any(p != c for p in src.values()):
         _record(transfers, sh.mesh, "all-gather",
                 out.numel() * out.element_size(), len(src), c,
                 list(src.values()) + [c])
-    if leaf.ndim and (r0, r1) != (lo * step, hi * step):
-        out = out.narrow(dim, r0 - lo * step, r1 - r0).clone()
     return out
 
 
-def _write_rows(leaf: shd.Sharded, dim: int, r0: int, rows: torch.Tensor,
-                c: int, positions, transfers=None) -> None:
-    """Write ``rows`` (rows [r0, r0 + len) of ``leaf`` along ``dim``,
-    every other dimension whole, on index c's device) into each shard of
-    ``positions`` that holds any of them."""
+def _write_window(leaf: shd.Sharded, starts: dict, block: torch.Tensor,
+                  c: int, positions, transfers=None) -> None:
+    """Write ``block`` (``leaf`` from ``starts`` ({dim: first index})
+    along those dimensions, every other dimension whole, on index c's
+    device) into each shard of ``positions`` that holds any of it."""
     sh = leaf.sharding
-    r1 = r0 + rows.shape[dim]
     for p in positions:
         win = sh.index(p, leaf.shape)
-        a, b = win[dim].start, win[dim].stop
-        lo, hi = max(a, r0), min(b, r1)
-        if lo >= hi:
-            continue
         src = list(win)
-        src[dim] = slice(lo - r0, hi - r0)
         dst = [slice(None)] * leaf.ndim
-        dst[dim] = slice(lo - a, hi - a)
-        part = rows[tuple(src)]
-        leaf.shards[p][tuple(dst)].copy_(part)
-        if p != c:
-            _record(transfers, sh.mesh, "copy",
-                    part.numel() * part.element_size(), 2, p, (c, p))
+        for d, r0 in starts.items():
+            a, b = win[d].start, win[d].stop
+            lo, hi = max(a, r0), min(b, r0 + block.shape[d])
+            if lo >= hi:
+                break
+            src[d] = slice(lo - r0, hi - r0)
+            dst[d] = slice(lo - a, hi - a)
+        else:
+            part = block[tuple(src)]
+            leaf.shards[p][tuple(dst)].copy_(part)
+            if p != c:
+                _record(transfers, sh.mesh, "copy",
+                        part.numel() * part.element_size(), 2, p, (c, p))
 
 
-def _gather_params(leaves, c, transfers):
-    """Every parameter leaf whole on c's device, each a fresh leaf."""
-    return [_rows(leaf, 0, 0, leaf.shape[0] if leaf.ndim else 1, c,
-                  transfers) for leaf in leaves]
+# ---------------------------------------------------------------------------
+# A compute index's view of the trees: a layer at a time
+# ---------------------------------------------------------------------------
+
+def _release(tree) -> None:
+    """Empty a gathered subtree's dicts and lists in place, so that its
+    tensors are freed once nothing else holds them."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _release(v)
+        tree.clear()
+    elif isinstance(tree, list):
+        for v in tree:
+            _release(v)
+        tree.clear()
+
+
+class _Layers(Sequence):
+    """A layer stack as the model code walks it: item i is layer i's
+    subtree, made by ``fetch(i)`` each time it is asked for.  Iterating
+    releases each item before it makes the next, and the last when the
+    walk ends, so that a walk holds one layer at a time."""
+
+    def __init__(self, n: int, fetch: Callable):
+        self._n = n
+        self._fetch = fetch
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        if not isinstance(i, int):
+            raise TypeError(f"a layer stack is indexed by layer, not {i!r}")
+        if not -self._n <= i < self._n:
+            raise IndexError(i)
+        return self._fetch(i % self._n)
+
+    def __iter__(self):
+        item = None
+        try:
+            for i in range(self._n):
+                _release(item)
+                item = self._fetch(i)
+                yield item
+        finally:
+            _release(item)
+
+
+class _GatherLayer(torch.autograd.Function):
+    """Forward: ``gather()``'s fresh copies of a layer's leaves.
+    Backward: their gradients handed to ``reduce`` (the reduction into
+    the blocks' accumulators), nothing returned: no gradient reaches a
+    shard.  ``anchor`` is a scalar that requires grad, so that autograd
+    runs the backward."""
+
+    @staticmethod
+    def forward(ctx, anchor, gather, reduce):
+        ctx.reduce = reduce
+        ctx.set_materialize_grads(False)
+        return tuple(gather())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.reduce(grads)
+        return None, None, None
+
+
+def _placed_params(params, c, transfers, *, anchor=None, reduce=None,
+                   before=None):
+    """The parameter dict a window's compute index c runs the model on,
+    and its whole-gathered leaves [(flat index, tensor)].
+
+    The layer stacks, the dict's lists, are ``_Layers``: item i gathers
+    layer i (through ``_GatherLayer`` when grad is enabled and
+    ``anchor`` is given, ``reduce(flat indices, grads)`` taking its
+    gradients), after ``before()``.  Every other leaf is gathered whole
+    now (requiring grad when ``anchor`` is given)."""
+    leaves = _tree.leaves(params)
+    index = _tree.unflatten(params, range(len(leaves)))
+    stacks = {name for name, sub in index.items() if isinstance(sub, list)}
+    in_stacks = {k for name in stacks for k in _tree.leaves(index[name])}
+    whole = {}
+    for k, leaf in enumerate(leaves):
+        if k not in in_stacks:
+            whole[k] = _window(leaf, {}, c, transfers)
+            if anchor is not None:
+                whole[k].requires_grad_(True)
+
+    def fetch(item):
+        if before is not None:
+            before()
+        ks = _tree.leaves(item)
+
+        def gather():
+            return [_window(leaves[k], {}, c, transfers) for k in ks]
+        if anchor is not None and torch.is_grad_enabled():
+            out = _GatherLayer.apply(anchor, gather,
+                                     lambda grads: reduce(ks, grads))
+        else:
+            out = gather()
+        return _tree.unflatten(item, out)
+
+    def view(name, sub):
+        if name in stacks:
+            return _Layers(len(sub), lambda i: fetch(sub[i]))
+        return _tree.map_with_path(lambda _, k: whole[k], sub)
+
+    tree = {name: view(name, sub) for name, sub in index.items()}
+    return tree, sorted(whole.items())
+
+
+class _CacheRows:
+    """A stacked cache leaf's view for one window: ``view[i]`` (``[g,
+    i]`` for two layer axes: the dimensions before the batch dimension)
+    gathers that layer's rows of the window onto c's device and returns
+    them; the rows held are written back to ``positions``' shards
+    (``flush``) before other rows are gathered."""
+
+    def __init__(self, leaf, dim, w0, w1, c, positions, transfers):
+        self.leaf, self.dim, self.w0, self.w1 = leaf, dim, w0, w1
+        self.c, self.positions, self.transfers = c, positions, transfers
+        self._held = None           # (layer index, rows with its axes)
+
+    def __getitem__(self, idx):
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        if len(idx) != self.dim or not all(isinstance(i, int)
+                                           for i in idx):
+            raise TypeError(f"cache rows are indexed by {self.dim} layer "
+                            f"indices, not {idx!r}")
+        if self._held is None or self._held[0] != idx:
+            self.flush()
+            ranges = {d: (i, i + 1) for d, i in enumerate(idx)}
+            ranges[self.dim] = (self.w0, self.w1)
+            self._held = (idx, _window(self.leaf, ranges, self.c,
+                                       self.transfers))
+        return self._held[1][(0,) * self.dim]
+
+    def flush(self) -> None:
+        if self._held is not None:
+            idx, rows = self._held
+            starts = {d: i for d, i in enumerate(idx)}
+            starts[self.dim] = self.w0
+            _write_window(self.leaf, starts, rows, self.c, self.positions,
+                          self.transfers)
+            self._held = None
 
 
 def _windows(batch_leaves) -> list:
@@ -314,7 +485,8 @@ def _weights(batch: dict, windows, pieces, n: int, transfers, mesh):
 
 
 def _run_piece(loss_fn, params, leaves, batch_rows, weights, grad: bool):
-    """One piece's (weighted metrics, gradients of ``leaves`` or None)."""
+    """One piece's (weighted metrics, gradients of ``leaves`` or None; a
+    leaf the loss does not reach gets None)."""
     w_ce, w_rest = weights
     loss, metrics = loss_fn(params, batch_rows)
     ce = metrics.get("ce")
@@ -322,8 +494,6 @@ def _run_piece(loss_fn, params, leaves, batch_rows, weights, grad: bool):
     grads = None
     if grad:
         grads = torch.autograd.grad(objective, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
     weighted = {}
     for k, v in metrics.items():
         v = v.detach()
@@ -346,8 +516,9 @@ def _forward_windows(loss_fn, mesh, params, batch, *, n, grad, only,
                      max_pieces, transfers, on_grads=None):
     """Run every piece (of window ``only``, when given) on its compute
     index; returns the summed weighted metrics on index 0's device (or
-    the window's)."""
-    param_leaves = _tree.leaves(params)
+    the window's).  With ``grad``, ``on_grads(c, flat indices, grads)``
+    takes each piece's gradients: a layer's from its backward, the
+    whole-gathered leaves' after it."""
     batch_leaves = _tree.leaves(batch)
     windows = _windows(batch_leaves)
     b = batch_leaves[0].shape[0]
@@ -361,23 +532,26 @@ def _forward_windows(loss_fn, mesh, params, batch, *, n, grad, only,
         mine = [(p, w) for p, w in zip(pieces, weights) if p[0] == j]
         if max_pieces is not None:
             mine = mine[:max_pieces]
-        full = _gather_params(param_leaves, c, transfers)
+        anchor = None
         if grad:
-            for t in full:
-                t.requires_grad_(True)
-        full_tree = _tree.unflatten(params, full)
-        rows = {k: _rows(v, 0, w0, w1, c, transfers)
+            anchor = torch.zeros((), device=_device(mesh, c),
+                                 requires_grad=True)
+        tree, whole = _placed_params(
+            params, c, transfers, anchor=anchor,
+            reduce=lambda ks, grads, c=c: on_grads(c, ks, grads))
+        rows = {k: _window(v, {0: (w0, w1)}, c, transfers)
                 for k, v in batch.items()}
         for (_, _, lo, hi), w in mine:
             piece = {k: v.narrow(0, lo - w0, hi - lo) for k, v in rows.items()}
             with torch.set_grad_enabled(grad):
-                part, grads = _run_piece(loss_fn, full_tree, full, piece, w,
-                                         grad)
+                part, grads = _run_piece(
+                    loss_fn, tree, [t for _, t in whole] + [anchor], piece,
+                    w, grad)
             _add_metrics(metrics, part, out_dev)
             if grads is not None:
-                on_grads(c, grads)
+                on_grads(c, [k for k, _ in whole], grads[:-1])
             del grads
-        del full, full_tree, rows
+        del tree, whole, rows
     if len(windows) > 1 and only is None:
         for _, _, c in windows:
             _record(transfers, mesh, "all-reduce", 4 * len(metrics),
@@ -435,19 +609,24 @@ class ShardedTrainStep:
                                                 else positions[0]))
                 for blk, ps in groups.items() if blk in mine})
 
-        def reduce(c, grads):
-            for leaf, g, blocks in zip(params, grads, acc):
-                for blk, a in blocks.items():
-                    win = tuple(slice(i * n, (i + 1) * n) for i, n in
-                                zip(blk, a.shape))
-                    a.add_(g[win].to(a.device, torch.float32))
+        # each piece's reduction is recorded once: by window `only`, or
+        # by window 0 for the windows that run beside it
+        recorder = windows[0 if only is None else only][2]
+
+        def reduce(c, ks, grads):
+            for k, g in zip(ks, grads):
+                if g is not None:
+                    for blk, a in acc[k].items():
+                        win = tuple(slice(i * n, (i + 1) * n) for i, n in
+                                    zip(blk, a.shape))
+                        a.add_(g[win].to(a.device, torch.float32))
+                if c == recorder:
+                    _reduce_records(tr, mesh, params[k], positions, computes)
 
         metrics, _ = _forward_windows(
             self.loss_fn, mesh, state.params, batch,
             n=self.options.grad_accum, grad=True, only=only,
             max_pieces=max_pieces, transfers=tr, on_grads=reduce)
-        for leaf in params:
-            _reduce_records(tr, mesh, leaf, positions, computes)
 
         # the clip's norm: every block once
         home = _device(mesh, positions[0])
@@ -555,23 +734,26 @@ def sharded_decode_step(decode_fn: Callable, mesh, params, tokens, caches,
         raise ValueError(f"{len(dims)} batch dims for {len(cache_leaves)} "
                          "cache leaves")
     windows = _windows([tokens])
-    param_leaves = _tree.leaves(params)
     out = []
     for j, (w0, w1, c) in enumerate(windows):
         if only is not None and j != only:
             continue
-        full = _tree.unflatten(params, _gather_params(param_leaves, c,
-                                                      transfers))
-        tok = _rows(tokens, 0, w0, w1, c, transfers)
-        rows = [_rows(leaf, d, w0, w1, c, transfers)
-                for leaf, d in zip(cache_leaves, dims)]
-        logits, new = decode_fn(full, tok, _tree.unflatten(caches, rows),
-                                pos)
         positions = range(mesh.size) if only is None else [c]
-        for leaf, d, r in zip(cache_leaves, dims, _tree.leaves(new)):
-            _write_rows(leaf, d, w0, r, c, positions, transfers)
+        views = [_CacheRows(leaf, d, w0, w1, c, positions, transfers)
+                 for leaf, d in zip(cache_leaves, dims)]
+        held = [v if v.dim else v[()] for v in views]
+
+        def flush():
+            for v in views:
+                if v.dim:
+                    v.flush()
+        tree, _ = _placed_params(params, c, transfers, before=flush)
+        tok = _window(tokens, {0: (w0, w1)}, c, transfers)
+        logits, _ = decode_fn(tree, tok, _tree.unflatten(caches, held), pos)
+        for v in views:
+            v.flush()
         out.append((c, logits))
-        del full, rows, new
+        del tree, views, held
     dev = _device(mesh, 0 if only is None else windows[only][2])
     logits = torch.cat([lg.to(dev) for _, lg in out], dim=0)
     if only is None:

@@ -133,8 +133,10 @@ def lm_hidden(params, tokens, cfg):
     x0 = L.embed_lookup(params["embed"], tokens,
                         L.dtype_of(cfg.compute_dtype))
 
-    def group_body(h, group):
-        blocks_g, lora_g = group
+    def group_body(h, g):
+        # the group's leaves are read here, inside the checkpointed body
+        # (``layers.scan``)
+        blocks_g, lora_g = params["mamba"][g], params["lora"][g]
         h = shared_attn_apply(params["shared"], lora_g, h, x0, cfg)
         for blk in blocks_g:
             y, _ = S.mamba2_apply(blk["mamba"],
@@ -142,8 +144,7 @@ def lm_hidden(params, tokens, cfg):
             h = h + y
         return h, None
 
-    x, _ = L.scan(cfg, group_body, x0,
-                  list(zip(params["mamba"], params["lora"])))
+    x, _ = L.scan(cfg, group_body, x0, range(len(params["mamba"])))
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 

@@ -179,24 +179,32 @@ def stack_layer_params(init_fn, gen, n_layers):
 
 
 def scan(cfg, body, carry, xs):
-    """``lax.scan`` over a layer stack: ``body(carry, x) -> (carry, y)``
-    for each x in ``xs`` in turn; returns (carry, [y, ...]).
+    """``lax.scan`` over a layer stack: ``body(carry, xs[i]) -> (carry,
+    y)`` for each i in turn; returns (carry, [y, ...]).
 
     With ``cfg.remat == "full"`` and grad enabled, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): only its inputs are kept
     and its forward runs again in the backward pass — the reference's
-    per-layer ``jax.checkpoint``.  ``cfg.scan_unroll`` has nothing to
-    unroll here.
+    per-layer ``jax.checkpoint``.  ``xs[i]`` is read inside the
+    checkpointed body, so a stack whose items are made when read (the
+    sharded executor's per-layer gather, ``dist.spmd``) makes layer i
+    again for the recompute and keeps none of it between the passes.
+    ``cfg.scan_unroll`` has nothing to unroll here.
     """
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     ys = []
-    for x in xs:
+    for i in range(len(xs)):
         if remat:
-            carry, y = checkpoint(body, carry, x, use_reentrant=False)
+            carry, y = checkpoint(_item_body, body, carry, xs, i,
+                                  use_reentrant=False)
         else:
-            carry, y = body(carry, x)
+            carry, y = body(carry, xs[i])
         ys.append(y)
     return carry, ys
+
+
+def _item_body(body, carry, xs, i):
+    return body(carry, xs[i])
 
 
 # -- loss ----------------------------------------------------------------------

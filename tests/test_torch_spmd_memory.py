@@ -1,0 +1,222 @@
+"""What a compute index of the sharded executor (``dist.spmd``) holds: its
+shards and one layer at a time, not the whole model.
+
+* Peak live bytes, by the dry run's tracker (``launch.dryrun._run``:
+  ``FakeTensorMode``, the live storages' bytes), of window 0's share of
+  the sharded train step (``cfg.remat == "full"``) and of the sharded
+  decode step, for a reduced dense and a reduced MoE config widened to
+  d_ff 1024 (so that a layer outweighs the embeddings), on a (4 data x
+  2 model) mesh of ``["cpu"] * 8``, at 2 and at 3 layers: the added
+  layer adds less than half a layer's parameter bytes.  A whole-tree
+  gather adds one layer (decode) or two (train: the gathered copy and
+  its gradient).
+* The transfer record of a real run on that mesh: each layer's leaves
+  gathered once a microbatch piece, once more for the recompute under
+  remat "full"; the embeddings and head once a window; one reduction a
+  parameter a piece; in decode, each layer's cache rows of the window
+  gathered once a step.
+* The per-layer views hold every family's decode: the sharded decode
+  step of the reduced rwkv, hybrid, encdec and vlm configs, 3 greedy
+  steps of 8 slots, against the port's single device and the JAX
+  reference's on the same carried weights and tokens (``decode_ref``):
+  logits ``rtol=1e-5, atol=1e-6`` against both, the same tokens; caches
+  after ``rtol=1e-5, atol=1e-6`` against one device, and against the
+  reference ``rtol=1e-5`` with ``atol`` 1e-5 of the leaf's largest
+  magnitude, at least 1e-5.  Their sharded train step under remat
+  "full" is held to the reference's in ``test_torch_train.py``, which
+  compiles that step once a family already.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import _tree
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ModelConfig, ShapeCell
+from repro_torch.dist import make_mesh, spmd
+from repro_torch.dist import sharding as shd
+from repro_torch.launch import dryrun as D
+from repro_torch.models import model_zoo
+from repro_torch.train import TrainOptions
+from repro_torch.train.trainer import init_state
+from test_torch_support import (carried_params, jax_ref_alias,  # noqa: F401
+                                one_thread, port_leaf, reset_torch_state)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
+
+ARCHS = ["minicpm", "phi3.5-moe"]
+FAMILIES = ["rwkv6", "zamba2", "seamless", "internvl2"]
+TRAIN = ShapeCell("train_small", 16, 8, "train")
+DECODE = ShapeCell("decode_small", 16, 8, "decode")
+DECODE_STEPS = 3
+DECODE_TOL = dict(rtol=1e-5, atol=1e-6)
+# caches against the reference: the family files' tolerance
+# (test_torch_rwkv.py, test_torch_ssm_hybrid.py, test_torch_vlm_encdec.py:
+# rtol 1e-5, atol 1e-5), the atol taken of the leaf's largest magnitude
+# where that passes 1 (the WKV state reaches ~3)
+CACHE_RTOL = 1e-5
+
+
+def _mesh(devices="cpu"):
+    return make_mesh((4, 2), ("data", "model"), devices=[devices] * 8)
+
+
+def _cfg(arch, layers, **kw):
+    return reduced(get_config(arch), num_layers=layers, **kw)
+
+
+def _layer_bytes(cfg) -> int:
+    blocks = D._meta_params(cfg)["blocks"]
+    return sum(t.numel() * t.element_size() for t in _tree.leaves(blocks[0]))
+
+
+def _split(leaves) -> list:
+    return [leaf for leaf in leaves
+            if len(leaf.sharding.blocks(leaf.shape)) > 1]
+
+
+def _nbytes(leaf) -> int:
+    return int(np.prod(leaf.shape)) * leaf.shards[0].element_size()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", [TRAIN, DECODE], ids=["train", "decode"])
+def test_peak_grows_by_less_than_half_a_layer_a_layer(arch, shape):
+    temp = {n: D._run(_cfg(arch, n, d_ff=1024, remat="full"), shape,
+                      _mesh(), 1)["temp_bytes"] for n in (2, 3)}
+    per_layer = temp[3] - temp[2]
+    layer = _layer_bytes(_cfg(arch, 2, d_ff=1024))
+    assert 0 <= per_layer < layer / 2, (temp, layer)
+
+
+def _train_run(arch, remat, accum):
+    cfg = _cfg(arch, 2, remat=remat)
+    api = model_zoo.build(cfg, device="cpu")
+    state = init_state(api.init(torch.Generator().manual_seed(0)))
+    batch = api.make_batch(torch.Generator().manual_seed(1), 8, 16)
+    mesh = _mesh()
+    sh = spmd.train_state_shardings(state, mesh, cfg)
+    transfers = []
+    step = spmd.make_sharded_train_step(
+        api.loss_fn, TrainOptions(grad_accum=accum), mesh, sh,
+        shd.batch_shardings(batch, mesh), transfers=transfers)
+    placed = shd.device_put(state, sh)
+    _, metrics = step(placed, batch, only=0)
+    return placed.params, transfers, metrics
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_train_gathers_a_layer_a_piece_and_again_for_the_recompute(arch,
+                                                                    remat):
+    # 8 rows over 4 windows, a row a microbatch: 2 pieces a window
+    params, transfers, metrics = _train_run(arch, remat, accum=8)
+    assert np.isfinite(float(metrics["loss"]))
+    pieces, passes = 2, 2 if remat == "full" else 1
+    layers = _split(_tree.leaves(params["blocks"]))
+    whole = _split([leaf for k, v in params.items() if k != "blocks"
+                    for leaf in _tree.leaves(v)])
+    gathers = [t for t in transfers if t.op == "all-gather"]
+    assert {t.dst for t in transfers} == {0}
+    assert len(gathers) == len(whole) + pieces * passes * len(layers)
+    assert sum(t.nbytes for t in gathers) == (
+        sum(map(_nbytes, whole))
+        + pieces * passes * sum(map(_nbytes, layers)))
+    reductions = [t for t in transfers if t.op == "reduce-scatter"
+                  or (t.op == "all-reduce" and t.k == 4)]
+    assert len(reductions) == pieces * len(_tree.leaves(params))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_gathers_each_layers_cache_rows_once_a_step(arch):
+    cfg = _cfg(arch, 2)
+    api = model_zoo.build(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(2))
+    mesh = _mesh()
+    caches = api.init_caches(8, 16, torch.float32)
+    meta = model_zoo.build(cfg, device="meta")
+    dims = spmd.cache_batch_dims(lambda b: meta.init_caches(
+        b, 16, torch.float32))
+    pc = shd.device_put(params, shd.param_shardings(params, mesh))
+    cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
+    tok = torch.zeros((8, 1), dtype=torch.int32)
+    transfers = []
+    spmd.sharded_decode_step(api.decode_fn, mesh, pc, tok, cc, 0,
+                             batch_dims=dims, only=0, transfers=transfers)
+    gathers = [t for t in transfers if t.op == "all-gather"]
+    split = _split(_tree.leaves(pc))
+    cache_leaves = _tree.leaves(cc)
+    # a layer's rows of window 0 (2 of 8 slots), whole over "model"
+    rows = [_nbytes(c) // (cfg.num_layers * 4) for c in cache_leaves]
+    want = sorted([_nbytes(p) for p in split] + rows * cfg.num_layers)
+    assert sorted(t.nbytes for t in gathers) == want
+
+
+def _placed_decode(api, cfg, params, slots, max_seq, mesh):
+    caches = api.init_caches(slots, max_seq, torch.float32)
+    meta = model_zoo.build(cfg, device="meta")
+    dims = spmd.cache_batch_dims(lambda b: meta.init_caches(
+        b, max_seq, torch.float32))
+    pc = shd.device_put(params, shd.param_shardings(params, mesh))
+    cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
+    return caches, dims, pc, cc
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def decode_ref(request):
+    """One family's reduced config in the JAX reference: the carried
+    weights and 3 greedy decode steps of 8 slots from seeded tokens (the
+    tokens fed, the logits, the caches after)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as j_get
+    from repro.configs import reduced as j_reduced
+    from repro.models import model_zoo as jzoo
+    with jax_ref_alias():
+        jcfg = j_reduced(j_get(request.param))
+        japi = jzoo.build(jcfg)
+        tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+        jparams, tparams = carried_params(japi, tcfg, seed=5)
+        toks = np.random.default_rng(4).integers(
+            0, jcfg.vocab_size, (8, 1)).astype(np.int32)
+        decode = jax.jit(japi.decode_fn)
+        caches, tok, fed, logits = japi.init_caches(8, 8, jnp.float32), \
+            jnp.asarray(toks), [], []
+        for pos in range(DECODE_STEPS):
+            fed.append(np.array(tok))
+            out, caches = decode(jparams, tok, caches, pos)
+            logits.append(np.asarray(out))
+            tok = jnp.argmax(out[:, -1], -1).astype(jnp.int32)[:, None]
+        return dict(tcfg=tcfg, tparams=tparams, fed=fed, logits=logits,
+                    caches=jax.tree.map(np.asarray, caches))
+
+
+def test_every_familys_sharded_decode_equals_single_device_and_reference(
+        decode_ref):
+    cfg, params = decode_ref["tcfg"], decode_ref["tparams"]
+    api = model_zoo.build(cfg, device="cpu")
+    mesh = _mesh()
+    caches, dims, pc, cc = _placed_decode(api, cfg, params, 8, 8, mesh)
+    t1 = t2 = torch.as_tensor(decode_ref["fed"][0])
+    with torch.no_grad():
+        for pos in range(DECODE_STEPS):
+            assert torch.equal(t2, torch.as_tensor(decode_ref["fed"][pos]))
+            l1, caches = api.decode_fn(params, t1, caches, pos)
+            l2, cc = spmd.sharded_decode_step(api.decode_fn, mesh, pc, t2,
+                                              cc, pos, batch_dims=dims)
+            np.testing.assert_allclose(l2.numpy(), l1.numpy(), **DECODE_TOL)
+            np.testing.assert_allclose(l2.numpy(), decode_ref["logits"][pos],
+                                       **DECODE_TOL)
+            t1 = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
+            t2 = l2[:, -1].argmax(-1).to(torch.int32)[:, None]
+            assert torch.equal(t1, t2)
+    for path, a in _tree.leaves_with_path(caches):
+        b = shd.gather(port_leaf(cc, path)).numpy()
+        np.testing.assert_allclose(b, a.numpy(), **DECODE_TOL)
+        want = port_leaf(decode_ref["caches"], path)
+        np.testing.assert_allclose(
+            b, want, rtol=CACHE_RTOL,
+            atol=CACHE_RTOL * max(1.0, np.abs(want).max()), err_msg=str(path))

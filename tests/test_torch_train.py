@@ -368,6 +368,70 @@ def test_remat_full_recomputes_each_layer_and_changes_nothing(
         assert torch.equal(a, b)
 
 
+def _reference_grad_check(path, got, want, family):
+    """``test_train_step_matches_reference``'s tolerance for one gradient
+    leaf."""
+    if "router" in str(path):
+        tol = dict(rtol=0, atol=2.0**-7 * np.abs(want).max())
+    elif family in RECURRENT:
+        tol = dict(rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    else:
+        tol = dict(rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, want, **tol, err_msg=str(path))
+
+
+def test_sharded_remat_full_step_matches_reference(stepped):
+    """The sharded executor's step under remat "full" (``dist.spmd`` on a
+    (2 data x 2 model) mesh of ``["cpu"] * 4``: each layer gathered
+    inside its checkpointed body, again by the recompute, its gradient
+    reduced by ``_GatherLayer``'s backward) against the reference's step
+    and the port's single-device one.  Against the reference: the
+    metrics and parameters as ``test_train_step_matches_reference``
+    holds them, and the gradient, read back from the first moment (0.1 x
+    the clipped gradient), at that test's gradient tolerances.  Against
+    one device: every metric ``rtol=1e-5, atol=1e-7`` and the first
+    moment ``rtol=1e-4, atol=1e-7`` (``test_torch_spmd.py``'s; the
+    router's one bf16 step of its largest entry)."""
+    from repro_torch.dist import make_mesh, spmd
+    from repro_torch.dist import sharding as shd
+    cfg = dataclasses.replace(stepped["tcfg"], remat="full")
+    api = model_zoo.build(cfg, device="cpu")
+    opts = TrainOptions(**STEP_OPTS)
+    batch = _batch(stepped["batches"][0])
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    state = init_state(_tree.tree_map(lambda t: t.clone(),
+                                      stepped["tparams"]), 0)
+    sh = spmd.train_state_shardings(state, mesh, cfg)
+    step = spmd.make_sharded_train_step(api.loss_fn, opts, mesh, sh,
+                                        shd.batch_shardings(batch, mesh))
+    got, m = step(shd.device_put(state, sh), batch)
+    single, ms = make_train_step(api.loss_fn, opts)(
+        init_state(_tree.tree_map(lambda t: t.clone(), stepped["tparams"]),
+                   0), batch)
+    want = stepped["metrics0"]
+    for k in want:
+        np.testing.assert_allclose(float(m[k]), want[k],
+                                   rtol=1e-6 if k == "lr" else 1e-5,
+                                   atol=1e-6, err_msg=k)
+    for k in ms:
+        np.testing.assert_allclose(float(m[k]), float(ms[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    clip = min(1.0, opts.max_grad_norm / want["grad_norm"])
+    for path, g in reference_leaves(stepped["jgrads"]):
+        mu = shd.gather(port_leaf(got.opt.mu, path)).numpy()
+        one = port_leaf(single.opt.mu, path).numpy()
+        tol = (dict(rtol=0, atol=2.0**-7 * np.abs(one).max())
+               if "router" in str(path) else dict(rtol=1e-4, atol=1e-7))
+        np.testing.assert_allclose(mu, one, **tol, err_msg=str(path))
+        _reference_grad_check(path, mu / ((1 - opts.b1) * clip), g,
+                              stepped["family"])
+    for path, want_p in reference_leaves(stepped["params1"]):
+        diff = np.abs(shd.gather(port_leaf(got.params, path)).numpy()
+                      - want_p)
+        assert diff.max() <= 2.5 * LR, (path, diff.max())
+        assert (diff > 1e-6).mean() <= 1e-3, (path, (diff > 1e-6).mean())
+
+
 # -- the reference's training tests, mirrored ---------------------------------
 
 def test_loss_goes_down():
