@@ -4325,26 +4325,55 @@ def alloc_slack():
                if b["state"] == "active_allocated")
 
 
+def moved(transfers, steps) -> str:
+    """The transfer record a step, every mesh index: weight gathers
+    (count), and by kind of move the results' GB received and the ring
+    model's GB moved (``Transfer.traffic``), the activations' by op."""
+    got, ring, acts = {}, {}, {}
+    for t in transfers:
+        got[t.kind] = got.get(t.kind, 0.0) + t.nbytes
+        ring[t.kind] = ring.get(t.kind, 0.0) + t.traffic
+        if t.kind == "activation":
+            acts[t.op] = acts.get(t.op, 0.0) + t.traffic
+    gathers = sum(t.kind == "weight" for t in transfers)
+    gb = lambda d: {k: round(v / steps / 1e9, 6) for k, v in d.items()}
+    return (f"{gathers / steps:.0f} weight gathers a step; GB a step "
+            f"received {gb(got)}, moved {gb(ring)}; activations over "
+            f"\"model\" moved by op {gb(acts)}")
+
+
 def sharding_phase(dev, compare):
     """A model's state over a mesh of four shards of the card.
 
     (a) ``spmd.make_sharded_train_step`` on Phi-3.5-MoE (above) with the
-    reference test's options (``TrainOptions(peak_lr=1e-3)``): each step's
+    reference test's options (``TrainOptions(peak_lr=1e-3)``), routed to
+    the single-device step's experts (``nearest_experts``), its own top-k
+    off them only at near-ties (``MIXTRAL_NEAR_TIE``,
+    ``MIXTRAL_MAX_FLIPS``): each step's
     loss within ``DENSE_RESUME_TOL`` of the single-device step's, every
     parameter after 2 steps within ``SHARD_PARAM_TOL`` and every first
     moment (the gradient's trace) within ``TOL_BF16``'s rtol in L2;
-    moe_route launches = data shards x (forward + recompute) x steps;
+    moe_route launches = data shards x model ranks x (forward +
+    recompute) x steps;
     the bytes the placement asks of the allocator equal to every shard's
     bytes, and ``memory_allocated``'s growth equal to them at the
     allocator's 512-byte granule plus the cached blocks it handed out
     whole (``alloc_slack``).
+    Each window runs on both indices of its model row, every product
+    split over "model" (``dist.annotate``'s group): moe_route launches
+    once a rank too, and each phase prints the transfer record a step
+    (``moved``: weights gathered over "data", activations moved over
+    "model").
     Prints the step ms of both, the peak memory and the replicas' bytes;
     the routing of one sharded forward against the kernel's plain version
     (``compare``, after the counters are read).  (b)
-    ``spmd.sharded_decode_step`` against ``decode_fn``: the same greedy
-    tokens, each logit row within ``TOL_BF16``'s rtol in L2.  (d)
+    ``spmd.sharded_decode_step`` against ``decode_fn``, both fed the
+    single device's greedy tokens: each logit row within ``TOL_BF16``'s
+    rtol in L2, the sharded run's own greedy choice off those tokens only
+    at near-ties (``SHARD_TOKEN_NEAR_TIE``).  (d)
     ``sharded_mixtral``: Mixtral-8x22B, 5 of 56 layers, which the card
-    holds only a layer at a time beside its shards.  (c)
+    holds only a layer at a time beside its shards, its dispatch and
+    combine on the dense crossbar.  (c)
     ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` (per_device, roofline,
     wall seconds), each within 80 GB and its ``DRYRUN_PEAK_GIB`` a device, and
     ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
@@ -4421,41 +4450,54 @@ def sharding_phase(dev, compare):
         f" 512-byte granule + {slack} of cached blocks too small to split")
     opts = TrainOptions(peak_lr=1e-3)
     single = make_train_step(api.loss_fn, opts)
-    hist_1 = []
+    hist_1, seen_1 = [], []
     for s in range(SHARD_STEPS):
-        secs, (state, m) = host_s(lambda: single(state, batches[s]))
+        with recorded_routing() as seen:
+            secs, (state, m) = host_s(lambda: single(state, batches[s]))
         hist_1.append((secs, {k: float(v) for k, v in m.items()}))
+        seen_1.append(seen)
 
     transfers = []
     step = spmd.make_sharded_train_step(api.loss_fn, opts, mesh, *sh,
                                         transfers=transfers)
     real_route = ops.moe_route_transform
-    seen = []
+    first_route = []
 
     def record(ids, **kw):
-        if not seen:
-            seen.append((ids.clone(), kw))
+        if not first_route:
+            first_route.append((ids.clone(), kw))
         return real_route(ids, **kw)
 
-    hist_s = []
+    hist_s, seen_s, near = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     ops.moe_route_transform = record
     try:
         for s in range(SHARD_STEPS):
-            secs, (placed, m) = host_s(lambda: step(
-                placed, batch0 if s == 0 else batches[s]))
+            with recorded_routing(nearest_experts(seen_1[s], near)) as seen:
+                secs, (placed, m) = host_s(lambda: step(
+                    placed, batch0 if s == 0 else batches[s]))
             hist_s.append((secs, {k: float(v) for k, v in m.items()}))
+            seen_s += seen
     finally:
         ops.moe_route_transform = real_route
     torch.cuda.synchronize()
     counts = dict(launch_counts())
     peak = torch.cuda.max_memory_allocated()
-    want = mesh.shape["data"] * 2 * SHARD_LAYERS * SHARD_STEPS
+    want = (mesh.shape["data"] * mesh.shape["model"] * 2 * SHARD_LAYERS
+            * SHARD_STEPS)
     check(counts["moe_route"] == want,
           f"the sharded steps launched moe_route {counts['moe_route']} "
-          f"times, not {want} (data shards x (forward + recompute) x steps)")
+          f"times, not {want} (data shards x model ranks x (forward + "
+          "recompute) x steps)")
+    check(all(d < second / 4 for d, second in near),
+          f"a sharded routing call's nearest single-device window is not "
+          f"clear of the next: {near}")
+    flips, choices, gap = expert_flips(seen_s, cfg.num_experts_per_tok)
+    check(flips <= MIXTRAL_MAX_FLIPS * choices and gap <= MIXTRAL_NEAR_TIE,
+          f"sharded training: its own top-k differs from the single-device "
+          f"experts at {flips} of {choices} choices, by up to {gap}")
     for s, ((t1, m1), (ts, ms)) in enumerate(zip(hist_1, hist_s)):
         check(all(math.isfinite(ms[k]) for k in ("loss", "grad_norm")),
               f"sharded step {s}: loss {ms['loss']}")
@@ -4494,14 +4536,20 @@ def sharding_phase(dev, compare):
     step_ms = hist_s[-1][0] * 1e3
     log(f"  parameters after {SHARD_STEPS} steps: max |diff| {worst_p:.3e} "
         f"({SHARD_PARAM_TOL}); first moments worst L2 relative "
-        f"{worst_mu:.3e} (<= {TOL_BF16['rtol']}); moe_route launches "
+        f"{worst_mu:.3e} (<= {TOL_BF16['rtol']}); routed to the single "
+        f"device's experts (each call's window matched at router-logit "
+        f"distance <= {max(d for d, _ in near):.6f}, the next window's >= "
+        f"{min(sec for _, sec in near):.6f}), its own top-k off them at "
+        f"{flips} of {choices} choices (gap {gap:.6f}); moe_route launches "
         f"{counts['moe_route']}; sharded step {step_ms:.1f} ms (step 1, host "
         f"clock ending in a synchronise), single-device "
-        f"{hist_1[-1][0] * 1e3:.1f} ms; max_memory_allocated over the "
-        f"sharded steps {peak / 2**30:.2f} GiB (the single-device state "
-        "and the four shards on one card); transfers recorded (ring "
-        f"bytes, every mesh index) {by_op}")
-    ids, kw = seen[0]
+        f"{hist_1[-1][0] * 1e3:.1f} ms; "
+        f"max_memory_allocated over the sharded steps {peak / 2**30:.2f} GiB"
+        " (the single-device state and the four shards on one card); "
+        f"launches {counts}; transfers recorded (ring "
+        f"bytes, every mesh index) {by_op}; "
+        f"{moved(transfers, SHARD_STEPS)}")
+    ids, kw = first_route[0]
     rows = ids.reshape(-1, ids.shape[-2] * ids.shape[-1]).to(torch.int32)
     compare("moe_route", f"sharded step's routing {tuple(ids.shape)}, E="
             f"{kw['num_experts']}, C={kw['capacity']}",
@@ -4509,7 +4557,8 @@ def sharding_phase(dev, compare):
             torch.stack([t.reshape(ids.shape) for t in
                          ref.moe_route_transform(rows, **kw)]))
     a_bytes = exact
-    del state, placed, step, single, batches, batch0, args, seen
+    del state, placed, step, single, batches, batch0, args, first_route
+    del seen, seen_1, seen_s
     torch.cuda.empty_cache()
 
     # ------------------------------------------- (b) sharded decode ---
@@ -4529,33 +4578,52 @@ def sharding_phase(dev, compare):
         pc = shd.device_put(params_b, shd.param_shardings(params_b, mesh))
         cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
         specs = [c.sharding.spec for c in _tree.leaves(cc)]
-        t1 = t2 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        ms_1, ms_s = [], []
+        t1 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ms_1, ms_s, rows_1, rows_s = [], [], [], []
+        dec_tr = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
         for j in range(SHARD_DEC_STEPS):
             pos = SHARD_DEC_PROMPT + j
             s1, (l1, caches) = host_s(lambda: api_b.decode_fn(
                 params_b, t1, caches, pos))
+            # teacher-forced: both runs are fed the single device's token
             s2, (l2, cc) = host_s(lambda: spmd.sharded_decode_step(
-                api_b.decode_fn, mesh, pc, t2, cc, pos, batch_dims=dims))
+                api_b.decode_fn, mesh, pc, t1, cc, pos, batch_dims=dims,
+                transfers=dec_tr))
             ms_1.append(s1 * 1e3)
             ms_s.append(s2 * 1e3)
             close_rows(f"sharded decode step {j} logits vs single-device",
                        l2[:, -1], l1[:, -1], TOL_BF16["rtol"])
+            rows_1.append(l1[:, -1].float())
+            rows_s.append(l2[:, -1].float())
             t1 = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
-            t2 = l2[:, -1].argmax(-1).to(torch.int32)[:, None]
-            check(torch.equal(t1, t2), f"sharded decode step {j}: greedy "
-                  f"tokens {t2.flatten().tolist()} != {t1.flatten().tolist()}")
+    torch.cuda.synchronize()
+    peak_b, counts_b = torch.cuda.max_memory_allocated(), launch_counts()
+    tflips, tokens_b, tgap = token_flips(torch.stack(rows_s),
+                                         torch.stack(rows_1))
+    check(tflips <= MIXTRAL_MAX_FLIPS * tokens_b
+          and tgap <= SHARD_TOKEN_NEAR_TIE, f"sharded decode (b): its greedy"
+          f" choice differs from the single device's token at {tflips} of "
+          f"{tokens_b}, the single device's logits {tgap} apart")
     log(f"sharding phase (b): minicpm-2b full width, {SHARD_DEC_LAYERS} of "
         f"{minicpm_2b.CONFIG.num_layers} layers, {SHARD_BATCH} slots, prompt "
         f"{SHARD_DEC_PROMPT}, caches {specs[0]} on {dict(mesh.shape)}: "
-        f"{SHARD_DEC_STEPS} greedy steps, the same tokens; decode ms a step "
+        f"{SHARD_DEC_STEPS} greedy steps fed the single device's tokens, "
+        f"its own greedy choice off them at {tflips} of {tokens_b} (the "
+        f"single device's logits {tgap:.3e} apart there); rows within "
+        f"{max(row_err(a, b) for a, b in zip(rows_s, rows_1)):.3e} in L2; "
+        f"decode ms a step "
         f"sharded {sorted(ms_s)[len(ms_s) // 2]:.2f}, single-device "
-        f"{sorted(ms_1)[len(ms_1) // 2]:.2f} (medians, host clock)")
+        f"{sorted(ms_1)[len(ms_1) // 2]:.2f} (medians, host clock); peak "
+        f"{peak_b / 2**30:.2f} GiB; launches {counts_b}; "
+        f"{moved(dec_tr, SHARD_DEC_STEPS)}")
     del params_b, pc, cc, caches
     torch.cuda.empty_cache()
 
     # ------------------------- (d) Mixtral-8x22B, a layer at a time ---
-    add_counts(counts, sharded_mixtral(dev))
+    add_counts(counts, sharded_mixtral(dev, compare))
 
     # -------------------------------------------------- (c) dry runs ---
     for arch, shape in DRYRUN_CELLS:
@@ -4605,25 +4673,32 @@ def place_leafwise(tree, shardings):
     return tree
 
 
-def sharded_mixtral(dev):
+def sharded_mixtral(dev, compare):
     """Sharding phase (d): Mixtral-8x22B, ``SHARD_MIX_LAYERS`` of 56
-    layers, greedy decode on one device, then over (2, 2) of the card
-    through ``sharded_decode_step`` on the same weights, the sharded run
-    routed to the single-device run's experts (``recorded_routing``, as
-    the configs phase holds Mixtral): the same greedy tokens, each logit
-    row within ``TOL_BF16``'s rtol in L2, the sharded run's own top-k off
-    those experts only at near-ties (``MIXTRAL_NEAR_TIE``,
-    ``MIXTRAL_MAX_FLIPS``).  Prints each run's peak memory and the
-    gathers a step.  Returns the sharded run's counted launches."""
+    layers, dispatch and combine on the dense crossbar kernel
+    (``dispatch_backend="kernel"``), greedy decode on one device, then
+    over (2, 2) of the card through ``sharded_decode_step`` on the same
+    weights, fed the single device's tokens and routed to its experts
+    (``recorded_routing``, as the configs phase holds Mixtral): each
+    logit row within ``TOL_BF16``'s rtol in L2, the sharded run's own
+    greedy choices and top-k off the single device's only at near-ties
+    (``SHARD_TOKEN_NEAR_TIE``, ``MIXTRAL_NEAR_TIE``,
+    ``MIXTRAL_MAX_FLIPS``); the first sharded dispatch and combine held
+    to the crossbar's plain version (``compare``, after the counters are
+    read).  Prints each run's peak memory and the transfer record a step.
+    Returns the sharded run's counted launches."""
     import dataclasses
 
     import torch
 
     from repro_torch import _tree
     from repro_torch.configs import mixtral_8x22b
+    from repro_torch.core import moe_dispatch as md
     from repro_torch.dist import sharding as shd
     from repro_torch.dist import spmd
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import crossbar_permute as xbk
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model_zoo
     from repro_torch.models import params as MP
@@ -4631,7 +4706,7 @@ def sharded_mixtral(dev):
     cfg = dataclasses.replace(mixtral_8x22b.CONFIG,
                               num_layers=SHARD_MIX_LAYERS,
                               sliding_window=MIXTRAL_WINDOW,
-                              dispatch_backend="auto")
+                              dispatch_backend="kernel")
     n_l, slots = SHARD_MIX_LAYERS, SHARD_MIX_SLOTS
     max_seq = SHARD_MIX_PROMPT + SHARD_MIX_NEW
     steps = max_seq - 1
@@ -4650,12 +4725,13 @@ def sharded_mixtral(dev):
         f"{mixtral_8x22b.CONFIG.num_layers} layers, {n_params / 1e9:.3f} B "
         f"float32 parameters drawn in {secs:.2f} s; {slots} slots x "
         f"({SHARD_MIX_PROMPT} prompt + {SHARD_MIX_NEW} new) tokens, window "
-        f"{MIXTRAL_WINDOW}; {resting / 2**30:.2f} GiB allocated before it")
+        f"{MIXTRAL_WINDOW}, dispatch and combine on the dense crossbar; "
+        f"{resting / 2**30:.2f} GiB allocated before it")
 
-    def run(step_fn, forced=None):
+    def run(step_fn, forced=None, feed=None):
         """Greedy decode: the prompt fed a token a step, then its own
-        argmax.  Returns (logit rows (B, steps, V), new tokens, routing
-        calls)."""
+        argmax (``feed``'s tokens where given).  Returns (logit rows (B,
+        steps, V), new tokens, routing calls)."""
         rows, new, tok = [], [], prompt[:, :1]
         with torch.inference_mode(), recorded_routing(forced) as seen:
             for pos in range(steps):
@@ -4666,6 +4742,8 @@ def sharded_mixtral(dev):
                 else:
                     tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
                     new.append(tok)
+                    if feed is not None:
+                        tok = feed[:, len(new) - 1:len(new)]
         return torch.stack(rows, dim=1), torch.cat(new, dim=1), seen
 
     # ---- one device: the whole model ----
@@ -4695,63 +4773,86 @@ def sharded_mixtral(dev):
     del caches
     meta = model_zoo.build(cfg, device="meta")
     dims = spmd.cache_batch_dims(lambda b: meta.init_caches(b, max_seq))
-    windows = mesh.shape["data"]
+    windows, ranks = mesh.shape["data"], mesh.shape["model"]
     per = slots // windows
-    # the sharded run's routing calls come a window at a time: step,
-    # window, layer
+    # the sharded run's routing calls come a window at a time, each
+    # layer's once a rank of the window's model row: step, window,
+    # layer, rank
     forced = [seen1[pos * n_l + li][0][w * per:(w + 1) * per]
               for pos in range(steps) for w in range(windows)
-              for li in range(n_l)]
-    transfers = []
+              for li in range(n_l) for _ in range(ranks)]
+    transfers, first = [], {}
 
     def sharded(tok, pos):
         logits, _ = spmd.sharded_decode_step(
             api.decode_fn, mesh, placed, tok, cc, pos, batch_dims=dims,
             transfers=transfers)
         return logits
+
+    def kept(name, fn):
+        """``fn`` with its first call's (plan, payload) kept."""
+        plan_of = md.dispatch_plan if name == "dispatch" else md.combine_plan
+
+        def call(x, routing, **kw):
+            if name not in first:
+                first[name] = (plan_of(routing),
+                               x.reshape(-1, x.shape[-1]).clone())
+            return fn(x, routing, **kw)
+        return call
+    real = md.dispatch, md.combine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    secs2, (rows2, toks2, seen2) = host_s(lambda: run(sharded, forced))
+    md.dispatch, md.combine = kept("dispatch", real[0]), kept("combine",
+                                                              real[1])
+    try:
+        secs2, (rows2, toks2, seen2) = host_s(lambda: run(sharded, forced,
+                                                          toks1))
+    finally:
+        md.dispatch, md.combine = real
     counts = dict(launch_counts())
     peak2 = torch.cuda.max_memory_allocated()
-    gathers = [t for t in transfers if t.op == "all-gather"]
-    check(counts["moe_route"] == steps * windows * n_l,
+    calls = steps * windows * n_l * ranks
+    check(counts["moe_route"] == calls,
           f"sharded mixtral launched moe_route {counts['moe_route']} times, "
-          f"not steps x windows x layers = {steps * windows * n_l}")
+          f"not steps x windows x layers x ranks = {calls}")
+    check(counts["crossbar_dense"] == 2 * calls,
+          f"sharded mixtral launched the dense crossbar "
+          f"{counts['crossbar_dense']} times, not a dispatch and a combine "
+          f"a routing call = {2 * calls}")
     check(all(torch.equal(ids, f) for (ids, _), f in zip(seen2, forced))
           and len(seen2) == len(forced),
           "the sharded run did not take the single-device run's experts")
-    flips, gap = 0, 0.0
-    for (ids, lg), f in zip(seen2, forced):
-        own = lg.topk(cfg.num_experts_per_tok, dim=-1).indices
-        a, b = own.sort(-1).values, f.long().sort(-1).values
-        lg, a, b = (t.reshape(-1, t.shape[-1]) for t in (lg, a, b))
-        for slot in torch.nonzero((a != b).any(-1)).flatten().tolist():
-            flips += 1
-            own, took = a[slot].tolist(), b[slot].tolist()
-            only_own = [e for e in own if e not in took]
-            only_forced = [e for e in took if e not in own]
-            gap = max(gap, float(lg[slot, only_own].max()
-                                 - lg[slot, only_forced].min()))
-    choices = steps * n_l * slots
+    flips, choices, gap = expert_flips(seen2, cfg.num_experts_per_tok)
     check(flips <= MIXTRAL_MAX_FLIPS * choices and gap <= MIXTRAL_NEAR_TIE,
           f"sharded mixtral: its own top-k differs from the single-device "
           f"experts at {flips} of {choices} choices, by up to {gap}")
-    check(torch.equal(toks1, toks2), f"sharded mixtral greedy tokens "
-          f"{toks2.tolist()} != single-device {toks1.tolist()}")
+    chose = slice(SHARD_MIX_PROMPT - 1, steps)
+    tflips, tokens, tgap = token_flips(rows2[:, chose], rows1[:, chose])
+    check(tflips <= MIXTRAL_MAX_FLIPS * tokens
+          and tgap <= SHARD_TOKEN_NEAR_TIE, f"sharded mixtral: its greedy "
+          f"choice differs from the single device's token at {tflips} of "
+          f"{tokens}, the single device's logits {tgap} apart")
     close_rows(f"sharded mixtral decode rows ({steps} steps) vs single "
-               "device, on its experts", rows2, rows1, TOL_BF16["rtol"])
+               "device, on its tokens and experts", rows2, rows1,
+               TOL_BF16["rtol"])
     check(peak2 < 80e9, f"sharded mixtral peak {peak2} bytes")
     log(f"  sharded over {dict(mesh.shape)}: {secs2 / steps * 1e3:.2f} ms a "
-        f"step (host clock), peak {peak2 / 2**30:.2f} GiB ({peak1 / 2**30:.2f}"
-        f" on one device); {len(gathers) / steps:.0f} gathers a step "
-        f"({sum(t.nbytes for t in gathers) / steps / 1e9:.3f} GB received, "
-        f"{len(transfers) / steps:.0f} transfers recorded); the same "
-        f"{toks1.numel()} greedy tokens; own top-k off the single-device "
-        f"experts at {flips} of {choices} choices (gap {gap:.6f}); launches "
-        f"{counts}")
-    del placed, cc, rows1, rows2, seen1, seen2, forced
+        f"step (host clock), peak {peak2 / 2**30:.2f} GiB "
+        f"({peak1 / 2**30:.2f} on one device); {len(transfers) / steps:.0f}"
+        f" transfers recorded; {moved(transfers, steps)}; fed the single "
+        f"device's {toks1.numel()} greedy tokens, its own greedy choice off "
+        f"them at {tflips} of {tokens} (logits {tgap:.3e} apart); own "
+        f"top-k off the single-device experts at {flips} of {choices} "
+        f"choices (gap {gap:.6f}); launches {counts}")
+    for part, (plan, x2) in first.items():
+        idxp, xf, kwd = ops.dense_operands(plan, x2)
+        compare("crossbar_dense", f"sharded mixtral's first {part} "
+                f"{plan.n_in}->{plan.n_out} D={x2.shape[-1]} "
+                f"{str(x2.dtype)[6:]}, dense kernel vs plain version",
+                xbk.crossbar_permute_cuda(idxp, xf, **kwd),
+                ref.crossbar_dense(idxp, xf, **kwd))
+    del placed, cc, rows1, rows2, seen1, seen2, forced, first
     torch.cuda.empty_cache()
     return counts
 
@@ -4787,14 +4888,90 @@ DENSE_CONFIGS = (("qwen1.5-110b", 2), ("starcoder2-15b", 4),
 DENSE_NEW = 16
 
 
+# A teacher-forced sharded decode is fed the single device's tokens; its
+# own greedy choice may differ from them only where the single device's
+# logits of the two tokens lie within ``SHARD_TOKEN_NEAR_TIE``, at no more
+# than ``MIXTRAL_MAX_FLIPS`` of the tokens.
+SHARD_TOKEN_NEAR_TIE = 2e-2
+
+
+def row_err(got, want) -> float:
+    """The worst row's L2 relative error (``close_rows``'s measure)."""
+    import torch
+    got, want = got.float(), want.float()
+    return float((torch.linalg.vector_norm(got - want, dim=-1)
+                  / torch.linalg.vector_norm(want, dim=-1)).max())
+
+
+def token_flips(rows, want_rows):
+    """Greedy choices of ``rows`` (..., V) against ``want_rows``': (how
+    many differ, how many there are, the largest gap of ``want_rows``'
+    logits between its choice and the other's where they differ)."""
+    import torch
+    a, b = want_rows.argmax(-1), rows.argmax(-1)
+    off = a != b
+    gap = 0.0
+    if off.any():
+        w = want_rows[off].float()
+        gap = float((w.gather(-1, a[off][:, None])
+                     - w.gather(-1, b[off][:, None])).max())
+    return int(off.sum()), a.numel(), gap
+
+
+def nearest_experts(seen, near):
+    """A ``recorded_routing`` ``forced`` for a run whose routing calls
+    take a window of the recorded run's groups: each call takes the
+    experts of the recorded call and window whose router logits lie
+    nearest its own (largest |difference|).  Appends (that distance, the
+    nearest of the candidates that route otherwise) to ``near`` a call."""
+    import torch
+
+    def pick(router_logits):
+        lg = router_logits.detach().float()
+        n = lg.shape[0]
+        found = sorted(
+            (float((full[lo:lo + n] - lg).abs().max()), i, lo)
+            for i, (_, full) in enumerate(seen)
+            for lo in range(0, full.shape[0] - n + 1, n))
+        d, i, lo = found[0]
+        ids = seen[i][0][lo:lo + n]
+        near.append((d, min((f for f, j, lo2 in found[1:] if not
+                             torch.equal(seen[j][0][lo2:lo2 + n], ids)),
+                            default=math.inf)))
+        return ids
+    return pick
+
+
+def expert_flips(seen, k):
+    """For ``recorded_routing``'s calls (experts taken, router logits):
+    (the choices whose own top-k differs from the experts taken, the
+    choices, the largest router-logit gap between an expert of its own
+    top-k it did not take and one it took)."""
+    flips, choices, gap = 0, 0, 0.0
+    for ids, lg in seen:
+        own = lg.topk(k, dim=-1).indices
+        a, b = own.sort(-1).values, ids.long().sort(-1).values
+        lg, a, b = (t.reshape(-1, t.shape[-1]) for t in (lg, a, b))
+        choices += a.shape[0]
+        for slot in (a != b).any(-1).nonzero().flatten().tolist():
+            flips += 1
+            mine, took = a[slot].tolist(), b[slot].tolist()
+            only_own = [e for e in mine if e not in took]
+            only_taken = [e for e in took if e not in mine]
+            gap = max(gap, float(lg[slot, only_own].max()
+                                 - lg[slot, only_taken].min()))
+    return flips, choices, gap
+
+
 @contextlib.contextmanager
 def recorded_routing(forced=None):
     """Record every ``moe_dispatch.make_routing`` call's (expert ids,
     router logits), in call order (the model code calls it through the
     module).  With ``forced``, a list of expert ids (G, T, K) a call, the
-    i-th call routes to the i-th entry instead of its own top-k: gates
-    the softmax of its router logits at those experts, then the
-    capacity check, as ``make_routing`` does."""
+    i-th call routes to the i-th entry instead of its own top-k (a
+    callable: to ``forced(router_logits)``): gates the softmax of its
+    router logits at those experts, then the capacity check, as
+    ``make_routing`` does."""
     import torch
 
     from repro_torch.core import moe_dispatch as md
@@ -4806,7 +4983,8 @@ def recorded_routing(forced=None):
             routing = make(router_logits, num_experts=num_experts, k=k,
                            capacity=capacity, **kw)
         else:
-            ids = forced[len(seen)]
+            ids = (forced(router_logits) if callable(forced)
+                   else forced[len(seen)])
             gates = torch.softmax(torch.gather(
                 router_logits, -1, ids.long()).float(), dim=-1)
             pos, dest = ops.moe_route_transform(
@@ -4816,7 +4994,7 @@ def recorded_routing(forced=None):
                 torch.softmax(router_logits.float(), dim=-1), num_experts,
                 capacity)
         seen.append((routing.expert_ids.clone(),
-                     router_logits.float().clone()))
+                     router_logits.detach().float().clone()))
         return routing
     md.make_routing = recording
     try:

@@ -204,6 +204,75 @@ def _param_spec(mesh, shape) -> PartitionSpec:
     return P(*entries)
 
 
+def _split_block(shape, dim, k, r) -> dict:
+    """Rank r's block of ``dim`` split in k ({dim: (lo, hi)}), or the
+    whole leaf ({}) when the dimension does not divide (the reference's
+    fallback: replicated)."""
+    n = shape[dim]
+    if n % k:
+        return {}
+    return {dim: (r * n // k, (r + 1) * n // k)}
+
+
+def column_block(shape, k, r) -> dict:
+    """A matrix's column block: the dimension ``_param_spec`` puts on
+    'model' (the last)."""
+    return _split_block(shape, len(shape) - 1, k, r)
+
+
+def row_block(shape, k, r) -> dict:
+    """A matrix's row block: its contraction dimension (the first)."""
+    return _split_block(shape, 0, k, r)
+
+
+def expert_block(shape, k, r, leaf="wi", one_token=False) -> dict:
+    """An expert weight's block, (E, D, F) for wi / wg and (E, F, D) for
+    wo: rank r's E/k experts when E divides the axis (expert parallel,
+    the reference's ``moe._expert_axis``), else its d_ff block of every
+    expert (the columns of wi / wg, the rows of wo; wo's d_model columns
+    for a decode step, as ``compute_block`` says)."""
+    if shape[0] % k == 0:
+        return _split_block(shape, 0, k, r)
+    if leaf == "wo" and not one_token:
+        return _split_block(shape, 1, k, r)
+    return _split_block(shape, 2, k, r)
+
+
+def compute_block(path, shape, k, r, one_token=False) -> dict:
+    """{dim: (lo, hi)}: the block of a dense or MoE model's parameter
+    leaf (at ``path`` in its tree) that rank r of a model axis of k
+    computes with; {} is the whole leaf.
+
+    * wq / wk / wv (and their biases), wi and wg: the column block, the
+      block ``_param_spec`` puts on 'model' (heads or kv heads, d_ff);
+    * the wo of attention and of the MLP: the row block (the rank's
+      heads, its d_ff), whose products are partial sums over 'model';
+      for a decode step (``one_token``), the column block, on the input
+      gathered: a decode step's products then equal one device's
+      (``layers.split_dense``), which partial sums cannot;
+    * expert weights: ``expert_block``;
+    * the embedding table and the head: the vocabulary row block;
+    * the router, the norms and every other vector: whole (every rank
+      routes its window's groups and normalises its rows).
+
+    A dimension that does not divide the axis stays whole (the
+    reference's fallback)."""
+    names = [p for p in path if isinstance(p, str)]
+    leaf, owner = names[-1], names[-2] if len(names) > 1 else None
+    if leaf == "table":
+        return _split_block(shape, 0, k, r)
+    if "moe" in names and owner == "moe" and leaf in ("wi", "wg", "wo"):
+        return expert_block(shape, k, r, leaf, one_token)
+    if owner == "wo" and ("attn" in names or "mlp" in names):
+        if leaf != "w":
+            return {}
+        return (column_block if one_token else row_block)(shape, k, r)
+    if (("attn" in names and owner in ("wq", "wk", "wv"))
+            or ("mlp" in names and owner in ("wi", "wg"))):
+        return column_block(shape, k, r)
+    return {}
+
+
 def param_shardings(params, mesh, cfg=None):
     """NamedSharding tree for a parameter tree.  ``cfg`` is accepted for
     rule specialisation hooks; the structural rules cover every family."""

@@ -8,40 +8,58 @@ controller over a ``dist.mesh.Mesh``, as ``dist.mesh_exec`` is: it runs
 each shard's work on its shard's device and moves the blocks itself.
 Trees hold ``dist.sharding.Sharded`` leaves (``sharding.device_put``).
 Each function's result equals its single-device function's, up to the
-order of the gradient sums.
+order of the sums.
 
-**Batch windows.**  The blocks of the batch leaves' leading dimension
-(``batch_shardings``: one a batch shard) are the windows; each window
-runs on its compute index, the first mesh index that holds it.  Batch
-leaves lead with the batch dimension.
+**Batch windows and model rows.**  The blocks of the batch leaves'
+leading dimension (``batch_shardings``: one a batch shard) are the
+windows.  Batch leaves lead with the batch dimension.  A window runs on
+its **model row**: the mesh indices that hold it and differ from the
+first of them along "model" only, in model-axis order (rank r of the
+row).  The dense and MoE families (functions marked by
+``model_zoo.build``: ``fn.model_split``) run a window on every index of
+its row, split over "model" as the reference's annotations split each
+product: the model code gets ``annotate.Parts`` of the row's
+``annotate.ModelGroup`` and each rank computes its share (``annotate``'s module docstring; the splits
+are the model code's, the blocks ``sharding.compute_block``).  The
+rwkv, hybrid, vlm and encdec families, and any function not so marked,
+run each window on the row's first index alone, each layer's matrices
+whole there (the next slice splits them).
 
-**What a compute index holds.**  Its shards, and what one layer
-gathers: as the reference's partitioned step holds them, not the whole
-model.  The model functions get a parameter tree whose layer stacks
-(its top-level lists: ``blocks``, ``enc_blocks`` / ``dec_blocks``, the
-hybrid's ``mamba`` and ``lora``) are per-layer views: item i is layer
-i's leaves, gathered onto the compute index's device each time the
-model asks for it (``layers.scan`` asks inside its checkpointed body,
-the decode loops as they walk the stack), and freed when the model is
-done with it.  The other leaves (embeddings, head, final norms, the
-hybrid's shared block) are small beside a stack and are gathered whole
-once a window.  Products are not split over "model": each layer's
-matrices are whole on the compute index while the layer runs.
+**What an index holds.**  Its shards, and what one layer gathers: as
+the reference's partitioned step holds them, not the whole model.  The
+model functions get a parameter tree whose layer stacks (its top-level
+lists: ``blocks``, ``enc_blocks`` / ``dec_blocks``, the hybrid's
+``mamba`` and ``lora``) are per-layer views: item i is layer i's
+leaves, gathered onto the index's device each time the model asks for
+it (``layers.scan`` asks inside its checkpointed body, the decode loops
+as they walk the stack), and freed when the model is done with it.  The
+other leaves (embeddings, head, final norms, the hybrid's shared block)
+are gathered once a window.  Split over "model", a rank gathers its
+compute block of each leaf only (``sharding.compute_block``: the column
+block of wq / wk / wv / wi / wg, which its own shard's column holds, so
+that it gathers over "data" alone; the row block of each wo, its heads'
+or its d_ff rows, which the model axis's column shards hold between
+them (a decode step's wo: its column block); its experts, or each
+expert's d_ff; its vocabulary rows of the tables; the router and the
+vectors whole), as a ``Parts`` leaf.  A
+rank's blocks are 1/k of each split matrix, so no index holds or
+gathers a whole layer's matrices.  Whole-layer compute gathers each
+leaf whole.
 
 **The train step** (``make_sharded_train_step``).  For each window in
 turn, ``loss_fn`` runs forward and backward on the window's rows,
 microbatch piece by piece.  A layer's gathered leaves reach the loss
 through an autograd function (``_GatherLayer``) whose backward adds the
 layer's gradients, in float32, into one accumulator a parameter block
-on the block's first holder (the reduce-scatter over the batch axes)
-and drops the gathered gradient; the other leaves' gradients go into
-their accumulators after each piece's backward.  Under ``cfg.remat ==
+on the block's first holder (the reduce-scatter over the batch axes; a
+rank's block gradient lands in the blocks it overlaps) and drops the
+gathered gradient; the other leaves' gradients go into their
+accumulators after each piece's backward.  Under ``cfg.remat ==
 "full"`` the layer is gathered inside the checkpointed body, so the
 recompute gathers it again (as FSDP does, and XLA under
-``jax.checkpoint``); with ``remat == "none"`` autograd keeps each
-gathered layer's saved operands (the float32 leaves or their
-compute-dtype casts) until the backward reaches it, so a compute index
-then holds every layer's copy at the loss.
+``jax.checkpoint``), and the recompute's moves over "model" run again;
+with ``remat == "none"`` autograd keeps each gathered layer's saved
+operands until the backward reaches it.
 
 Then the clip's global norm sums every block once, and the port's AdamW
 updates every mesh index's shards in place, replicas included, with
@@ -63,27 +81,33 @@ microbatch i is rows [i B/n, (i+1) B/n) of the global batch, as in the
 single-device trainer, and every piece is weighted 1/n more.
 
 **The decode step** (``sharded_decode_step``) runs each window of the
-tokens' sharding on its compute index.  The caches are per-layer views
-too: the model's ``c[i]`` (the hybrid's ``c[g, i]``) gathers layer i's
-cache rows of the window from the shards that hold them (over "model")
-when layer i runs; ``decode_fn`` updates them in place, and they are
-written back to every shard that holds them before the next layer's
-rows or parameters are gathered, and after the step.  A cache leaf
-without a layer axis is gathered whole for the window.
-``sharded_forward`` is the train step's forward without gradients
-(prefill cells).
+tokens' sharding on its row.  The caches are per-layer views too: the
+model's ``c[i]`` (the hybrid's ``c[g, i]``) gathers layer i's cache
+rows of the window when layer i runs — split over "model", each rank
+its own block of them (the kv heads or the head_dim block the cache's
+sharding gives its index), so cache rows never cross "model";
+whole-layer, the rows of every block, gathered over "model".
+``decode_fn`` updates them in place, and they are written back to
+every shard that holds them before the next layer's rows or parameters
+are gathered, and after the step.  A cache leaf without a layer axis is
+gathered whole for the window.  ``sharded_forward`` is the train step's
+forward without gradients (prefill cells).
 
-**One window** (``only=j``): the work of window j's compute index alone
-— its gathers, its forward (and backward, and the reduction into the
-blocks it holds, and its shards' update), its cache write-back.  Every
-window does the same work, so this is a device's share of the step: the
-dry run (``launch/dryrun.py``) measures it.
+**One mesh index** (``only=j``): the work of window j's first index
+alone — its gathers, its share of the forward (and backward, and the
+reduction into the blocks it holds, and its shards' update), its cache
+write-back; split over "model", the other ranks' contributions to its
+collectives are zeros (``annotate``).  Every index does the same work,
+so this is a device's share of the step: the dry run
+(``launch/dryrun.py``) measures it.
 
 **Transfers.**  Given a ``transfers`` list, each function appends one
 ``Transfer`` a collective it performs for a receiving mesh index: the
 op, R (the bytes of the result on the receiving index), k (the group
-size), the receiving index and the group.  Every gather is recorded,
-the recompute's included, and every reduction of a piece's gradients.
+size), the receiving index, the group, and what moved (``kind``:
+"weight" gathers, "grad" reductions, "activation" moves over "model",
+"cache" rows, "batch" rows and counts).  Every gather is recorded, the
+recompute's included, and every reduction of a piece's gradients.
 ``ring_bytes(op, R, k)`` is the reference dry run's ring model
 (``_collective_bytes``).  On a mesh that repeats a device the copies
 stay on the device; the record is what a mesh of distinct cards would
@@ -97,10 +121,12 @@ import math
 from collections.abc import Sequence
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import _tree
 from repro_torch.core import abstract as _abstract
+from repro_torch.dist import annotate as ann
 from repro_torch.dist import sharding as shd
 from repro_torch.optim import AdamWState, adamw_update, make_schedule
 
@@ -142,6 +168,7 @@ class Transfer:
     k: int              # group size
     dst: int            # the receiving mesh index
     group: tuple        # the group's mesh indices
+    kind: str = "weight"    # weight | grad | activation | cache | batch
 
     @property
     def traffic(self) -> float:
@@ -196,16 +223,17 @@ def _device(mesh, p: int):
     return mesh.devices.reshape(-1)[p]
 
 
-def _record(transfers, mesh, op, nbytes, k, dst, members):
+def _record(transfers, mesh, op, nbytes, k, dst, members, kind):
     if transfers is not None and k > 1:
         transfers.append(Transfer(op, float(nbytes), int(k),
                                   _mesh_id(mesh, dst),
                                   tuple(sorted(_mesh_id(mesh, m)
-                                               for m in set(members)))))
+                                               for m in set(members))),
+                                  kind))
 
 
 def _window(leaf: shd.Sharded, ranges: dict, c: int,
-            transfers=None) -> torch.Tensor:
+            transfers=None, kind="weight") -> torch.Tensor:
     """A fresh tensor on mesh index c's device holding ``leaf`` over
     ``ranges`` ({dim: (lo, hi)}; every other dimension whole), gathered
     from the blocks that hold it (c's own where c holds one), each
@@ -234,7 +262,7 @@ def _window(leaf: shd.Sharded, ranges: dict, c: int,
     if any(p != c for p in src.values()):
         _record(transfers, sh.mesh, "all-gather",
                 out.numel() * out.element_size(), len(src), c,
-                list(src.values()) + [c])
+                list(src.values()) + [c], kind)
     return out
 
 
@@ -260,7 +288,8 @@ def _write_window(leaf: shd.Sharded, starts: dict, block: torch.Tensor,
             leaf.shards[p][tuple(dst)].copy_(part)
             if p != c:
                 _record(transfers, sh.mesh, "copy",
-                        part.numel() * part.element_size(), 2, p, (c, p))
+                        part.numel() * part.element_size(), 2, p, (c, p),
+                        "cache")
 
 
 # ---------------------------------------------------------------------------
@@ -330,40 +359,75 @@ class _GatherLayer(torch.autograd.Function):
         return None, None, None
 
 
-def _placed_params(params, c, transfers, *, anchor=None, reduce=None,
-                   before=None):
-    """The parameter dict a window's compute index c runs the model on,
-    and its whole-gathered leaves [(flat index, tensor)].
+def _placed_params(params, row, transfers, *, group=None, anchor=None,
+                   reduce=None, before=None, one_token=False):
+    """The parameter dict a window's row runs the model on, and its
+    once-a-window leaves [((flat index, ranges), tensor)].
 
-    The layer stacks, the dict's lists, are ``_Layers``: item i gathers
-    layer i (through ``_GatherLayer`` when grad is enabled and
-    ``anchor`` is given, ``reduce(flat indices, grads)`` taking its
-    gradients), after ``before()``.  Every other leaf is gathered whole
-    now (requiring grad when ``anchor`` is given)."""
-    leaves = _tree.leaves(params)
+    ``row`` is the window's mesh indices along "model"; ``group`` its
+    ``annotate.ModelGroup`` (None for a row of one index).  With one
+    index in the row each leaf is a tensor, gathered whole; split over
+    "model", a ``Parts`` of the running ranks' compute blocks
+    (``sharding.compute_block``; a decode step's with ``one_token``).
+    The layer stacks, the
+    dict's lists, are ``_Layers``: item i gathers layer i (through
+    ``_GatherLayer`` when grad is enabled and ``anchor`` is given,
+    ``reduce([(flat index, ranges)], grads)`` taking its gradients),
+    after ``before()``.  Every other leaf is gathered now (requiring
+    grad when ``anchor`` is given)."""
+    with_path = _tree.leaves_with_path(params)
+    leaves = [leaf for _, leaf in with_path]
     index = _tree.unflatten(params, range(len(leaves)))
     stacks = {name for name, sub in index.items() if isinstance(sub, list)}
     in_stacks = {k for name in stacks for k in _tree.leaves(index[name])}
-    whole = {}
-    for k, leaf in enumerate(leaves):
-        if k not in in_stacks:
-            whole[k] = _window(leaf, {}, c, transfers)
-            if anchor is not None:
-                whole[k].requires_grad_(True)
+    split = group is not None
+    ranks = group.run if split else (0,)
+
+    def blocks(k):
+        """[(rank, ranges)]: the gathers of leaf k."""
+        if not split:
+            return [(0, {})]
+        path, leaf = with_path[k]
+        return [(r, shd.compute_block(path, leaf.shape, len(row), r,
+                                      one_token))
+                for r in ranks]
+
+    def metas(ks):
+        return [(k, rng) for k in ks for _, rng in blocks(k)]
+
+    def gather(ks):
+        return [_window(leaves[k], rng, row[r], transfers)
+                for k in ks for r, rng in blocks(k)]
+
+    def leaf_values(ks, tensors):
+        """One value a leaf: its tensor, or a ``Parts`` of its blocks."""
+        it = iter(tensors)
+        if not split:
+            return [next(it) for _ in ks]
+        out = []
+        for k in ks:
+            bl = blocks(k)
+            out.append(group.parts({r: next(it) for r, _ in bl},
+                                   next(iter(bl[0][1]), None)))
+        return out
+
+    whole_ks = [k for k in range(len(leaves)) if k not in in_stacks]
+    whole_ts = gather(whole_ks)
+    if anchor is not None:
+        for t in whole_ts:
+            t.requires_grad_(True)
+    whole = dict(zip(whole_ks, leaf_values(whole_ks, whole_ts)))
 
     def fetch(item):
         if before is not None:
             before()
         ks = _tree.leaves(item)
-
-        def gather():
-            return [_window(leaves[k], {}, c, transfers) for k in ks]
         if anchor is not None and torch.is_grad_enabled():
-            out = _GatherLayer.apply(anchor, gather,
-                                     lambda grads: reduce(ks, grads))
+            out = _GatherLayer.apply(anchor, lambda: gather(ks),
+                                     lambda grads: reduce(metas(ks), grads))
         else:
-            out = gather()
-        return _tree.unflatten(item, out)
+            out = gather(ks)
+        return _tree.unflatten(item, leaf_values(ks, out))
 
     def view(name, sub):
         if name in stacks:
@@ -371,19 +435,22 @@ def _placed_params(params, c, transfers, *, anchor=None, reduce=None,
         return _tree.map_with_path(lambda _, k: whole[k], sub)
 
     tree = {name: view(name, sub) for name, sub in index.items()}
-    return tree, sorted(whole.items())
+    return tree, list(zip(metas(whole_ks), whole_ts))
 
 
 class _CacheRows:
     """A stacked cache leaf's view for one window: ``view[i]`` (``[g,
     i]`` for two layer axes: the dimensions before the batch dimension)
     gathers that layer's rows of the window onto c's device and returns
-    them; the rows held are written back to ``positions``' shards
-    (``flush``) before other rows are gathered."""
+    them (within ``block``, {dim: (lo, hi)}, along other dimensions: a
+    rank's block over "model"); the rows held are written back to
+    ``positions``' shards (``flush``) before other rows are gathered."""
 
-    def __init__(self, leaf, dim, w0, w1, c, positions, transfers):
+    def __init__(self, leaf, dim, w0, w1, c, positions, transfers,
+                 block=None):
         self.leaf, self.dim, self.w0, self.w1 = leaf, dim, w0, w1
         self.c, self.positions, self.transfers = c, positions, transfers
+        self.block = block or {}
         self._held = None           # (layer index, rows with its axes)
 
     def __getitem__(self, idx):
@@ -396,8 +463,9 @@ class _CacheRows:
             self.flush()
             ranges = {d: (i, i + 1) for d, i in enumerate(idx)}
             ranges[self.dim] = (self.w0, self.w1)
+            ranges.update(self.block)
             self._held = (idx, _window(self.leaf, ranges, self.c,
-                                       self.transfers))
+                                       self.transfers, "cache"))
         return self._held[1][(0,) * self.dim]
 
     def flush(self) -> None:
@@ -405,14 +473,16 @@ class _CacheRows:
             idx, rows = self._held
             starts = {d: i for d, i in enumerate(idx)}
             starts[self.dim] = self.w0
+            starts.update({d: lo for d, (lo, _) in self.block.items()})
             _write_window(self.leaf, starts, rows, self.c, self.positions,
                           self.transfers)
             self._held = None
 
 
-def _windows(batch_leaves) -> list:
-    """[(r0, r1, compute index)] of the batch leaves' leading-dimension
-    blocks."""
+def _windows(batch_leaves, split: bool) -> list:
+    """[(r0, r1, row)] of the batch leaves' leading-dimension blocks:
+    row is the window's model row (its first holder alone when not
+    ``split``)."""
     first = batch_leaves[0]
     b = first.shape[0]
     for leaf in batch_leaves:
@@ -421,12 +491,63 @@ def _windows(batch_leaves) -> list:
             raise ValueError("batch leaves must share their leading (batch) "
                              f"dimension and its sharding: {leaf} against "
                              f"{first}")
-    n = first.sharding.counts(first.ndim)[0]
+    sh = first.sharding
+    mesh = sh.mesh
+    n = sh.counts(first.ndim)[0]
     per = b // n
     holders = {}
-    for blk, ps in first.sharding.blocks(first.shape).items():
+    for blk, ps in sh.blocks(first.shape).items():
         holders.setdefault(blk[0], []).extend(ps)
-    return [(j * per, (j + 1) * per, min(holders[j])) for j in range(n)]
+    out = []
+    for j in range(n):
+        c = min(holders[j])
+        row = (c,)
+        if split:
+            row = tuple(p for p in sorted(holders[j])
+                        if _off_model(mesh, p) == _off_model(mesh, c))
+        out.append((j * per, (j + 1) * per, row))
+    return out
+
+
+def _coords(mesh, p) -> dict:
+    return dict(zip(mesh.axis_names,
+                    np.unravel_index(p, mesh.devices.shape)))
+
+
+def _off_model(mesh, p) -> tuple:
+    """Mesh index p's coordinates along every axis but "model"."""
+    return tuple(int(v) for a, v in _coords(mesh, p).items() if a != "model")
+
+
+def splits_over_model(fn, mesh) -> bool:
+    """Whether ``fn``'s windows run split over "model": a function of the
+    dense or MoE family (``model_zoo.build`` marks them
+    ``model_split``) on a mesh whose "model" axis has more than one
+    index."""
+    return (getattr(fn, "model_split", False)
+            and mesh.shape.get("model", 1) > 1)
+
+
+def _group(mesh, row, ranks, transfers):
+    """The ``annotate.ModelGroup`` of a row, recording its moves (None
+    for a row of one index)."""
+    if len(row) == 1:
+        return None
+
+    def record(op, nbytes, r):
+        _record(transfers, mesh, op, nbytes, len(row), row[r], row,
+                "activation")
+    return ann.ModelGroup(mesh, [_device(mesh, p) for p in row], ranks,
+                          record)
+
+
+def _rows(v: shd.Sharded, w0, w1, row, group, transfers):
+    """A batch leaf's rows of a window on its row: a tensor (one index)
+    or a replicated ``Parts`` (each rank's own shard's rows)."""
+    if group is None:
+        return _window(v, {0: (w0, w1)}, row[0], transfers, "batch")
+    return group.parts({r: _window(v, {0: (w0, w1)}, row[r], transfers,
+                                   "batch") for r in group.run}, None)
 
 
 def _host_int(t) -> int:
@@ -460,17 +581,18 @@ def _weights(batch: dict, windows, pieces, n: int, transfers, mesh):
     m = b // n
     mask = batch.get("loss_mask")
     counts, totals = [], {}
+    firsts = [w[2][0] for w in windows]
     if mask is not None:
         for j, i, lo, hi in pieces:
-            w0, _, c = windows[j]
-            rows = mask.shards[c].narrow(0, lo - w0, hi - lo)
+            w0, _, row = windows[j]
+            rows = mask.shards[row[0]].narrow(0, lo - w0, hi - lo)
             counts.append(torch.sum(rows.to(torch.float32)))
-        home = _device(mesh, windows[0][2])
+        home = _device(mesh, firsts[0])
         for (j, i, _, _), cnt in zip(pieces, counts):
             totals[i] = totals.get(i, 0) + cnt.to(home)
-        for _, _, c in windows:
+        for c in firsts:
             _record(transfers, mesh, "all-reduce", 4, len(windows), c,
-                    [w[2] for w in windows])
+                    firsts, "batch")
     out = []
     for idx, (j, i, lo, hi) in enumerate(pieces):
         rest = (hi - lo) / m / n
@@ -512,23 +634,33 @@ def _add_metrics(total: dict, part: dict, device) -> None:
         total[k] = v if k not in total else total[k] + v
 
 
+def _narrow(v, lo, n):
+    if isinstance(v, ann.Parts):
+        return v.g.parts({r: t.narrow(0, lo, n) for r, t in v.t.items()},
+                         v.dim)
+    return v.narrow(0, lo, n)
+
+
 def _forward_windows(loss_fn, mesh, params, batch, *, n, grad, only,
                      max_pieces, transfers, on_grads=None):
-    """Run every piece (of window ``only``, when given) on its compute
-    index; returns the summed weighted metrics on index 0's device (or
-    the window's).  With ``grad``, ``on_grads(c, flat indices, grads)``
-    takes each piece's gradients: a layer's from its backward, the
-    whole-gathered leaves' after it."""
+    """Run every piece (of window ``only``, when given) on its row;
+    returns the summed weighted metrics on index 0's device (or the
+    window's first index's), and the windows.  With ``grad``,
+    ``on_grads(c, [(flat index, ranges)], grads)`` takes each piece's
+    gradients: a layer's from its backward, the once-a-window leaves'
+    after it."""
     batch_leaves = _tree.leaves(batch)
-    windows = _windows(batch_leaves)
+    windows = _windows(batch_leaves, splits_over_model(loss_fn, mesh))
     b = batch_leaves[0].shape[0]
     pieces = _pieces(windows, b, n)
     weights = _weights(batch, windows, pieces, n, transfers, mesh)
-    out_dev = _device(mesh, 0 if only is None else windows[only][2])
+    out_dev = _device(mesh, 0 if only is None else windows[only][2][0])
     metrics = {}
-    for j, (w0, w1, c) in enumerate(windows):
+    for j, (w0, w1, row) in enumerate(windows):
         if only is not None and j != only:
             continue
+        c = row[0]
+        ranks = range(len(row)) if only is None else (0,)
         mine = [(p, w) for p, w in zip(pieces, weights) if p[0] == j]
         if max_pieces is not None:
             mine = mine[:max_pieces]
@@ -536,27 +668,47 @@ def _forward_windows(loss_fn, mesh, params, batch, *, n, grad, only,
         if grad:
             anchor = torch.zeros((), device=_device(mesh, c),
                                  requires_grad=True)
+        group = _group(mesh, row, ranks, transfers)
         tree, whole = _placed_params(
-            params, c, transfers, anchor=anchor,
-            reduce=lambda ks, grads, c=c: on_grads(c, ks, grads))
-        rows = {k: _window(v, {0: (w0, w1)}, c, transfers)
+            params, row, transfers, group=group, anchor=anchor,
+            reduce=lambda ms, grads, c=c: on_grads(c, ms, grads))
+        rows = {k: _rows(v, w0, w1, row, group, transfers)
                 for k, v in batch.items()}
         for (_, _, lo, hi), w in mine:
-            piece = {k: v.narrow(0, lo - w0, hi - lo) for k, v in rows.items()}
+            piece = {k: _narrow(v, lo - w0, hi - lo)
+                     for k, v in rows.items()}
             with torch.set_grad_enabled(grad):
                 part, grads = _run_piece(
-                    loss_fn, tree, [t for _, t in whole] + [anchor], piece,
-                    w, grad)
+                    loss_fn, tree, [t for _, t in whole] + [anchor],
+                    piece, w, grad)
             _add_metrics(metrics, part, out_dev)
             if grads is not None:
-                on_grads(c, [k for k, _ in whole], grads[:-1])
+                on_grads(c, [m for m, _ in whole], grads[:-1])
             del grads
         del tree, whole, rows
     if len(windows) > 1 and only is None:
-        for _, _, c in windows:
+        firsts = [w[2][0] for w in windows]
+        for c in firsts:
             _record(transfers, mesh, "all-reduce", 4 * len(metrics),
-                    len(windows), c, [w[2] for w in windows])
+                    len(windows), c, firsts, "batch")
     return metrics, windows
+
+
+def _add_block(acc: dict, ranges: dict, g: torch.Tensor) -> None:
+    """Add gradient ``g`` of a leaf's region ``ranges`` ({dim: (lo,
+    hi)}; the whole leaf along other dimensions) into every block
+    accumulator ({block coordinates: float32 tensor}) it overlaps."""
+    for blk, a in acc.items():
+        src, dst = [], []
+        for d, (b, n) in enumerate(zip(blk, a.shape)):
+            lo, hi = ranges.get(d, (0, g.shape[d]))
+            a0, a1 = max(b * n, lo), min((b + 1) * n, hi)
+            if a0 >= a1:
+                break
+            src.append(slice(a0 - lo, a1 - lo))
+            dst.append(slice(a0 - b * n, a1 - b * n))
+        else:
+            a[tuple(dst)].add_(g[tuple(src)].to(a.device, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -567,7 +719,7 @@ class ShardedTrainStep:
     """``make_sharded_train_step``'s step: ``step(state, batch) ->
     (state, metrics)``, the state updated in place and kept on
     ``state_shardings``; ``step(state, batch, only=j)`` runs window j's
-    compute index's share (module docstring), its first ``max_pieces``
+    first index's share (module docstring), its first ``max_pieces``
     microbatch pieces when given."""
 
     def __init__(self, loss_fn, options, mesh, state_shardings,
@@ -590,13 +742,14 @@ class ShardedTrainStep:
         state = shd.device_put(state, self.state_shardings)
         batch = shd.device_put(batch, self.batch_shardings)
         params = _tree.leaves(state.params)
-        windows = _windows(_tree.leaves(batch))
-        computes = [w[2] for w in windows]
+        paths = [p for p, _ in _tree.leaves_with_path(state.params)]
+        windows = _windows(_tree.leaves(batch),
+                           splits_over_model(self.loss_fn, mesh))
         positions = (range(mesh.size) if only is None
-                     else [windows[only][2]])
+                     else [windows[only][2][0]])
         # one float32 accumulator a parameter block, on its first holder
-        # (one window: the blocks its compute index holds), made before
-        # the first piece so that every piece's peak is the same
+        # (one index: the blocks it holds), made before the first piece
+        # so that every piece's peak is the same
         acc = []
         for leaf in params:
             sh = leaf.sharding
@@ -608,20 +761,24 @@ class ShardedTrainStep:
                                  device=_device(mesh, ps[0] if only is None
                                                 else positions[0]))
                 for blk, ps in groups.items() if blk in mine})
+        # every rank's block of each leaf, for the reductions' records
+        computes = [[(p, shd.compute_block(path, leaf.shape, len(row), r)
+                      if len(row) > 1 else {})
+                     for _, _, row in windows for r, p in enumerate(row)]
+                    for path, leaf in zip(paths, params)]
 
         # each piece's reduction is recorded once: by window `only`, or
         # by window 0 for the windows that run beside it
-        recorder = windows[0 if only is None else only][2]
+        recorder = windows[0 if only is None else only][2][0]
 
-        def reduce(c, ks, grads):
-            for k, g in zip(ks, grads):
+        def reduce(c, metas, grads):
+            for (k, ranges), g in zip(metas, grads):
                 if g is not None:
-                    for blk, a in acc[k].items():
-                        win = tuple(slice(i * n, (i + 1) * n) for i, n in
-                                    zip(blk, a.shape))
-                        a.add_(g[win].to(a.device, torch.float32))
-                if c == recorder:
-                    _reduce_records(tr, mesh, params[k], positions, computes)
+                    _add_block(acc[k], ranges, g)
+            if c == recorder:
+                for k in dict.fromkeys(k for k, _ in metas):
+                    _reduce_records(tr, mesh, params[k], positions,
+                                    computes[k])
 
         metrics, _ = _forward_windows(
             self.loss_fn, mesh, state.params, batch,
@@ -635,7 +792,7 @@ class ShardedTrainStep:
         gnorm = torch.sqrt(torch.sum(torch.stack(sq)))
         for p in positions:
             _record(tr, mesh, "all-reduce", 4, mesh.size, p,
-                    range(mesh.size))
+                    range(mesh.size), "grad")
 
         opt = state.opt
         lr = self.schedule(_host_int(state.step.shards[positions[0]]))
@@ -672,24 +829,39 @@ class ShardedTrainStep:
             _device(mesh, 0 if only is None else positions[0])), "lr": lr}
 
 
+def _overlaps(sh, p, shape, ranges) -> bool:
+    """Whether mesh index p's shard of a ``shape`` leaf overlaps
+    ``ranges`` ({dim: (lo, hi)})."""
+    win = sh.index(p, shape)
+    return all(win[d].start < hi and lo < win[d].stop
+               for d, (lo, hi) in ranges.items())
+
+
 def _reduce_records(tr, mesh, leaf, positions, computes) -> None:
-    """The gradient reduction of ``leaf`` over the batch windows, as the
-    collective each receiving index takes part in: a reduce-scatter over
-    the batch axes the leaf splits over, an all-reduce over those it is
-    replicated along."""
-    k = len(computes)
-    if tr is None or k <= 1:
+    """The gradient reduction of ``leaf`` into each receiving index's
+    shard, as the collective it takes part in, over the computing
+    indices whose block overlaps the shard (``computes``: [(mesh index,
+    ranges)]): a reduce-scatter over the batch axes the leaf splits
+    over, an all-reduce over the rest."""
+    if tr is None:
         return
     batch = set(shd.batch_axes(mesh))
     kb = math.prod(mesh.shape[a] for e in leaf.sharding.spec
                    for a in shd._entry_axes(e) if a in batch)
     r = math.prod(leaf.sharding.shard_shape(leaf.shape)) * 4
     for p in positions:
-        members = list(computes) + [p]
-        if kb > 1:
-            _record(tr, mesh, "reduce-scatter", r, kb, p, members)
-        if k // kb > 1:
-            _record(tr, mesh, "all-reduce", r, k // kb, p, members)
+        members = [c for c, rng in computes
+                   if _overlaps(leaf.sharding, p, leaf.shape, rng)]
+        k = len(members)
+        if k <= 1:
+            continue
+        kb_p = min(kb, k)
+        if kb_p > 1:
+            _record(tr, mesh, "reduce-scatter", r, kb_p, p, members + [p],
+                    "grad")
+        if k // kb_p > 1:
+            _record(tr, mesh, "all-reduce", r, k // kb_p, p, members + [p],
+                    "grad")
 
 
 def make_sharded_train_step(loss_fn: Callable, options, mesh,
@@ -710,11 +882,22 @@ def sharded_forward(loss_fn: Callable, mesh, params, batch, *,
                     only: Optional[int] = None,
                     transfers: Optional[list] = None):
     """``loss_fn(params, batch)`` over placed trees: (loss, metrics) on
-    mesh index 0's device, each window run on its compute index."""
+    mesh index 0's device, each window run on its row."""
     metrics, _ = _forward_windows(loss_fn, mesh, params, batch, n=1,
                                   grad=False, only=only, max_pieces=None,
                                   transfers=transfers)
     return metrics["loss"], metrics
+
+
+def _model_block(leaf: shd.Sharded, k: int, r: int) -> dict:
+    """The block along its "model" dimensions of a cache leaf that rank r
+    of a row of k holds ({} when "model" splits none)."""
+    out = {}
+    for d, e in enumerate(leaf.sharding.spec):
+        if "model" in shd._entry_axes(e):
+            n = leaf.shape[d] // k
+            out[d] = (r * n, (r + 1) * n)
+    return out
 
 
 @torch.no_grad()
@@ -733,31 +916,66 @@ def sharded_decode_step(decode_fn: Callable, mesh, params, tokens, caches,
     if len(dims) != len(cache_leaves):
         raise ValueError(f"{len(dims)} batch dims for {len(cache_leaves)} "
                          "cache leaves")
-    windows = _windows([tokens])
+    windows = _windows([tokens], splits_over_model(decode_fn, mesh))
     out = []
-    for j, (w0, w1, c) in enumerate(windows):
+    for j, (w0, w1, row) in enumerate(windows):
         if only is not None and j != only:
             continue
-        positions = range(mesh.size) if only is None else [c]
-        views = [_CacheRows(leaf, d, w0, w1, c, positions, transfers)
-                 for leaf, d in zip(cache_leaves, dims)]
-        held = [v if v.dim else v[()] for v in views]
+        c = row[0]
+        ranks = range(len(row)) if only is None else (0,)
+        everywhere = range(mesh.size) if only is None else [c]
+        views = {}
+        for r in ranks:
+            # rank r writes back to the shards of its "model" coordinate
+            mine = [p for p in everywhere if len(row) == 1
+                    or _coords(mesh, p).get("model")
+                    == _coords(mesh, row[r]).get("model")]
+            views[r] = [_CacheRows(leaf, d, w0, w1, row[r], mine, transfers,
+                                   _model_block(leaf, len(row), r)
+                                   if len(row) > 1 else None)
+                        for leaf, d in zip(cache_leaves, dims)]
 
         def flush():
-            for v in views:
-                if v.dim:
-                    v.flush()
-        tree, _ = _placed_params(params, c, transfers, before=flush)
-        tok = _window(tokens, {0: (w0, w1)}, c, transfers)
+            for vs in views.values():
+                for v in vs:
+                    if v.dim:
+                        v.flush()
+        group = _group(mesh, row, ranks, transfers)
+        held = [views[0][i] if group is None
+                else _RowCache([views[r][i] for r in ranks], group)
+                for i in range(len(cache_leaves))]
+        held = [v if v.dim else v[()] for v in held]
+        tree, _ = _placed_params(params, row, transfers, group=group,
+                                 before=flush, one_token=True)
+        tok = _rows(tokens, w0, w1, row, group, transfers)
         logits, _ = decode_fn(tree, tok, _tree.unflatten(caches, held), pos)
-        for v in views:
-            v.flush()
+        for vs in views.values():
+            for v in vs:
+                v.flush()
         out.append((c, logits))
         del tree, views, held
-    dev = _device(mesh, 0 if only is None else windows[only][2])
+    dev = _device(mesh, 0 if only is None else windows[only][2][0])
     logits = torch.cat([lg.to(dev) for _, lg in out], dim=0)
     if only is None:
         _record(transfers, mesh, "all-gather",
                 logits.numel() * logits.element_size(), len(windows), 0,
-                [0] + [c for c, _ in out])
+                [0] + [c for c, _ in out], "batch")
     return logits, caches
+
+
+class _RowCache:
+    """A cache leaf's per-layer view on a row split over "model": item
+    ``[i]`` is a ``Parts`` of each running rank's block of layer i's rows
+    (``_CacheRows``)."""
+
+    def __init__(self, views, group):
+        self.group = group
+        self.views = dict(zip(group.run, views))
+        self.dim = views[0].dim
+        model = list(views[0].block)
+        # the split dimension of a layer's rows (the layer axes dropped)
+        self.split = model[0] - self.dim if model else None
+
+    def __getitem__(self, idx):
+        return self.group.parts({r: v[idx] for r, v in self.views.items()},
+                                self.split)

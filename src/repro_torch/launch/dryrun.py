@@ -12,9 +12,12 @@ the port runs the step itself, abstractly, and counts; each result's
   meta tensors, given the reference's shardings
   (``dist.sharding.param_shardings`` / ``cache_shardings`` /
   ``batch_shardings``) on the production mesh of ``"meta"`` placeholder
-  devices, one a shard.  One batch window's share of the step — a
-  device's share: every window does the same work — runs through the
-  sharded executor (``dist.spmd``, ``only=0``) under ``FakeTensorMode``:
+  devices, one a shard.  One mesh index's share of the step — a
+  device's share: every index does the same work — runs through the
+  sharded executor (``dist.spmd``, ``only=0``: window 0's first index;
+  for the dense and MoE families its model rank's share of the window,
+  the other ranks' contributions to its collectives zeros) under
+  ``FakeTensorMode``:
   shapes and dtypes, no data.  A fake tensor never launches a kernel, so
   a kernel counts at its plain version's operations.  Placeholders hold
   no data: every mesh index of a leaf holds the same fake shard-shaped
@@ -25,10 +28,11 @@ the port runs the step itself, abstractly, and counts; each result's
 * **Bytes**: every dispatched op's input and output bytes (views move
   nothing), from a ``TorchDispatchMode``.  The port runs eager, with
   nothing fused, so this is the traffic an eager step moves.
-* **Collective bytes**: the executor's transfer record for the window's
-  compute index under the ring model (``spmd.ring_bytes``); a group
-  within one node of 8 mesh indices rides NVLink, a wider one
-  InfiniBand.
+* **Collective bytes**: the executor's transfer record for that mesh
+  index under the ring model (``spmd.ring_bytes``), by op and by what
+  moved (``Transfer.kind``: weights, gradients, activations over
+  "model", cache rows, batch rows); a group within one node of 8 mesh
+  indices rides NVLink, a wider one InfiniBand.
 * **Per-device memory**: ``argument_bytes`` is the exact sum of one
   device's shard bytes of the state (or parameters and caches) and the
   batch; ``temp_bytes`` the peak of live fake-storage bytes the step
@@ -138,18 +142,21 @@ class _Traffic(TorchDispatchMode):
 
 
 def _coll(transfers, dst) -> dict:
-    """A device's collective traffic: total, by op, by link, seconds."""
-    by_op, nv, ib = {}, 0.0, 0.0
+    """A device's collective traffic: total, by op, by kind, by link,
+    seconds."""
+    by_op, by_kind, nv, ib = {}, {}, 0.0, 0.0
     for t in transfers:
         if t.dst != dst:
             continue
         by_op[t.op] = by_op.get(t.op, 0.0) + t.traffic
+        by_kind[t.kind] = by_kind.get(t.kind, 0.0) + t.traffic
         if t.intra_node:
             nv += t.traffic
         else:
             ib += t.traffic
     return {"coll": nv + ib, "coll_s": nv / NVLINK_BW + ib / IB_BW,
-            "coll_nvlink": nv, "coll_ib": ib, "coll_breakdown": by_op}
+            "coll_nvlink": nv, "coll_ib": ib, "coll_breakdown": by_op,
+            "coll_by_kind": by_kind}
 
 
 # ---------------------------------------------------------------------------
@@ -266,8 +273,8 @@ def _run(cfg, shape, mesh, grad_accum, *, pieces=1, bf16_params=False):
 
 
 def _compute_index(arg_sh, shape, mesh) -> int:
-    """Window 0's compute index: the first mesh index holding the first
-    batch (or token) block."""
+    """The mesh index ``only=0`` runs: the first holding the first batch
+    (or token) block — rank 0 of window 0's model row."""
     sh = arg_sh[2] if shape.kind == "decode" else _tree.leaves(arg_sh[1])[0]
     return min(p for p in range(mesh.size)
                if sh.block(p, len(sh.spec))[0] == 0)
@@ -308,6 +315,18 @@ def _extrapolate(c1, c2, d1, d2, full):
     return out
 
 
+def _extrapolated(c1, c2, d1, d2, full):
+    """``_extrapolate`` (the reference's), and the traffic by kind."""
+    out = _extrapolate(c1, c2, d1, d2, full)
+    out["coll_by_kind"] = _extrapolate(
+        {"flops": 0, "bytes": 0, "coll": 0,
+         "coll_breakdown": c1["coll_by_kind"]},
+        {"flops": 0, "bytes": 0, "coll": 0,
+         "coll_breakdown": c2["coll_by_kind"]}, d1, d2, full)[
+             "coll_breakdown"]
+    return out
+
+
 def _windows_of(shape, mesh) -> int:
     """Batch windows: the blocks ``batch_shardings`` cuts the batch in."""
     return shd.NamedSharding(mesh, shd._batch_spec(
@@ -328,7 +347,7 @@ def _cost_run(cfg, shape, mesh, grad_accum, *, seq_override=None,
         return c1
     c2 = _run(cfg, shape, mesh, grad_accum, pieces=2,
               bf16_params=bf16_params)
-    return _extrapolate(c1, c2, 1, 2, n)
+    return _extrapolated(c1, c2, 1, 2, n)
 
 
 def _cost_rwkv_bilinear(cfg, shape, mesh, grad_accum):
@@ -361,8 +380,8 @@ def _cost_rwkv_bilinear(cfg, shape, mesh, grad_accum):
                      + delta * full_l * full_s, 0.0)
     tot1 = grid[(d1, s1)]["coll"]
     scale = out["coll"] / tot1 if tot1 else 0.0
-    out["coll_breakdown"] = {op: v * scale for op, v in
-                             grid[(d1, s1)]["coll_breakdown"].items()}
+    for key in ("coll_breakdown", "coll_by_kind"):
+        out[key] = {op: v * scale for op, v in grid[(d1, s1)][key].items()}
     return out
 
 
@@ -433,7 +452,7 @@ def analyse(cfg, shape, mesh, *, grad_accum=0, skip_cost=False,
                        bf16_params=bf16_params)
         c2 = _cost_run(_shallow_cfg(cfg, d2), shape, mesh, cost_accum,
                        bf16_params=bf16_params)
-        ext = _extrapolate(c1, c2, d1, d2, full)
+        ext = _extrapolated(c1, c2, d1, d2, full)
         cost_method = how + (
             f"depth-{d1}/{d2} runs, linear extrapolation to {int(full)} "
             "layers" + (f"; microbatch pieces extrapolated from 1 and 2 to "
@@ -450,6 +469,10 @@ def analyse(cfg, shape, mesh, *, grad_accum=0, skip_cost=False,
     terms = {"compute_s": t_comp, "memory_s": t_mem, "collective_s": t_coll}
     dominant = max(terms, key=terms.get)
     mflops = model_flops(cfg, shape)
+    api = model_zoo.build(cfg, device="meta")
+    fn = api.decode_fn if shape.kind == "decode" else api.loss_fn
+    computing = windows * (mesh.shape.get("model", 1)
+                           if spmd.splits_over_model(fn, mesh) else 1)
     peak = (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
             - mem["alias_bytes"])
     result = {
@@ -480,14 +503,16 @@ def analyse(cfg, shape, mesh, *, grad_accum=0, skip_cost=False,
             "collective_ib_bytes": ext["coll_ib"],
         },
         "collectives": ext["coll_breakdown"],
+        "collectives_by_kind": ext["coll_by_kind"],
         "roofline": {
             **{k: float(f"{v:.6g}") for k, v in terms.items()},
             "dominant": dominant,
             "model_flops": mflops,
-            # one device computes each batch window; the others hold and
-            # update their shards
-            "hlo_flops_global": flops_dev * windows,
-            "usefulness": (mflops / (flops_dev * windows)
+            # each index of a window's model row computes its share
+            # (dense and MoE), or its first index the window; the others
+            # hold and update their shards
+            "hlo_flops_global": flops_dev * computing,
+            "usefulness": (mflops / (flops_dev * computing)
                            if flops_dev else 0.0),
             "step_time_bound_s": max(terms.values()),
         },

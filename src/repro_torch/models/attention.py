@@ -8,6 +8,21 @@ uses the same path with a window mask.  Decode keeps either a full cache
 (B, S_max, KV, hd) written at ``pos`` or, for SWA, a ring cache (B, W,
 KV, hd) written at ``pos % W``.  The decode path updates the cache
 tensors it is given in place (the reference returns new arrays).
+
+Under the sharded executor's model-axis group (``dist.annotate``) each
+rank computes its share, as the reference's annotations split it:
+
+* training and prefill: the heads over "model" (wq / wk / wv by their
+  column blocks, wo by the rows of the rank's heads, its float32
+  partial sums reduce-scattered into the carry's placement); where the
+  head count does not divide the axis, the keys instead
+  (context-parallel: every rank all heads against its block of keys,
+  the softmax joined from the ranks' maxima and sums, the partial
+  outputs reduce-scattered onto wo's row blocks);
+* decode: each rank reads the block of the cache its index holds — kv
+  heads when they divide the axis, else head_dim (the partial scores
+  summed over "model"), else all of it — so cache rows never cross
+  "model".
 """
 
 from __future__ import annotations
@@ -18,6 +33,8 @@ import torch
 
 from repro_torch._device import resolve
 from repro_torch.core.sequence import sliding_window_mask
+from repro_torch.dist import annotate as ann
+from repro_torch.dist.annotate import Parts
 from repro_torch.dist.annotate import active_mesh as _ann_active
 from repro_torch.dist.annotate import annotate
 from repro_torch.models import layers as L
@@ -74,10 +91,12 @@ def _project_qkv(p, x, cfg, positions, dtype):
     return q, k, v
 
 
-def _sdpa_chunk(q_c, k, v, mask, cfg):
+def _sdpa_chunk(q_c, k, v, mask, cfg, rep=None):
     """One query chunk against full K/V.  q_c (B, C, H, hd); k, v
-    (B, S, KV, hd); mask (C, S) bool.  Returns (B, C, H*hd)."""
-    rep = cfg.num_heads // cfg.num_kv_heads
+    (B, S, KV, hd), each kv head serving ``rep`` query heads (the
+    config's H / KV by default); mask (C, S) bool.  Returns (B, C,
+    H*hd)."""
+    rep = cfg.num_heads // cfg.num_kv_heads if rep is None else rep
     b, c, h, hd = q_c.shape
     k = _repeat_kv(k, rep)
     v = _repeat_kv(v, rep)
@@ -92,6 +111,8 @@ def attn_apply(p, x, cfg, *, positions=None, causal=True):
     """Training / prefill attention.  x (B, S, D) -> (B, S, D).  Causal
     (with the config's sliding window) by default; ``causal=False`` is
     the encoder's: every query sees every key."""
+    if isinstance(x, Parts):
+        return _attn_split(p, x, cfg, positions, causal)
     dtype = x.dtype
     b, s, _ = x.shape
     if positions is None:
@@ -109,6 +130,120 @@ def attn_apply(p, x, cfg, *, positions=None, causal=True):
             m = torch.ones((chunk, s), dtype=torch.bool, device=x.device)
         outs.append(_sdpa_chunk(q[:, off:off + chunk], k, v, m, cfg))
     return L.dense(p["wo"], torch.cat(outs, dim=1), dtype)
+
+
+def _project(g, w, x, dtype, heads, hd):
+    """A column-block projection gathered over "model" into whole heads:
+    (B, S, heads, hd), replicated."""
+    y = annotate(L.split_dense(w, x, dtype), "batch")
+    return g.map(lambda t: t.reshape(t.shape[0], t.shape[1], heads, hd), y)
+
+
+def _rope(g, t, positions, cfg):
+    return g.map(lambda tr, pos: L.apply_rope(
+        tr, pos, theta=cfg.rope_theta, rotary_pct=cfg.rotary_pct), t,
+        positions, dim=t.dim)
+
+
+def _attn_split(p, x, cfg, positions, causal):
+    g = x.g
+    k_ = g.k
+    x = annotate(x, "batch")                     # the sequence gathered
+    b, s, _ = x.shape
+    dtype = x.first().dtype
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = h // kv
+    dev = x.first().device
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
+    pos = g.map(lambda t: positions.to(t.device), x)
+    chunk = min(cfg.attn_chunk, s)
+    if s % chunk:
+        chunk = s  # one chunk for ragged lengths
+
+    def masks(lo, hi, off, device):
+        if causal:
+            m = sliding_window_mask(chunk, s, cfg.sliding_window,
+                                    q_offset=off, device=device)
+        else:
+            m = torch.ones((chunk, s), dtype=torch.bool, device=device)
+        return m[:, lo:hi]
+
+    if h % k_ == 0:
+        # heads over "model": rank r computes heads [r H/k, (r+1) H/k)
+        q = L.split_dense(p["wq"], x, dtype)
+        q = _rope(g, g.map(lambda t: t.reshape(b, s, h // k_, hd), q, dim=2),
+                  pos, cfg)
+        if kv % k_ == 0:
+            def kv_heads(name):
+                t = L.split_dense(p[name], x, dtype)
+                return g.map(lambda tr: tr.reshape(b, s, kv // k_, hd), t,
+                             dim=2)
+            kk, vv, rep_r = kv_heads("wk"), kv_heads("wv"), rep
+        else:
+            # each rank's heads' kv heads, from the gathered projections
+            def serving(r, t):
+                idx = torch.arange(r * (h // k_), (r + 1) * (h // k_),
+                                   device=t.device) // rep
+                return t.index_select(2, idx)
+            kk = g.map(serving, _project(g, p["wk"], x, dtype, kv, hd),
+                       rank=True, dim=2)
+            vv = g.map(serving, _project(g, p["wv"], x, dtype, kv, hd),
+                       rank=True, dim=2)
+            rep_r = 1
+        kk = _rope(g, kk, pos, cfg)
+
+        def heads(qr, kr, vr):
+            outs = [_sdpa_chunk(qr[:, off:off + chunk], kr, vr,
+                                masks(0, s, off, qr.device), cfg, rep_r)
+                    for off in range(0, s, chunk)]
+            return torch.cat(outs, dim=1)
+        out = g.map(heads, q, kk, vv, dim=2)
+        return L.project_out(p["wo"], out, dtype)
+    return _attn_keys(g, p, x, cfg, pos, masks, chunk, dtype)
+
+
+def _attn_keys(g, p, x, cfg, pos, masks, chunk, dtype):
+    """Context-parallel attention (the head count does not divide the
+    axis): every rank all heads against its block of keys, the softmax
+    joined from the ranks' maxima and sums."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = h // kv
+    q = _rope(g, _project(g, p["wq"], x, dtype, h, hd), pos, cfg)
+    k_split = s % g.k == 0
+    part = ann.SUM if k_split else None
+    span = (lambda r: g.block(s, r)) if k_split else (lambda r: (0, s))
+
+    def keys(name):
+        t = L.split_dense(p[name], x, dtype)
+        t = annotate(t, "batch", "tp" if k_split else None, None)
+        return g.map(lambda tr: tr.reshape(b, tr.shape[1], kv, hd), t,
+                     dim=t.dim)
+    kk, vv = keys("wk"), keys("wv")
+    kk = _rope(g, kk, g.map(lambda r, pr: pr[:, slice(*span(r))], pos,
+                            rank=True), cfg)
+    outs = []
+    for off in range(0, s, chunk):
+        scores = g.map(lambda r, qr, kr: torch.where(
+            masks(*span(r), off, qr.device)[None, None],
+            L.einsum_f32("bchd,bshd->bhcs", qr[:, off:off + chunk],
+                         _repeat_kv(kr, rep)) / math.sqrt(hd), _MASKED),
+            q, kk, rank=True, dim=part)
+        mx = ann.all_reduce_max(g.map(lambda t: t.amax(-1), scores,
+                                      dim=part))
+        e = g.map(lambda t, m: torch.exp(t - m[..., None]), scores, mx,
+                  dim=part)
+        tot = annotate(g.map(lambda t: t.sum(-1), e, dim=part), "batch")
+        outs.append(g.map(lambda t, z, vr: L.einsum_f32(
+            "bhcs,bshd->bchd", (t / z[..., None]).to(dtype),
+            _repeat_kv(vr, rep)), e, tot, vv, dim=part))
+    out = g.map(lambda *o: torch.cat(o, dim=1).reshape(b, s, h * hd),
+                *outs, dim=part)
+    # the partial outputs summed into each rank's wo row block (heads x
+    # head_dim; replicated where it does not divide)
+    out = annotate(out, "batch", None, "tp")
+    return L.project_out(p["wo"], L.cast(out, dtype), dtype)
 
 
 def cross_attn_apply(p, x, kv_src, cfg, *, positions=None):
@@ -141,6 +276,8 @@ def decode_attn_apply(p, x1, cache, pos: int, cfg):
     """One-token decode.  x1 (B, 1, D); pos the current index (all slots
     in lockstep).  Writes K/V at ring slot ``pos % W`` of ``cache`` in
     place and returns (out (B, 1, D), cache)."""
+    if isinstance(x1, Parts):
+        return _decode_attn_split(p, x1, cache, pos, cfg), cache
     dtype = x1.dtype
     b = x1.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -163,3 +300,60 @@ def decode_attn_apply(p, x1, cache, pos: int, cfg):
     out = L.einsum_f32("bkrcs,bskh->bckrh", probs.to(dtype), cache["v"])
     out = out.reshape(b, 1, h * hd).to(dtype)
     return L.dense(p["wo"], out, dtype), cache
+
+
+def _decode_attn_split(p, x1, cache, pos, cfg):
+    """``decode_attn_apply`` split over "model": the projections'
+    column blocks gathered into whole heads (a token's worth), each rank
+    writing and reading its block of the cache (``cache["k"].dim``: the
+    kv-head or head_dim dimension it splits, None when whole)."""
+    g = x1.g
+    x1 = annotate(x1, "batch")
+    dtype = x1.first().dtype
+    b = x1.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = h // kv
+    positions = g.map(lambda t: torch.full((b, 1), pos, dtype=torch.int32,
+                                           device=t.device), x1)
+    q = _rope(g, _project(g, p["wq"], x1, dtype, h, hd), positions, cfg)
+    k1 = _rope(g, _project(g, p["wk"], x1, dtype, kv, hd), positions, cfg)
+    v1 = _project(g, p["wv"], x1, dtype, kv, hd)
+    split = cache["k"].dim                 # 2: kv heads, 3: head_dim
+    grouped = {None: None, 2: 2, 3: 4}[split]     # in (B, 1, KV, rep, hd)
+    w = cache["k"].first().shape[1]
+    slot = pos % w
+    written = w if pos + 1 >= w else pos + 1
+
+    def mine(r, t, d):
+        """Rank r's block of t's dimension d (all of it when the cache
+        is whole over "model")."""
+        if split is None:
+            return t
+        lo, hi = g.block(t.shape[d], r)
+        return t.narrow(d, lo, hi - lo)
+
+    row = None if split is None else split - 1    # in a token's (B, KV, hd)
+
+    def attend(r, qr, kr, vr, ck, cv):
+        ck[:, slot] = mine(r, kr[:, 0], row).to(ck.dtype)
+        cv[:, slot] = mine(r, vr[:, 0], row).to(cv.dtype)
+        qh = mine(r, qr.reshape(b, 1, kv, rep, hd), grouped)
+        return L.einsum_f32("bckrh,bskh->bkrcs", qh, ck)
+
+    scores = g.map(attend, q, k1, v1, cache["k"], cache["v"], rank=True,
+                   dim={None: None, 2: 1, 3: ann.SUM}[split])
+    if split == 3:
+        scores = annotate(scores, "batch")  # the head_dim partials summed
+
+    def out(sc, cv):
+        valid = torch.arange(w, device=sc.device) < written
+        probs = torch.softmax(torch.where(valid, sc / math.sqrt(hd),
+                                          _MASKED), dim=-1)
+        o = L.einsum_f32("bkrcs,bskh->bckrh", probs.to(dtype), cv)
+        return o.to(dtype)
+    o = g.map(out, scores, cache["v"], dim=grouped)
+    if split == 3:
+        o = annotate(o, "batch")           # the head_dim blocks gathered
+    o = g.map(lambda t: t.reshape(b, 1, t.shape[2] * rep * hd), o,
+              dim=None if o.dim is None else 2)
+    return L.project_out(p["wo"], o, dtype)

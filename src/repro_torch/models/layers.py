@@ -16,6 +16,18 @@ The initialisers draw from a ``torch.Generator`` on the device their
 caller resolved (``moe.lm_init``), which every one of them requires;
 they do not reproduce the reference's ``jax.random`` bits (weights are
 carried across with ``models.params.params_from_numpy``).
+
+Under the sharded executor's model-axis group (``dist.annotate``) the
+dense and MoE families hold activations and parameter blocks as
+``Parts``; the functions here then compute each rank's share: a norm
+rank by rank, the MLP on its d_ff block (wi / wg by their column
+blocks, wo by its d_ff rows: float32 partial sums, reduce-scattered into
+the carry and rounded once; in a decode step by its columns on the
+gathered activation, every product one device's), the embedding and
+the head on the rank's
+vocabulary rows, and the cross-entropy reduced over the vocabulary
+split (a max and a sum of exponentials across ranks, the label's logit
+from the rank that holds it).
 """
 
 from __future__ import annotations
@@ -26,6 +38,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import no_tf32
+from repro_torch.dist import annotate as ann
+from repro_torch.dist.annotate import Parts, annotate
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -96,6 +110,11 @@ def dense(p, x, compute_dtype=torch.bfloat16):
 
 
 def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
+    if isinstance(x, Parts):
+        if x.dim in (ann.SUM, len(x.shape) - 1):
+            raise ValueError(f"a norm over {x}")
+        return x.g.map(lambda pr, xr: apply_norm(pr, xr, kind, eps), p, x,
+                       dim=x.dim)
     xf = x.to(torch.float32)
     if kind == "rmsnorm":
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -109,14 +128,98 @@ def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
 
 def embed_lookup(p, tokens, compute_dtype=torch.bfloat16):
     """Table row gather (rows gathered, then cast: the same values as
-    casting the whole table first)."""
+    casting the whole table first).  Split over "model": each rank
+    gathers the rows of its vocabulary block (zeros for the others'),
+    and the ranks' sum is placed as the layer stack's carry."""
+    if isinstance(tokens, Parts):
+        return _embed_split(p["table"], tokens, compute_dtype)
     return p["table"][tokens.long()].to(compute_dtype)
 
 
+def _embed_split(table, tokens, dtype):
+    g = tokens.g
+    if table.dim is None:
+        x = g.map(lambda t, tok: t[tok.long()].to(dtype), table, tokens)
+    else:
+        def part(r, t, tok):
+            n = t.shape[0]
+            local = tok.long() - r * n
+            inside = ((local >= 0) & (local < n))[..., None]
+            return t[local.clamp(0, n - 1)].to(dtype) * inside.to(dtype)
+        x = g.map(part, table, tokens, dim=ann.SUM, rank=True)
+    return annotate(x, "batch", "tp", None)
+
+
 def logits_projection(p, x, compute_dtype=torch.bfloat16):
-    """``x @ table^T`` -> (..., vocab), float32."""
+    """``x @ table^T`` -> (..., vocab), float32; split over "model", the
+    vocabulary stays split (each rank's rows of the table)."""
+    if isinstance(x, Parts):
+        g = x.g
+        x = annotate(x, "batch")
+        table = p["table"]
+        out = g.map(lambda t, xr: logits_projection({"table": t}, xr,
+                                                    compute_dtype),
+                    table, x,
+                    dim=None if table.dim is None else len(x.shape) - 1)
+        return annotate(out, "batch", *([None] * (len(x.shape) - 2)), "tp")
     return einsum_f32("...d,vd->...v", x.to(compute_dtype),
                       p["table"].to(compute_dtype))
+
+
+def split_dense(w, x, dtype):
+    """``dense(w, x)`` for ``Parts`` ``x`` (replicated) and ``w`` (its
+    column blocks, or whole): a ``Parts`` split on the last dimension
+    (replicated when ``w`` is whole).
+
+    Where each row is one position (a decode step), a rank's block runs
+    at the whole matrix's shape, in place among zeros, and its columns
+    are kept: at a decode window's few rows cuBLAS picks its algorithm by
+    the product's width, and a narrower product is not bit-equal to one
+    device's (NVIDIA H100: Mixtral's 6144 x 6144 wq at 2 rows differs at
+    0.16 % of its entries when cut in half, at none at the whole width),
+    while at the many rows of training and prefill a column block is
+    bit-equal (``tests/torch_split_numerics.py``).  A decode step then
+    equals one device's, at the cost of reading the zeros: on a seeded
+    Mixtral-8x22B of 5 layers the narrow products put decode's logit
+    rows 1.070e-2 off one device's in L2 (NVIDIA H100 80GB HBM3), where
+    ``chip_smoke.py`` holds the sharded decode to 1e-2."""
+    g = x.g
+    if w["w"].dim is None:
+        return g.map(lambda wr, xr: dense(wr, xr, dtype), w, x)
+
+    def part(r, wr, xr):
+        if xr.shape[-2] != 1:
+            return dense(wr, xr, dtype)
+        n = wr["w"].shape[-1]
+        whole = {"w": _widen(wr["w"].to(dtype), r, g.k)}
+        if "b" in wr:
+            whole["b"] = _widen(wr["b"], r, g.k)
+        return dense(whole, xr, dtype).narrow(-1, r * n, n)
+    return g.map(part, w, x, rank=True, dim=len(x.shape) - 1)
+
+
+def _widen(t, r, k):
+    """``t``, rank r's block of k along its last dimension, in place
+    among zeros of the whole extent."""
+    n = t.shape[-1]
+    out = t.new_zeros(t.shape[:-1] + (n * k,))
+    out.narrow(-1, r * n, n).copy_(t)
+    return out
+
+
+def gathered(x):
+    """A value as one tensor: a ``Parts`` gathered over "model" (its
+    first running rank's copy); a tensor as it is."""
+    if isinstance(x, Parts):
+        return x.g.one(annotate(x, "batch"))
+    return x
+
+
+def cast(x, dtype):
+    """``x.to(dtype)``, rank by rank for ``Parts``."""
+    if isinstance(x, Parts):
+        return x.g.map(lambda t: t.to(dtype), x, dim=x.dim)
+    return x.to(dtype)
 
 
 # -- rotary position embedding -------------------------------------------------
@@ -158,7 +261,10 @@ def mlp_init(gen, d, f, *, act="swiglu", device):
 
 def mlp_apply(p, x, *, act="swiglu", compute_dtype=torch.bfloat16):
     """SwiGLU or GELU MLP; the activation runs in float32.  GELU is the
-    tanh approximation, ``jax.nn.gelu``'s default."""
+    tanh approximation, ``jax.nn.gelu``'s default.  Split over "model":
+    wi / wg by d_ff columns, wo by d_ff rows (``project_out``)."""
+    if isinstance(x, Parts):
+        return _mlp_split(p, x, act, compute_dtype)
     f32 = torch.float32
     if act == "swiglu":
         h = torch.nn.functional.silu(dense(p["wg"], x, compute_dtype).to(f32))
@@ -167,6 +273,44 @@ def mlp_apply(p, x, *, act="swiglu", compute_dtype=torch.bfloat16):
     h = torch.nn.functional.gelu(dense(p["wi"], x, compute_dtype).to(f32),
                                  approximate="tanh")
     return dense(p["wo"], h.to(compute_dtype), compute_dtype)
+
+
+def _mlp_split(p, x, act, dtype):
+    g = x.g
+    f32 = torch.float32
+    x = annotate(x, "batch")                     # the sequence gathered
+    hi = cast(split_dense(p["wi"], x, dtype), f32)
+    if act == "swiglu":
+        hg = cast(split_dense(p["wg"], x, dtype), f32)
+        h = g.map(lambda a, b: torch.nn.functional.silu(a) * b, hg, hi,
+                  dim=hi.dim)
+    else:
+        h = g.map(lambda a: torch.nn.functional.gelu(a, approximate="tanh"),
+                  hi, dim=hi.dim)
+    h = annotate(h, "batch", *([None] * (len(h.shape) - 2)), "tp")
+    return project_out(p["wo"], cast(h, dtype), dtype)
+
+
+def project_out(wo, h, dtype):
+    """An output projection split over "model", placed as the carry
+    (split on the sequence where it divides).  By wo's rows: each rank's
+    block of ``h``'s last dimension (split there already, or cut from a
+    replicated ``h``) times its row block of wo, a float32 partial sum;
+    the partials reduce-scattered and rounded to ``dtype`` once, as the
+    reference's float32 product is partitioned over its contraction.
+    A decode step's wo comes by its columns (``sharding.compute_block``):
+    ``h`` gathered whole, times the column block (``split_dense``).
+    With wo whole (its rows do not divide the axis) every rank computes
+    the whole product."""
+    g = h.g
+    if wo["w"].dim != 0:
+        y = split_dense(wo, annotate(h, "batch"), dtype)
+        return annotate(y, "batch", "tp", None)
+    h = ann.reshard(h, len(h.shape) - 1)
+    y = g.map(lambda wr, hr: einsum_f32("...f,fd->...d", hr.to(dtype),
+                                        wr["w"].to(dtype)),
+              wo, h, dim=ann.SUM)
+    return cast(annotate(y, "batch", "tp", None), dtype)
 
 
 # -- layer stacks --------------------------------------------------------------
@@ -216,6 +360,8 @@ def cross_entropy(logits, labels, *, mask=None):
     one-hot contraction: a (B, S, V) float32 one-hot is far larger than
     the logits at a 150k vocabulary.
     """
+    if isinstance(logits, Parts):
+        return _cross_entropy_split(logits, labels, mask)
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, labels[..., None].long(),
@@ -225,3 +371,36 @@ def cross_entropy(logits, labels, *, mask=None):
         m = mask.to(torch.float32)
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     return torch.mean(nll)
+
+
+def _cross_entropy_split(logits, labels, mask):
+    """``cross_entropy`` of vocabulary-split (or replicated) logits on
+    every rank; returns the first running rank's value."""
+    g = logits.g
+    if logits.dim is None:
+        out = g.map(lambda lg, y, m: cross_entropy(lg, y, mask=m), logits,
+                    labels, mask)
+        return g.one(out)
+    f32 = torch.float32
+    lf = cast(logits, f32)
+    mx = ann.all_reduce_max(g.map(lambda lg: lg.amax(-1), lf, dim=ann.SUM))
+    se = g.map(lambda lg, m: torch.sum(torch.exp(lg - m[..., None]), -1),
+               lf, mx, dim=ann.SUM)
+    se = annotate(se, "batch")
+
+    def pick(r, lg, y):
+        n = lg.shape[-1]
+        local = y.long() - r * n
+        inside = (local >= 0) & (local < n)
+        v = torch.take_along_dim(lg, local.clamp(0, n - 1)[..., None],
+                                 dim=-1)[..., 0]
+        return torch.where(inside, v, 0.0)
+    gold = annotate(g.map(pick, lf, labels, dim=ann.SUM, rank=True), "batch")
+
+    def mean(m, s, gd, msk):
+        nll = m + torch.log(s) - gd
+        if msk is not None:
+            w = msk.to(f32)
+            return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+        return torch.mean(nll)
+    return g.one(g.map(mean, mx, se, gold, mask))

@@ -41,6 +41,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import params as _params
 
 VLM_PATCHES = 256  # InternVL2 patch prefix (stub frontend output length)
+# The families whose loss and decode functions split each layer's
+# products over "model" in the sharded executor (``dist.spmd``): they
+# carry ``model_split = True``.
+MODEL_SPLIT_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,11 +151,14 @@ def build(cfg: ModelConfig, device=None) -> ModelAPI:
             new_c["cross"] = c["cross"]
             return logits, new_c
 
+    loss_fn = (lambda p, b: M.lm_loss(p, b, cfg))
+    if cfg.family in MODEL_SPLIT_FAMILIES:
+        loss_fn.model_split = decode_fn.model_split = True
     return ModelAPI(
         cfg=cfg,
         device=dev,
         init=lambda generator=None: _params.init_params(cfg, generator, dev),
-        loss_fn=lambda p, b: M.lm_loss(p, b, cfg),
+        loss_fn=loss_fn,
         batch_specs=specs,
         make_batch=lambda generator, batch, seq: make(generator, batch, seq,
                                                       dev),

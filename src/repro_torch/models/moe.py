@@ -10,7 +10,16 @@ block-diagonal plan (the reference's ``vmap``), so a layer costs one
 dispatch pass and one combine pass.
 
 The expert FFNs are batched matmuls over the (B, E, C, D) buffer, plain
-PyTorch as the reference leaves them to XLA.  Training differentiates
+PyTorch as the reference leaves them to XLA.  Under the sharded
+executor's model-axis group every rank of a window routes and
+dispatches the window's groups (the router's product, made once, is
+shared along "model"); the buffer then splits as the reference annotates it:
+E over "model" when the experts divide the axis (each rank runs its E/k
+experts; the results return by an all-gather for ``combine``), else
+each expert's d_ff (the columns of wi / wg, the rows of wo, whose
+float32 partial sums are all-reduced and rounded once; in a decode step
+wo's columns on the gathered activation).  The
+load-balance and z losses are the first rank's, equal to one device's.  Training differentiates
 the 'einsum' dispatch backend, as the reference does; the crossbar
 kernels have no gradient (``core.crossbar.apply_plan`` refuses them
 under grad).  Parameters: nested dicts as in the reference, with
@@ -27,6 +36,8 @@ import torch
 
 from repro_torch._device import resolve
 from repro_torch.core import moe_dispatch as md
+from repro_torch.dist import annotate as ann
+from repro_torch.dist.annotate import Parts, annotate
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -42,13 +53,59 @@ def moe_mlp_init(gen, cfg, device):
     }
 
 
-def _experts_apply(p, buf, dtype):
+def _expert_axis(cfg, g):
+    """'tp' when the experts divide the model axis of group ``g``
+    (expert parallel), else None (each expert's d_ff split over
+    'model')."""
+    return "tp" if cfg.num_experts % g.k == 0 else None
+
+
+def _experts_apply(p, buf, dtype, cfg=None):
     """buf (G, E, C, D) -> (G, E, C, D): batched SwiGLU per expert."""
+    if isinstance(buf, Parts):
+        return _experts_split(p, buf, dtype, cfg)
     wi, wg, wo = (p[n].to(dtype) for n in ("wi", "wg", "wo"))
     g = L.einsum_f32("gecd,edf->gecf", buf, wg)
     h = L.einsum_f32("gecd,edf->gecf", buf, wi)
     h = (torch.nn.functional.silu(g) * h).to(dtype)
     return L.einsum("gecf,efd->gecd", h, wo)
+
+
+def _experts_split(p, buf, dtype, cfg):
+    """Each rank's experts (E split) or each expert's column blocks; the
+    result placed replicated for ``combine``, in ``dtype``."""
+    g = buf.g
+    ea = _expert_axis(cfg, g)
+    ff = None if ea == "tp" else "tp"
+
+    def split(w):
+        """The dimension of a (G, E, C, .) product that w's block splits:
+        E for an expert block, the last for a column block."""
+        return None if w.dim is None else (1 if w.dim == 0 else 3)
+
+    def gate(wg, wi, b):
+        return (L.einsum_f32("gecd,edf->gecf", b, wg.to(dtype)),
+                L.einsum_f32("gecd,edf->gecf", b, wi.to(dtype)))
+    gg, hh = g.map(gate, p["wg"], p["wi"], buf, dim=split(p["wi"]))
+    gg = annotate(gg, "batch", ea, None, ff)
+    hh = annotate(hh, "batch", ea, None, ff)
+    h = g.map(lambda a, c: (torch.nn.functional.silu(a) * c).to(dtype), gg,
+              hh, dim=gg.dim)
+    if ea == "tp" or p["wo"].dim != 1:
+        if ea != "tp":
+            h = annotate(h, "batch")     # a decode step's: d_ff gathered
+        out = g.map(lambda hr, wo: L.einsum("gecf,efd->gecd", hr,
+                                            wo.to(dtype)),
+                    h, p["wo"], dim=split(p["wo"]))
+        out = annotate(out, "batch", ea, None, None)
+    else:
+        # each expert's d_ff rows of wo: float32 partial sums, joined
+        # over "model" and rounded once
+        out = g.map(lambda hr, wo: L.einsum_f32("gecf,efd->gecd", hr,
+                                                wo.to(dtype)),
+                    ann.reshard(h, 3), p["wo"], dim=ann.SUM)
+        out = L.cast(annotate(out, "batch", ea, None, None), dtype)
+    return annotate(out, "batch")
 
 
 def capacity_of(cfg, tokens_per_group: int) -> int:
@@ -67,13 +124,15 @@ def moe_mlp_apply(p, x, cfg):
 
     Group-wise dispatch: each sequence routes within its own capacity.
     """
+    if isinstance(x, Parts):
+        return _moe_split(p, x, cfg)
     _, s, _ = x.shape
     cap = capacity_of(cfg, s)
     router_logits = L.dense(p["router"], x, torch.bfloat16).to(torch.float32)
     routing = md.make_routing(router_logits, num_experts=cfg.num_experts,
                               k=cfg.num_experts_per_tok, capacity=cap)
     buf = md.dispatch(x, routing, backend=cfg.dispatch_backend)
-    buf = _experts_apply(p, buf, x.dtype)
+    buf = _experts_apply(p, buf, x.dtype, cfg)
     y = md.combine(buf, routing, backend=cfg.dispatch_backend)
     aux = {
         "lb_loss": torch.mean(md.load_balance_loss(routing)),
@@ -81,6 +140,41 @@ def moe_mlp_apply(p, x, cfg):
         "dropped": torch.mean(md.dropped_fraction(routing)),
     }
     return y.to(x.dtype), aux
+
+
+def _moe_split(p, x, cfg):
+    g = x.g
+    dtype = x.first().dtype
+    x = annotate(x, "batch")                     # the sequence gathered
+    cap = capacity_of(cfg, x.shape[1])
+    # the router's bf16 product on the first rank, shared by a sum: its
+    # backward is then one product of the ranks' summed gradient, rounded
+    # to bf16 once, as on one device
+    first = g.run[0]
+    logits = g.map(lambda r, w, xr: L.dense(w, xr, torch.bfloat16).to(
+        torch.float32) if r == first else xr.new_zeros(
+            xr.shape[:-1] + (cfg.num_experts,), dtype=torch.float32),
+        p["router"], x, rank=True, dim=ann.SUM)
+    logits = annotate(logits, "batch")
+    routing = g.map(lambda lg: md.make_routing(
+        lg, num_experts=cfg.num_experts, k=cfg.num_experts_per_tok,
+        capacity=cap), logits)
+    buf = g.map(lambda xr, rt: md.dispatch(xr, rt,
+                                           backend=cfg.dispatch_backend),
+                x, routing)                      # (B, E, C, D)
+    buf = annotate(buf, "batch", _expert_axis(cfg, g), None, None)
+    buf = _experts_apply(p, buf, dtype, cfg)
+    y = g.map(lambda bg, rt: md.combine(bg, rt,
+                                        backend=cfg.dispatch_backend).to(
+        dtype), buf, routing)
+    y = annotate(y, "batch", "tp", None)         # the carry's placement
+    rt, lg = g.one(routing), g.one(logits)
+    aux = {
+        "lb_loss": torch.mean(md.load_balance_loss(rt)),
+        "z_loss": md.router_z_loss(lg),
+        "dropped": torch.mean(md.dropped_fraction(rt)),
+    }
+    return y, aux
 
 
 def block_init(gen, cfg, device):
@@ -124,6 +218,7 @@ def lm_hidden(params, tokens, cfg):
     x = L.embed_lookup(params["embed"], tokens, L.dtype_of(cfg.compute_dtype))
 
     def body(h, layer_params):
+        h = annotate(h, "batch", "tp", None)  # sequence-parallel carry
         return block_apply(layer_params, h, cfg)
 
     x, auxes = L.scan(cfg, body, x, params["blocks"])
@@ -168,4 +263,4 @@ def decode_step(params, tokens1, caches, pos, cfg):
         layer_cache = {name: c[i] for name, c in caches.items()}
         x, _ = block_decode(blk, x, layer_cache, pos, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return T.lm_logits(params, x, cfg), caches
+    return L.gathered(T.lm_logits(params, x, cfg)), caches

@@ -6,7 +6,10 @@ Port of ``repro.models.transformer``.  Parameters are nested dicts with
 ``blocks`` a list of per-layer dicts (the reference stacks them on a
 leading L axis for ``lax.scan``); the training stack runs through
 ``layers.scan``, which honours ``cfg.remat``.  Decode updates the
-stacked caches in place.
+stacked caches in place.  Under the sharded executor's model-axis group
+the layer stack's carry is split on the sequence over "model" (the
+reference's sequence-parallel carry), and each layer's products as
+``attention`` and ``layers`` split them.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch._device import resolve
+from repro_torch.dist.annotate import annotate
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
@@ -65,6 +69,9 @@ def lm_init(gen, cfg, device=None):
 
 def _run_stack(blocks, x, cfg, *, positions=None):
     def body(h, layer_params):
+        # Megatron-style sequence parallelism: the residual carry shards
+        # its sequence over 'model'
+        h = annotate(h, "batch", "tp", None)
         return block_apply(layer_params, h, cfg, positions=positions), None
 
     x, _ = L.scan(cfg, body, x, blocks)
@@ -123,7 +130,7 @@ def decode_step(params, tokens1, caches, pos, cfg):
         layer_cache = {name: c[i] for name, c in caches.items()}
         x, _ = block_decode(blk, x, layer_cache, pos, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return lm_logits(params, x, cfg), caches
+    return L.gathered(lm_logits(params, x, cfg)), caches
 
 
 def prefill(params, tokens, cfg, *, max_seq=None, cache_dtype=torch.bfloat16):

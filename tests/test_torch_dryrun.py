@@ -139,6 +139,9 @@ def test_result_keys_constants_and_method():
         pd["collective_nvlink_bytes"] / 450e9, rel=1e-5)
     assert set(r["collectives"]) == {"all-gather", "reduce-scatter",
                                      "all-reduce"}
+    assert set(r["collectives_by_kind"]) == {"weight", "grad", "activation"}
+    assert sum(r["collectives_by_kind"].values()) == pytest.approx(
+        sum(r["collectives"].values()), rel=1e-9)
     assert rf["model_flops"] == D.model_flops(cfg, TRAIN)
 
 

@@ -25,8 +25,11 @@ microbatch, and microbatches inside a window), two steps at lr 1e-3 on
 the masked batch (parameters ``rtol=2e-4, atol=2e-5``); the decode step
 on sharded caches against ``decode_fn`` (logits ``rtol=1e-5,
 atol=1e-6``, greedy tokens and caches equal), with the batch sharded and
-with it replicated (6 slots over 4 data shards); one window's share
-(``only=0``) and the transfer record.
+with it replicated (6 slots over 4 data shards); one mesh index's share
+(``only=1``: window 1's first index) and the transfer record.  Both
+families run split over "model" (each window on its model row): the
+record holds each index's compute blocks, its activation moves within
+the row, and no cache row crossing "model".
 """
 
 import numpy as np
@@ -199,6 +202,21 @@ def test_sharded_accumulation_and_two_steps_equal_single_device(
                                    **PARAM_TOL)
 
 
+def _own_covers(leaf, p, ranges) -> bool:
+    """Whether mesh index p's shard of ``leaf`` holds all of ``ranges``."""
+    own = leaf.sharding.index(p, leaf.shape)
+    return all(own[d].start <= lo and hi <= own[d].stop
+               for d, (lo, hi) in ranges.items()) and all(
+        own[d] == slice(0, n) for d, n in enumerate(leaf.shape)
+        if d not in ranges)
+
+
+def _block_bytes(leaf, ranges) -> int:
+    return leaf.shards[0].element_size() * int(np.prod(
+        [ranges.get(d, (0, n))[1] - ranges.get(d, (0, n))[0]
+         for d, n in enumerate(leaf.shape)]))
+
+
 def test_transfer_record_and_one_window(reference):
     ref = reference[("dense", False)]
     cfg = ModelConfig(**TINY)
@@ -211,27 +229,36 @@ def test_transfer_record_and_one_window(reference):
     before = [[t.clone() for t in leaf.shards]
               for leaf in _tree.leaves(placed.opt.mu)]
     step(placed, batch, only=1)
-    # window 1 = data row 1: compute index 2; only its shards change
+    # window 1 = data row 1, model row (2, 3): index 2's share alone;
+    # only its shards change
     for leaf, old in zip(_tree.leaves(placed.opt.mu), before):
         changed = [p for p in range(8) if not torch.equal(leaf.shards[p],
                                                           old[p])]
         assert set(changed) <= {2}
     assert {t.dst for t in transfers} == {2}
     n_params = len(_tree.leaves(placed.params))
-    by_op = {}
+    by_kind = {}
     for t in transfers:
-        by_op.setdefault(t.op, []).append(t)
-    # every multi-block parameter gathered once, reduced once
-    split = [leaf for leaf in _tree.leaves(placed.params)
-             if len(leaf.sharding.blocks(leaf.shape)) > 1]
-    assert len(by_op["all-gather"]) == len(split)
-    assert sum(t.nbytes for t in by_op["all-gather"]) == sum(
-        leaf.shards[0].element_size() * int(np.prod(leaf.shape))
-        for leaf in split)
-    assert len(by_op["reduce-scatter"]) + sum(
-        t.k == 4 for t in by_op["all-reduce"]) == n_params
-    assert all(t.k == 8 and t.nbytes == 4 for t in by_op["all-reduce"]
-               if t.k != 4)
+        by_kind.setdefault(t.kind, []).append(t)
+    # every parameter's compute block gathered once, where index 2 does
+    # not hold it all: its block's bytes, never a whole split matrix
+    want = []
+    for path, leaf in _tree.leaves_with_path(placed.params):
+        rng = shd.compute_block(path, leaf.shape, 2, 0)
+        if not _own_covers(leaf, 2, rng):
+            want.append(_block_bytes(leaf, rng))
+            if path[-2] in ("wq", "wk", "wv", "wo", "wi", "wg", "embed"):
+                assert rng, path
+    assert sorted(t.nbytes for t in by_kind["weight"]) == sorted(want)
+    # one reduction a parameter (reduce-scatter over the 4 windows, or
+    # all-reduce of a vector over every rank), and the clip's norm
+    norm = [t for t in by_kind["grad"] if t.nbytes == 4]
+    assert len(norm) == 1 and norm[0].k == 8 and norm[0].op == "all-reduce"
+    assert len(by_kind["grad"]) - 1 == n_params
+    # the activations move within the model row only
+    assert by_kind["activation"]
+    assert all(t.k == 2 and set(t.group) == {2, 3}
+               for t in by_kind["activation"])
 
 
 @pytest.mark.parametrize("family, slots", [("dense", 8), ("moe", 8),
@@ -267,10 +294,17 @@ def test_sharded_decode_equals_single_device(family, slots):
         np.testing.assert_allclose(shd.gather(b).numpy(), a.numpy(),
                                    rtol=1e-5, atol=1e-6)
     ops = {t.op for t in transfers}
-    assert ops == {"all-gather", "copy"}
+    assert ops <= {"all-gather", "all-reduce", "copy"}
+    # cache rows never cross "model": every cache move stays on one
+    # model coordinate (index % 2); activations move within a row
+    assert all(len({m % 2 for m in t.group}) == 1 for t in transfers
+               if t.kind == "cache")
+    assert all(t.k == 2 and t.group[1] == t.group[0] + 1
+               for t in transfers if t.kind == "activation")
     windows = 4 if slots % 4 == 0 else 1
     assert sum(t.op == "all-gather" and t.k == windows and t.dst == 0
-               for t in transfers) == (1 if windows > 1 else 0)
+               for t in transfers if t.kind == "batch") == (
+                   1 if windows > 1 else 0)
 
 
 def test_sharded_forward_equals_loss(reference):

@@ -1,5 +1,7 @@
-"""What a compute index of the sharded executor (``dist.spmd``) holds: its
-shards and one layer at a time, not the whole model.
+"""What a mesh index of the sharded executor (``dist.spmd``) holds: its
+shards and its block of one layer at a time, not the whole model (the
+dense and MoE families split each layer over "model";
+``test_torch_spmd_tp.py`` holds the split's values).
 
 * Peak live bytes, by the dry run's tracker (``launch.dryrun._run``:
   ``FakeTensorMode``, the live storages' bytes), of window 0's share of
@@ -10,11 +12,13 @@ shards and one layer at a time, not the whole model.
   layer adds less than half a layer's parameter bytes.  A whole-tree
   gather adds one layer (decode) or two (train: the gathered copy and
   its gradient).
-* The transfer record of a real run on that mesh: each layer's leaves
-  gathered once a microbatch piece, once more for the recompute under
-  remat "full"; the embeddings and head once a window; one reduction a
-  parameter a piece; in decode, each layer's cache rows of the window
-  gathered once a step.
+* The transfer record of a real run on that mesh: mesh index 0's
+  block of each layer leaf (``sharding.compute_block``: half of every
+  matrix but the router) gathered once a microbatch piece, once more
+  for the recompute under remat "full"; its blocks of the embeddings and
+  head once a window; one reduction a parameter a piece (two where
+  every rank's block overlaps every shard: the router, the expert
+  weights); in decode, no cache row moves (each rank's own block).
 * The per-layer views hold every family's decode: the sharded decode
   step of the reduced rwkv, hybrid, encdec and vlm configs, 3 greedy
   steps of 8 slots, against the port's single device and the JAX
@@ -73,11 +77,6 @@ def _layer_bytes(cfg) -> int:
     return sum(t.numel() * t.element_size() for t in _tree.leaves(blocks[0]))
 
 
-def _split(leaves) -> list:
-    return [leaf for leaf in leaves
-            if len(leaf.sharding.blocks(leaf.shape)) > 1]
-
-
 def _nbytes(leaf) -> int:
     return int(np.prod(leaf.shape)) * leaf.shards[0].element_size()
 
@@ -108,26 +107,56 @@ def _train_run(arch, remat, accum):
     return placed.params, transfers, metrics
 
 
+def _block_gathers(leaves_with_path, p=0, k=2) -> list:
+    """(path, block bytes, leaf bytes) of each leaf whose compute block
+    (``compute_block``, rank 0 of a model row of k) mesh index p gathers:
+    one a leaf whose block its own shard does not hold."""
+    out = []
+    for path, leaf in leaves_with_path:
+        rng = shd.compute_block(path, leaf.shape, k, 0)
+        own = leaf.sharding.index(p, leaf.shape)
+        size = [rng.get(d, (0, n)) for d, n in enumerate(leaf.shape)]
+        if any(own[d].start > lo or hi > own[d].stop
+               for d, (lo, hi) in enumerate(size)):
+            out.append((path, leaf.shards[0].element_size()
+                        * int(np.prod([hi - lo for lo, hi in size])),
+                        _nbytes(leaf)))
+    return out
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("remat", ["none", "full"])
 def test_train_gathers_a_layer_a_piece_and_again_for_the_recompute(arch,
                                                                     remat):
-    # 8 rows over 4 windows, a row a microbatch: 2 pieces a window
+    # 8 rows over 4 windows, a row a microbatch: 2 pieces a window; mesh
+    # index 0 (rank 0 of model row (0, 1)) gathers its block of each leaf
     params, transfers, metrics = _train_run(arch, remat, accum=8)
     assert np.isfinite(float(metrics["loss"]))
     pieces, passes = 2, 2 if remat == "full" else 1
-    layers = _split(_tree.leaves(params["blocks"]))
-    whole = _split([leaf for k, v in params.items() if k != "blocks"
-                    for leaf in _tree.leaves(v)])
-    gathers = [t for t in transfers if t.op == "all-gather"]
+    with_path = _tree.leaves_with_path(params)
+    layers = _block_gathers([(p, v) for p, v in with_path
+                             if p[0] == "blocks"])
+    whole = _block_gathers([(p, v) for p, v in with_path
+                            if p[0] != "blocks"])
+    gathers = [t for t in transfers if t.kind == "weight"]
+    assert all(t.op == "all-gather" for t in gathers)
     assert {t.dst for t in transfers} == {0}
     assert len(gathers) == len(whole) + pieces * passes * len(layers)
     assert sum(t.nbytes for t in gathers) == (
-        sum(map(_nbytes, whole))
-        + pieces * passes * sum(map(_nbytes, layers)))
-    reductions = [t for t in transfers if t.op == "reduce-scatter"
-                  or (t.op == "all-reduce" and t.k == 4)]
-    assert len(reductions) == pieces * len(_tree.leaves(params))
+        sum(b for _, b, _ in whole)
+        + pieces * passes * sum(b for _, b, _ in layers))
+    # its block of a layer, never the layer: half of each matrix but the
+    # router (every rank routes), half the vocabulary of the tables
+    assert all(2 * b == n for path, b, n in layers + whole
+               if "router" not in path), (layers, whole)
+    # one reduction a parameter a piece: a reduce-scatter over the data
+    # windows (an all-reduce for a vector); where every rank's block
+    # overlaps every shard (the router, the expert weights under expert
+    # parallelism) an all-reduce over the row too
+    reductions = [t for t in transfers if t.kind == "grad" and t.nbytes > 4]
+    both = [p for p, _ in with_path if "router" in p
+            or (p[-2] == "moe" and p[-1] in ("wi", "wg", "wo"))]
+    assert len(reductions) == pieces * (len(with_path) + len(both))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -146,13 +175,12 @@ def test_decode_gathers_each_layers_cache_rows_once_a_step(arch):
     transfers = []
     spmd.sharded_decode_step(api.decode_fn, mesh, pc, tok, cc, 0,
                              batch_dims=dims, only=0, transfers=transfers)
-    gathers = [t for t in transfers if t.op == "all-gather"]
-    split = _split(_tree.leaves(pc))
-    cache_leaves = _tree.leaves(cc)
-    # a layer's rows of window 0 (2 of 8 slots), whole over "model"
-    rows = [_nbytes(c) // (cfg.num_layers * 4) for c in cache_leaves]
-    want = sorted([_nbytes(p) for p in split] + rows * cfg.num_layers)
-    assert sorted(t.nbytes for t in gathers) == want
+    gathers = [t for t in transfers if t.kind == "weight"]
+    # each layer's cache rows of window 0 (2 of 8 slots) are mesh index
+    # 0's own block: read and written in place, never moved
+    assert not [t for t in transfers if t.kind == "cache"]
+    assert sorted(t.nbytes for t in gathers) == sorted(
+        b for _, b, _ in _block_gathers(_tree.leaves_with_path(pc)))
 
 
 def _placed_decode(api, cfg, params, slots, max_seq, mesh):
