@@ -107,8 +107,12 @@ set to 0 just before and read just after:
   placement's bytes), MiniCPM-2B's 2 of 40 layers decoding 8 greedy
   steps on sharded caches against one device, Mixtral-8x22B's 5 of 56
   layers (48.1 GiB of float32 weights) decoding greedily over the mesh
-  a layer at a time against one device on the same weights, and the dry
-  runs (``launch.dryrun``) of two production cells on 16 x 16
+  a layer at a time against one device on the same weights,
+  InternVL2-26B's 1 of 48 layers training 2 steps split over the mesh
+  against one device (its patch pack on the tile-skipping crossbar on
+  every rank of a row), SeamlessM4T whole decoding 8 greedy steps on
+  its sharded self and primed cross caches against one device, and the
+  dry runs (``launch.dryrun``) of four production cells on 16 x 16
   placeholders (each within 80 GB a device) and of the phase's own cell;
 * the configs phase (``configs_phase``, last): the four configurations
   no earlier phase runs, at published width, one at a time.
@@ -4194,9 +4198,14 @@ SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 1, 4, 512, 2
 SHARD_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)      # the reference test's
 SHARD_DEC_LAYERS, SHARD_DEC_PROMPT, SHARD_DEC_STEPS = 2, 64, 8
 DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
-                ("minicpm-2b", "decode_32k"))
-# The bar each cell's peak a device (GiB) meets.
-DRYRUN_PEAK_GIB = {"phi3.5-moe-42b-a6.6b": 40.0, "minicpm-2b": 25.0}
+                ("minicpm-2b", "decode_32k"),
+                ("seamless-m4t-large-v2", "prefill_32k"),
+                ("internvl2-26b", "train_4k"))
+# The bar each cell's peak a device (GiB) meets: the CPU dry runs read
+# 7.705 (seamless prefill_32k) and 2.731 (internvl2 train_4k) once their
+# layers split over "model" (115.400 and 20.803 computed whole).
+DRYRUN_PEAK_GIB = {"phi3.5-moe-42b-a6.6b": 40.0, "minicpm-2b": 25.0,
+                   "seamless-m4t-large-v2": 10.0, "internvl2-26b": 5.0}
 # (d) A model that only a layer-at-a-time executor can hold on the card.
 # Mixtral-8x22B at its published width, 5 of 56 layers (2.504 B
 # parameters a layer; 12.92 B, 48.1 GiB of float32 weights, one copy in
@@ -4209,6 +4218,17 @@ DRYRUN_PEAK_GIB = {"phi3.5-moe-42b-a6.6b": 40.0, "minicpm-2b": 25.0}
 # shards would need ~96 GiB more).
 SHARD_MIX_LAYERS, SHARD_MIX_SLOTS = 5, 4
 SHARD_MIX_PROMPT, SHARD_MIX_NEW = 16, 16
+# (e) InternVL2-26B at its published width, 1 of 48 layers (1.55 B
+# parameters, 18.6 GB with both AdamW moments, held twice: the single
+# device's state and the shards), trained 2 steps at 8 x 512 from
+# ``make_batch`` (256 patch slots, ~90 % valid, + 256 text tokens) over
+# (2, 2) of the card: each data window holds the 4 rows at which ``auto``
+# packs on the tile-skipping crossbar, once a rank of its row a forward.
+SHARD_VLM_LAYERS, SHARD_VLM_BATCH, SHARD_VLM_SEQ = 1, 8, 512
+# (f) SeamlessM4T-large-v2 whole (24 + 24 layers): 4 requests of 256
+# frames encoded and their cross K/V primed on one device, then 8 greedy
+# decode steps from BOS on one device and over (2, 2) of the card.
+SHARD_ENC_SLOTS, SHARD_ENC_FRAMES, SHARD_ENC_STEPS = 4, 256, 8
 ALLOC_GRANULE = 512        # the CUDA caching allocator rounds to 512 bytes
 
 
@@ -4373,13 +4393,16 @@ def sharding_phase(dev, compare):
     at near-ties (``SHARD_TOKEN_NEAR_TIE``).  (d)
     ``sharded_mixtral``: Mixtral-8x22B, 5 of 56 layers, which the card
     holds only a layer at a time beside its shards, its dispatch and
-    combine on the dense crossbar.  (c)
+    combine on the dense crossbar.  (e) ``sharded_internvl2``: the vlm
+    family's training split, its patch pack on the tile-skipping
+    crossbar on every rank.  (f) ``sharded_seamless``: the encdec
+    family's decode split, the cross caches primed on one device.  (c)
     ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` (per_device, roofline,
     wall seconds), each within 80 GB and its ``DRYRUN_PEAK_GIB`` a device, and
     ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
     placeholders: its argument bytes over the mesh equal to (a)'s placed
     bytes, its temp bytes and step-time bound printed beside (a)'s peak
-    and step.  Returns (a)'s and (d)'s counted launches."""
+    and step.  Returns (a)'s, (d)'s, (e)'s and (f)'s counted launches."""
     import dataclasses
 
     import torch
@@ -4498,38 +4521,8 @@ def sharding_phase(dev, compare):
     check(flips <= MIXTRAL_MAX_FLIPS * choices and gap <= MIXTRAL_NEAR_TIE,
           f"sharded training: its own top-k differs from the single-device "
           f"experts at {flips} of {choices} choices, by up to {gap}")
-    for s, ((t1, m1), (ts, ms)) in enumerate(zip(hist_1, hist_s)):
-        check(all(math.isfinite(ms[k]) for k in ("loss", "grad_norm")),
-              f"sharded step {s}: loss {ms['loss']}")
-        check(math.isclose(ms["loss"], m1["loss"],
-                           rel_tol=DENSE_RESUME_TOL["rtol"],
-                           abs_tol=DENSE_RESUME_TOL["atol"]),
-              f"step {s}: sharded loss {ms['loss']} != single-device "
-              f"{m1['loss']} ({DENSE_RESUME_TOL})")
-        log(f"  step {s}: loss sharded {ms['loss']:.7f} single "
-            f"{m1['loss']:.7f} (diff {ms['loss'] - m1['loss']:.3e}); grad "
-            f"norm {ms['grad_norm']:.6f} / {m1['grad_norm']:.6f}; lr "
-            f"{ms['lr']:.2e}; host ms sharded {ts * 1e3:.1f}, single "
-            f"{t1 * 1e3:.1f}")
-    worst_p = worst_mu = 0.0
-    for got, want_p in zip(_tree.leaves(placed.params),
-                           _tree.leaves(state.params)):
-        g = shd.gather(got)
-        worst_p = max(worst_p, float((g - want_p.detach()).abs().max()))
-        check(torch.allclose(g, want_p.detach(), **SHARD_PARAM_TOL),
-              f"a parameter {tuple(g.shape)} differs beyond "
-              f"{SHARD_PARAM_TOL}: {worst_p}")
-        del g
-    for got, want_m in zip(_tree.leaves(placed.opt.mu),
-                           _tree.leaves(state.opt.mu)):
-        g = shd.gather(got)
-        rel = float(torch.linalg.vector_norm(g - want_m)
-                    / torch.clamp(torch.linalg.vector_norm(want_m),
-                                  min=1e-30))
-        worst_mu = max(worst_mu, rel)
-        del g
-    check(worst_mu <= TOL_BF16["rtol"], f"first moments differ by "
-          f"{worst_mu} in L2 (> {TOL_BF16['rtol']})")
+    worst_p, worst_mu = held_to_single("phi3.5-moe", hist_1, hist_s,
+                                       placed, state)
     by_op = {}
     for t in transfers:
         by_op[t.op] = by_op.get(t.op, 0.0) + t.traffic
@@ -4578,52 +4571,26 @@ def sharding_phase(dev, compare):
         pc = shd.device_put(params_b, shd.param_shardings(params_b, mesh))
         cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
         specs = [c.sharding.spec for c in _tree.leaves(cc)]
-        t1 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        ms_1, ms_s, rows_1, rows_s = [], [], [], []
-        dec_tr = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        for j in range(SHARD_DEC_STEPS):
-            pos = SHARD_DEC_PROMPT + j
-            s1, (l1, caches) = host_s(lambda: api_b.decode_fn(
-                params_b, t1, caches, pos))
-            # teacher-forced: both runs are fed the single device's token
-            s2, (l2, cc) = host_s(lambda: spmd.sharded_decode_step(
-                api_b.decode_fn, mesh, pc, t1, cc, pos, batch_dims=dims,
-                transfers=dec_tr))
-            ms_1.append(s1 * 1e3)
-            ms_s.append(s2 * 1e3)
-            close_rows(f"sharded decode step {j} logits vs single-device",
-                       l2[:, -1], l1[:, -1], TOL_BF16["rtol"])
-            rows_1.append(l1[:, -1].float())
-            rows_s.append(l2[:, -1].float())
-            t1 = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
-    torch.cuda.synchronize()
-    peak_b, counts_b = torch.cuda.max_memory_allocated(), launch_counts()
-    tflips, tokens_b, tgap = token_flips(torch.stack(rows_s),
-                                         torch.stack(rows_1))
-    check(tflips <= MIXTRAL_MAX_FLIPS * tokens_b
-          and tgap <= SHARD_TOKEN_NEAR_TIE, f"sharded decode (b): its greedy"
-          f" choice differs from the single device's token at {tflips} of "
-          f"{tokens_b}, the single device's logits {tgap} apart")
+    t1 = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    reset_launch_counts()
+    line = decode_held_to_single("minicpm-2b (b)", api_b.decode_fn, mesh,
+                                 params_b, caches, pc, cc, dims, t1,
+                                 SHARD_DEC_PROMPT, SHARD_DEC_STEPS)
     log(f"sharding phase (b): minicpm-2b full width, {SHARD_DEC_LAYERS} of "
         f"{minicpm_2b.CONFIG.num_layers} layers, {SHARD_BATCH} slots, prompt "
         f"{SHARD_DEC_PROMPT}, caches {specs[0]} on {dict(mesh.shape)}: "
-        f"{SHARD_DEC_STEPS} greedy steps fed the single device's tokens, "
-        f"its own greedy choice off them at {tflips} of {tokens_b} (the "
-        f"single device's logits {tgap:.3e} apart there); rows within "
-        f"{max(row_err(a, b) for a, b in zip(rows_s, rows_1)):.3e} in L2; "
-        f"decode ms a step "
-        f"sharded {sorted(ms_s)[len(ms_s) // 2]:.2f}, single-device "
-        f"{sorted(ms_1)[len(ms_1) // 2]:.2f} (medians, host clock); peak "
-        f"{peak_b / 2**30:.2f} GiB; launches {counts_b}; "
-        f"{moved(dec_tr, SHARD_DEC_STEPS)}")
+        f"{line}; launches {launch_counts()}")
     del params_b, pc, cc, caches
     torch.cuda.empty_cache()
 
     # ------------------------- (d) Mixtral-8x22B, a layer at a time ---
     add_counts(counts, sharded_mixtral(dev, compare))
+
+    # -------------------- (e) InternVL2-26B training split over (2, 2) ---
+    add_counts(counts, sharded_internvl2(dev, compare))
+
+    # --------------------- (f) SeamlessM4T decode split over (2, 2) ---
+    add_counts(counts, sharded_seamless(dev))
 
     # -------------------------------------------------- (c) dry runs ---
     for arch, shape in DRYRUN_CELLS:
@@ -4656,6 +4623,276 @@ def sharding_phase(dev, compare):
         f"{rf['compute_s'] * 1e3:.3f}, memory {rf['memory_s'] * 1e3:.2f}, "
         f"collective {rf['collective_s'] * 1e3:.3f} ms) beside (a)'s "
         f"measured {step_ms:.1f} ms for the mesh's 4 shards on one card")
+    return counts
+
+
+def held_to_single(label, hist_1, hist_s, placed, state):
+    """Sharded training against one device from the same state and
+    batches (``hist_*``: [(host s, metrics)] a step): each sharded loss
+    within ``DENSE_RESUME_TOL`` of the single device's (logged a step),
+    every parameter after the steps within ``SHARD_PARAM_TOL``, every
+    first moment within ``TOL_BF16``'s rtol in L2.  Returns (the worst
+    parameter |diff|, the worst moment's L2 relative error)."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.dist import sharding as shd
+
+    for s, ((t1, m1), (ts, ms)) in enumerate(zip(hist_1, hist_s)):
+        check(all(math.isfinite(ms[k]) for k in ("loss", "grad_norm")),
+              f"sharded {label} step {s}: loss {ms['loss']}")
+        check(math.isclose(ms["loss"], m1["loss"],
+                           rel_tol=DENSE_RESUME_TOL["rtol"],
+                           abs_tol=DENSE_RESUME_TOL["atol"]),
+              f"{label} step {s}: sharded loss {ms['loss']} != "
+              f"single-device {m1['loss']} ({DENSE_RESUME_TOL})")
+        log(f"  step {s}: loss sharded {ms['loss']:.7f} single "
+            f"{m1['loss']:.7f} (diff {ms['loss'] - m1['loss']:.3e}); grad "
+            f"norm {ms['grad_norm']:.6f} / {m1['grad_norm']:.6f}; lr "
+            f"{ms['lr']:.2e}; host ms sharded {ts * 1e3:.1f}, single "
+            f"{t1 * 1e3:.1f}")
+    worst_p = worst_mu = 0.0
+    for got, want_p in zip(_tree.leaves(placed.params),
+                           _tree.leaves(state.params)):
+        g = shd.gather(got)
+        worst_p = max(worst_p, float((g - want_p.detach()).abs().max()))
+        check(torch.allclose(g, want_p.detach(), **SHARD_PARAM_TOL),
+              f"{label}: a parameter {tuple(g.shape)} differs beyond "
+              f"{SHARD_PARAM_TOL}: {worst_p}")
+        del g
+    for got, want_m in zip(_tree.leaves(placed.opt.mu),
+                           _tree.leaves(state.opt.mu)):
+        g = shd.gather(got)
+        worst_mu = max(worst_mu, float(
+            torch.linalg.vector_norm(g - want_m)
+            / torch.clamp(torch.linalg.vector_norm(want_m), min=1e-30)))
+        del g
+    check(worst_mu <= TOL_BF16["rtol"], f"{label}: first moments differ by "
+          f"{worst_mu} in L2 (> {TOL_BF16['rtol']})")
+    return worst_p, worst_mu
+
+
+def decode_held_to_single(label, decode_fn, mesh, params, caches, pc, cc,
+                          dims, tok, pos0, steps) -> str:
+    """``steps`` greedy decode steps from ``tok`` at position ``pos0``, on
+    one device (``params``, ``caches``) and through
+    ``spmd.sharded_decode_step`` (``pc``, ``cc``), both fed the single
+    device's tokens: each logit row within ``TOL_BF16``'s rtol in L2,
+    the sharded run's own greedy choice off those tokens only at
+    near-ties (``SHARD_TOKEN_NEAR_TIE``), no cache row moved.  Returns
+    the line to log: the choices, the rows, the medians of ms a step
+    (host clock), the peak and the transfer record a step."""
+    import torch
+
+    from repro_torch.dist import spmd
+
+    ms_1, ms_s, rows_1, rows_s, tr = [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        for j in range(steps):
+            pos = pos0 + j
+            s1, (l1, caches) = host_s(lambda: decode_fn(params, tok, caches,
+                                                        pos))
+            # teacher-forced: both runs are fed the single device's token
+            s2, (l2, cc) = host_s(lambda: spmd.sharded_decode_step(
+                decode_fn, mesh, pc, tok, cc, pos, batch_dims=dims,
+                transfers=tr))
+            ms_1.append(s1 * 1e3)
+            ms_s.append(s2 * 1e3)
+            close_rows(f"sharded {label} decode step {j} logits vs "
+                       "single-device", l2[:, -1], l1[:, -1],
+                       TOL_BF16["rtol"])
+            rows_1.append(l1[:, -1].float())
+            rows_s.append(l2[:, -1].float())
+            tok = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    check(not [t for t in tr if t.kind == "cache"],
+          f"sharded {label} decode moved cache rows")
+    tflips, tokens, tgap = token_flips(torch.stack(rows_s),
+                                       torch.stack(rows_1))
+    check(tflips <= MIXTRAL_MAX_FLIPS * tokens
+          and tgap <= SHARD_TOKEN_NEAR_TIE, f"sharded {label} decode: its "
+          f"greedy choice differs from the single device's token at "
+          f"{tflips} of {tokens}, the single device's logits {tgap} apart")
+    return (f"{steps} greedy steps fed the single device's tokens, its own "
+            f"greedy choice off them at {tflips} of {tokens} (the single "
+            f"device's logits {tgap:.3e} apart there); rows within "
+            f"{max(row_err(a, w) for a, w in zip(rows_s, rows_1)):.3e} in "
+            f"L2; decode ms a step sharded {sorted(ms_s)[len(ms_s) // 2]:.2f}"
+            f", single-device {sorted(ms_1)[len(ms_1) // 2]:.2f} (medians, "
+            f"host clock); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{moved(tr, steps)}")
+
+
+def sharded_internvl2(dev, compare):
+    """Sharding phase (e): InternVL2-26B, ``SHARD_VLM_LAYERS`` of 48
+    layers, trained ``SHARD_STEPS`` steps on one device and over (2, 2)
+    of the card from the same state and batches
+    (``TrainOptions(peak_lr=1e-3)``): each sharded loss within
+    ``DENSE_RESUME_TOL`` of the single device's, every parameter after
+    the steps within ``SHARD_PARAM_TOL`` (the first moments' worst L2
+    printed); the patch pack on the tile-skipping crossbar once a rank
+    of each window's row a forward (the recompute repacks nothing), no
+    other kernel; the first rank's first pack held to the plain version
+    (``compare``, after the counters are read).  Prints the step ms of
+    both, the peak and the transfer record a step.  Returns the sharded
+    steps' counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import internvl2_26b
+    from repro_torch.core import permute as P
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.models import vlm as V
+    from repro_torch.train import TrainOptions, make_train_step
+    from repro_torch.train.trainer import init_state
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(internvl2_26b.CONFIG,
+                              num_layers=SHARD_VLM_LAYERS)
+    mesh = make_host_mesh(data=2, model=2)
+    api = model_zoo.build(cfg, device=dev)
+    state = init_state(api.init(torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(t.numel() for t in _tree.leaves(state.params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [api.make_batch(gen, SHARD_VLM_BATCH, SHARD_VLM_SEQ)
+               for _ in range(SHARD_STEPS)]
+    sh = (spmd.train_state_shardings(state, mesh, cfg),
+          shd.batch_shardings(batches[0], mesh))
+    placed, batch0 = shd.device_put((state, batches[0]), sh)
+    log(f"sharding phase (e): internvl2-26b, full width, "
+        f"{SHARD_VLM_LAYERS} of {internvl2_26b.CONFIG.num_layers} layers, "
+        f"{n_params / 1e9:.4f} B float32 parameters; mesh "
+        f"{dict(mesh.shape)} of {dev}; batch "
+        f"{ {k: tuple(v.shape) for k, v in batches[0].items()} }, "
+        f"{SHARD_STEPS} steps")
+    opts = TrainOptions(peak_lr=1e-3)
+    single = make_train_step(api.loss_fn, opts)
+    hist_1 = []
+    for s in range(SHARD_STEPS):
+        secs, (state, m) = host_s(lambda: single(state, batches[s]))
+        hist_1.append((secs, {k: float(v) for k, v in m.items()}))
+
+    transfers, packs = [], []
+    step = spmd.make_sharded_train_step(api.loss_fn, opts, mesh, *sh,
+                                        transfers=transfers)
+    real_pack = V.pack_patches
+
+    def capture(x, valid):
+        out = real_pack(x, valid)
+        if not packs:
+            packs.append((x.t[0], valid.t[0], out.t[0]))
+        return out
+    hist_s = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    V.pack_patches = capture
+    try:
+        for s in range(SHARD_STEPS):
+            secs, (placed, m) = host_s(lambda: step(
+                placed, batch0 if s == 0 else batches[s]))
+            hist_s.append((secs, {k: float(v) for k, v in m.items()}))
+    finally:
+        V.pack_patches = real_pack
+    torch.cuda.synchronize()
+    counts = dict(launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    want = {"crossbar_sparse": (mesh.shape["data"] * mesh.shape["model"]
+                                * SHARD_STEPS)}
+    check({k: v for k, v in counts.items() if v} == want,
+          f"sharded internvl2 launched {counts}, not {want} (the pack on "
+          "the tile-skipping crossbar, data windows x model ranks x "
+          "forwards)")
+    worst_p, worst_mu = held_to_single("internvl2", hist_1, hist_s, placed,
+                                       state)
+    log(f"  parameters after {SHARD_STEPS} steps: max |diff| {worst_p:.3e} "
+        f"({SHARD_PARAM_TOL}); first moments worst L2 relative "
+        f"{worst_mu:.3e} (<= {TOL_BF16['rtol']}); sharded step {hist_s[-1][0] * 1e3:.1f} ms (step "
+        f"1, host clock ending in a synchronise), single-device "
+        f"{hist_1[-1][0] * 1e3:.1f} ms; max_memory_allocated over the "
+        f"sharded steps {peak / 2**30:.2f} GiB (the single-device state and "
+        f"the four shards on one card); launches {counts}; "
+        f"{moved(transfers, SHARD_STEPS)}")
+    x, valid, out = packs[0]
+    plain = P.vcompress_batched(x.cpu(), valid.cpu(), tail="zero",
+                                backend="sparse")
+    compare("crossbar_sparse", f"sharded internvl2 step 0, rank 0: the patch"
+            f" pack {tuple(x.shape)} {x.dtype} (tile-skipping kernel) vs its "
+            "plain version", out, plain.to(dev))
+    log(f"  (e) {time.perf_counter() - t_part:.1f} s")
+    del state, placed, batch0, batches, step, single, packs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sharded_seamless(dev):
+    """Sharding phase (f): SeamlessM4T-large-v2 whole, its decoder's
+    greedy decode of ``SHARD_ENC_STEPS`` steps from BOS on one device
+    and over (2, 2) of the card on the same weights and primed cross
+    caches (``prime_cross`` of one encode on one device, placed by
+    ``cache_shardings``), the sharded run fed the single device's
+    tokens: each logit row within ``TOL_BF16``'s rtol in L2, its own
+    greedy choice off those tokens only at near-ties
+    (``SHARD_TOKEN_NEAR_TIE``); no cache row crosses "model".  Prints
+    the ms a step of both, the peak and the transfer record a step.
+    Returns the sharded run's counted launches."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import seamless_m4t_large_v2
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    cfg = seamless_m4t_large_v2.CONFIG
+    mesh = make_host_mesh(data=2, model=2)
+    api = model_zoo.build(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in _tree.leaves(params))
+    b, steps = SHARD_ENC_SLOTS, SHARD_ENC_STEPS
+    g = torch.Generator(device=dev).manual_seed(2)
+    frames = (torch.randn((b, SHARD_ENC_FRAMES, cfg.d_model), generator=g,
+                          device=dev) * 0.02).to(L.dtype_of(cfg.compute_dtype))
+    with torch.inference_mode():
+        caches = api.init_caches(b, steps)
+        caches["cross"] = E.prime_cross(params, E.encode(params, frames, cfg),
+                                        cfg)
+        meta = model_zoo.build(cfg, device="meta")
+        dims = spmd.cache_batch_dims(lambda n: meta.init_caches(n, steps))
+        pc = shd.device_put(params, shd.param_shardings(params, mesh))
+        cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
+    specs = {k: tuple(v["k"].sharding.spec) for k, v in cc.items()}
+    log(f"sharding phase (f): seamless-m4t-large-v2 whole "
+        f"({cfg.encoder_layers} + {cfg.num_layers} layers), "
+        f"{n_params / 1e9:.3f} B float32 parameters; {b} requests x "
+        f"{SHARD_ENC_FRAMES} frames encoded and primed on one device; "
+        f"caches {specs} on {dict(mesh.shape)}")
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+    reset_launch_counts()
+    line = decode_held_to_single("seamless (f)", api.decode_fn, mesh, params,
+                                 caches, pc, cc, dims, tok, 0, steps)
+    counts = dict(launch_counts())
+    log(f"  {line}; launches {counts}; {time.perf_counter() - t_part:.1f} s")
+    del params, pc, cc, caches
+    torch.cuda.empty_cache()
     return counts
 
 

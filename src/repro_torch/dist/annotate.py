@@ -13,8 +13,8 @@ The port has no compiler to hand a constraint to.  Off the sharded
 executor an annotation returns its input unchanged: a constraint never
 changes values.  The executor runs a batch window on its **model-axis
 group** (``ModelGroup``: the mesh indices along "model" that hold the
-window, ``dist.spmd``); the model code of the dense and MoE families
-then gets its parameters and inputs as ``Parts`` — one tensor a rank of
+window, ``dist.spmd``); the model code of the dense, MoE, vlm and
+encdec families then gets its parameters and inputs as ``Parts`` — one tensor a rank of
 the group, with where the global value lies (split on a dimension,
 replicated, or a partial sum) — and ``annotate`` moves such a value to
 the placement its names resolve to (``spec`` on the global shape, "model" entries only: the

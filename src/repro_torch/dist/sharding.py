@@ -238,13 +238,20 @@ def expert_block(shape, k, r, leaf="wi", one_token=False) -> dict:
     return _split_block(shape, 2, k, r)
 
 
+# the subtrees of an attention layer: the decoder-only families' "attn"
+# (the encoder's too), the encoder-decoder's "self_attn" and "cross_attn"
+_ATTENTION = ("attn", "self_attn", "cross_attn")
+
+
 def compute_block(path, shape, k, r, one_token=False) -> dict:
-    """{dim: (lo, hi)}: the block of a dense or MoE model's parameter
-    leaf (at ``path`` in its tree) that rank r of a model axis of k
+    """{dim: (lo, hi)}: the block of a dense, MoE, vlm or encdec model's
+    parameter leaf (at ``path`` in its tree: ``blocks``, ``enc_blocks``
+    or ``dec_blocks``, or a table) that rank r of a model axis of k
     computes with; {} is the whole leaf.
 
     * wq / wk / wv (and their biases), wi and wg: the column block, the
-      block ``_param_spec`` puts on 'model' (heads or kv heads, d_ff);
+      block ``_param_spec`` puts on 'model' (heads or kv heads, d_ff),
+      in self and cross attention alike;
     * the wo of attention and of the MLP: the row block (the rank's
       heads, its d_ff), whose products are partial sums over 'model';
       for a decode step (``one_token``), the column block, on the input
@@ -259,15 +266,16 @@ def compute_block(path, shape, k, r, one_token=False) -> dict:
     reference's fallback)."""
     names = [p for p in path if isinstance(p, str)]
     leaf, owner = names[-1], names[-2] if len(names) > 1 else None
+    attn = any(n in names for n in _ATTENTION)
     if leaf == "table":
         return _split_block(shape, 0, k, r)
     if "moe" in names and owner == "moe" and leaf in ("wi", "wg", "wo"):
         return expert_block(shape, k, r, leaf, one_token)
-    if owner == "wo" and ("attn" in names or "mlp" in names):
+    if owner == "wo" and (attn or "mlp" in names):
         if leaf != "w":
             return {}
         return (column_block if one_token else row_block)(shape, k, r)
-    if (("attn" in names and owner in ("wq", "wk", "wv"))
+    if ((attn and owner in ("wq", "wk", "wv"))
             or ("mlp" in names and owner in ("wi", "wg"))):
         return column_block(shape, k, r)
     return {}

@@ -15,15 +15,16 @@ leading dimension (``batch_shardings``: one a batch shard) are the
 windows.  Batch leaves lead with the batch dimension.  A window runs on
 its **model row**: the mesh indices that hold it and differ from the
 first of them along "model" only, in model-axis order (rank r of the
-row).  The dense and MoE families (functions marked by
+row).  The dense, MoE, vlm and encdec families (functions marked by
 ``model_zoo.build``: ``fn.model_split``) run a window on every index of
 its row, split over "model" as the reference's annotations split each
 product: the model code gets ``annotate.Parts`` of the row's
-``annotate.ModelGroup`` and each rank computes its share (``annotate``'s module docstring; the splits
-are the model code's, the blocks ``sharding.compute_block``).  The
-rwkv, hybrid, vlm and encdec families, and any function not so marked,
-run each window on the row's first index alone, each layer's matrices
-whole there (the next slice splits them).
+``annotate.ModelGroup`` and each rank computes its share
+(``annotate``'s module docstring; the splits are the model code's, the
+blocks ``sharding.compute_block``).  The rwkv and hybrid families, and
+any function not so marked, run each window on the row's first index
+alone, each layer's matrices whole there (their recurrent state's split
+by heads is not ported yet).
 
 **What an index holds.**  Its shards, and what one layer gathers: as
 the reference's partitioned step holds them, not the whole model.  The
@@ -521,7 +522,7 @@ def _off_model(mesh, p) -> tuple:
 
 def splits_over_model(fn, mesh) -> bool:
     """Whether ``fn``'s windows run split over "model": a function of the
-    dense or MoE family (``model_zoo.build`` marks them
+    dense, MoE, vlm or encdec family (``model_zoo.build`` marks them
     ``model_split``) on a mesh whose "model" axis has more than one
     index."""
     return (getattr(fn, "model_split", False)

@@ -18,11 +18,14 @@ rank computes its share, as the reference's annotations split it:
   head count does not divide the axis, the keys instead
   (context-parallel: every rank all heads against its block of keys,
   the softmax joined from the ranks' maxima and sums, the partial
-  outputs reduce-scattered onto wo's row blocks);
+  outputs reduce-scattered onto wo's row blocks).  Cross attention
+  splits the same way, its keys and values projected from the encoder
+  states gathered over "model" (the keys' split is then the frames');
 * decode: each rank reads the block of the cache its index holds — kv
   heads when they divide the axis, else head_dim (the partial scores
   summed over "model"), else all of it — so cache rows never cross
-  "model".
+  "model" (``read_split``; the encoder-decoder's primed cross caches
+  alike).
 """
 
 from __future__ import annotations
@@ -145,39 +148,50 @@ def _rope(g, t, positions, cfg):
         positions, dim=t.dim)
 
 
-def _attn_split(p, x, cfg, positions, causal):
+def _attn_split(p, x, cfg, positions, causal, kv_src=None):
+    """``attn_apply`` split over "model"; with ``kv_src`` (the encoder
+    states, cross attention) the keys and values come from it, with no
+    rope and no mask, the queries in one chunk as ``cross_attn_apply``
+    takes them."""
     g = x.g
     k_ = g.k
     x = annotate(x, "batch")                     # the sequence gathered
+    src = x if kv_src is None else annotate(kv_src, "batch")
     b, s, _ = x.shape
+    f = src.shape[1]
     dtype = x.first().dtype
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     rep = h // kv
     dev = x.first().device
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
-    pos = g.map(lambda t: positions.to(t.device), x)
-    chunk = min(cfg.attn_chunk, s)
+    if kv_src is None:
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
+        pos = g.map(lambda t: positions.to(t.device), x)
+        rope = lambda t, at: _rope(g, t, at, cfg)
+    else:
+        pos, rope = None, lambda t, at: t
+    chunk = min(cfg.attn_chunk, s) if kv_src is None else s
     if s % chunk:
         chunk = s  # one chunk for ragged lengths
 
     def masks(lo, hi, off, device):
+        """Query chunk ``off``'s mask against keys [lo, hi)."""
         if causal:
             m = sliding_window_mask(chunk, s, cfg.sliding_window,
                                     q_offset=off, device=device)
         else:
-            m = torch.ones((chunk, s), dtype=torch.bool, device=device)
+            m = torch.ones((chunk, f), dtype=torch.bool, device=device)
         return m[:, lo:hi]
 
     if h % k_ == 0:
         # heads over "model": rank r computes heads [r H/k, (r+1) H/k)
         q = L.split_dense(p["wq"], x, dtype)
-        q = _rope(g, g.map(lambda t: t.reshape(b, s, h // k_, hd), q, dim=2),
-                  pos, cfg)
+        q = rope(g.map(lambda t: t.reshape(b, s, h // k_, hd), q, dim=2),
+                 pos)
         if kv % k_ == 0:
             def kv_heads(name):
-                t = L.split_dense(p[name], x, dtype)
-                return g.map(lambda tr: tr.reshape(b, s, kv // k_, hd), t,
+                t = L.split_dense(p[name], src, dtype)
+                return g.map(lambda tr: tr.reshape(b, f, kv // k_, hd), t,
                              dim=2)
             kk, vv, rep_r = kv_heads("wk"), kv_heads("wv"), rep
         else:
@@ -186,43 +200,46 @@ def _attn_split(p, x, cfg, positions, causal):
                 idx = torch.arange(r * (h // k_), (r + 1) * (h // k_),
                                    device=t.device) // rep
                 return t.index_select(2, idx)
-            kk = g.map(serving, _project(g, p["wk"], x, dtype, kv, hd),
+            kk = g.map(serving, _project(g, p["wk"], src, dtype, kv, hd),
                        rank=True, dim=2)
-            vv = g.map(serving, _project(g, p["wv"], x, dtype, kv, hd),
+            vv = g.map(serving, _project(g, p["wv"], src, dtype, kv, hd),
                        rank=True, dim=2)
             rep_r = 1
-        kk = _rope(g, kk, pos, cfg)
+        kk = rope(kk, pos)
 
         def heads(qr, kr, vr):
             outs = [_sdpa_chunk(qr[:, off:off + chunk], kr, vr,
-                                masks(0, s, off, qr.device), cfg, rep_r)
+                                masks(0, f, off, qr.device), cfg, rep_r)
                     for off in range(0, s, chunk)]
             return torch.cat(outs, dim=1)
         out = g.map(heads, q, kk, vv, dim=2)
         return L.project_out(p["wo"], out, dtype)
-    return _attn_keys(g, p, x, cfg, pos, masks, chunk, dtype)
+    return _attn_keys(g, p, x, src, pos, rope, masks, chunk, cfg, dtype)
 
 
-def _attn_keys(g, p, x, cfg, pos, masks, chunk, dtype):
+def _attn_keys(g, p, x, src, pos, rope, masks, chunk, cfg, dtype):
     """Context-parallel attention (the head count does not divide the
-    axis): every rank all heads against its block of keys, the softmax
-    joined from the ranks' maxima and sums."""
+    axis): every rank all heads against its block of keys (of ``src``'s
+    positions: the sequence, or the encoder's frames), the softmax joined
+    from the ranks' maxima and sums."""
     b, s, _ = x.shape
+    f = src.shape[1]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     rep = h // kv
-    q = _rope(g, _project(g, p["wq"], x, dtype, h, hd), pos, cfg)
-    k_split = s % g.k == 0
+    q = rope(_project(g, p["wq"], x, dtype, h, hd), pos)
+    k_split = f % g.k == 0
     part = ann.SUM if k_split else None
-    span = (lambda r: g.block(s, r)) if k_split else (lambda r: (0, s))
+    span = (lambda r: g.block(f, r)) if k_split else (lambda r: (0, f))
 
     def keys(name):
-        t = L.split_dense(p[name], x, dtype)
+        t = L.split_dense(p[name], src, dtype)
         t = annotate(t, "batch", "tp" if k_split else None, None)
         return g.map(lambda tr: tr.reshape(b, tr.shape[1], kv, hd), t,
                      dim=t.dim)
     kk, vv = keys("wk"), keys("wv")
-    kk = _rope(g, kk, g.map(lambda r, pr: pr[:, slice(*span(r))], pos,
-                            rank=True), cfg)
+    if pos is not None:
+        kk = rope(kk, g.map(lambda r, pr: pr[:, slice(*span(r))], pos,
+                            rank=True))
     outs = []
     for off in range(0, s, chunk):
         scores = g.map(lambda r, qr, kr: torch.where(
@@ -248,7 +265,12 @@ def _attn_keys(g, p, x, cfg, pos, masks, chunk, dtype):
 
 def cross_attn_apply(p, x, kv_src, cfg, *, positions=None):
     """Encoder-decoder cross attention: queries from ``x`` (B, S, D),
-    keys and values from ``kv_src`` (B, F, D); no mask and no rope."""
+    keys and values from ``kv_src`` (B, F, D); no mask and no rope.
+    Split over "model" (``x`` and ``kv_src`` ``Parts``), as
+    self-attention splits: heads, or the encoder's frames where the
+    heads do not divide the axis."""
+    if isinstance(x, Parts):
+        return _attn_split(p, x, cfg, None, False, kv_src=kv_src)
     dtype = x.dtype
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
@@ -305,55 +327,71 @@ def decode_attn_apply(p, x1, cache, pos: int, cfg):
 def _decode_attn_split(p, x1, cache, pos, cfg):
     """``decode_attn_apply`` split over "model": the projections'
     column blocks gathered into whole heads (a token's worth), each rank
-    writing and reading its block of the cache (``cache["k"].dim``: the
-    kv-head or head_dim dimension it splits, None when whole)."""
+    writing and reading its block of the cache (``read_split``)."""
     g = x1.g
     x1 = annotate(x1, "batch")
     dtype = x1.first().dtype
     b = x1.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    rep = h // kv
     positions = g.map(lambda t: torch.full((b, 1), pos, dtype=torch.int32,
                                            device=t.device), x1)
     q = _rope(g, _project(g, p["wq"], x1, dtype, h, hd), positions, cfg)
     k1 = _rope(g, _project(g, p["wk"], x1, dtype, kv, hd), positions, cfg)
     v1 = _project(g, p["wv"], x1, dtype, kv, hd)
-    split = cache["k"].dim                 # 2: kv heads, 3: head_dim
-    grouped = {None: None, 2: 2, 3: 4}[split]     # in (B, 1, KV, rep, hd)
     w = cache["k"].first().shape[1]
-    slot = pos % w
-    written = w if pos + 1 >= w else pos + 1
-
-    def mine(r, t, d):
-        """Rank r's block of t's dimension d (all of it when the cache
-        is whole over "model")."""
-        if split is None:
-            return t
-        lo, hi = g.block(t.shape[d], r)
-        return t.narrow(d, lo, hi - lo)
-
+    split = cache["k"].dim
     row = None if split is None else split - 1    # in a token's (B, KV, hd)
+    for r in g.run:                    # each rank writes its block
+        for c, t in ((cache["k"], k1), (cache["v"], v1)):
+            c.t[r][:, pos % w] = _mine(g, r, t.t[r][:, 0], row).to(
+                c.t[r].dtype)
+    o = read_split(g, q, cache["k"], cache["v"], cfg, dtype,
+                   written=w if pos + 1 >= w else pos + 1)
+    return L.project_out(p["wo"], o, dtype)
 
-    def attend(r, qr, kr, vr, ck, cv):
-        ck[:, slot] = mine(r, kr[:, 0], row).to(ck.dtype)
-        cv[:, slot] = mine(r, vr[:, 0], row).to(cv.dtype)
-        qh = mine(r, qr.reshape(b, 1, kv, rep, hd), grouped)
-        return L.einsum_f32("bckrh,bskh->bkrcs", qh, ck)
 
-    scores = g.map(attend, q, k1, v1, cache["k"], cache["v"], rank=True,
+def _mine(g, r, t, d):
+    """Rank r's block of t's dimension d (all of t where d is None)."""
+    if d is None:
+        return t
+    lo, hi = g.block(t.shape[d], r)
+    return t.narrow(d, lo, hi - lo)
+
+
+def read_split(g, q, ck, cv, cfg, dtype, *, written=None):
+    """One query token q (B, 1, H, hd), replicated over the group,
+    against each rank's block of a cache layer ``ck`` / ``cv`` (B, W, KV,
+    hd) ``Parts``: ``ck.dim`` is the dimension it splits, 2 (kv heads) or
+    3 (head_dim, the partial scores summed over "model"), None when
+    whole; ``written`` counts the valid slots (None: all).  Returns the
+    attention output (B, 1, H hd), split on its last dimension by kv
+    heads, else replicated."""
+    b = q.shape[0]
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    rep = h // kv
+    split = ck.dim                         # 2: kv heads, 3: head_dim
+    grouped = {None: None, 2: 2, 3: 4}[split]     # in (B, 1, KV, rep, hd)
+    w = ck.first().shape[1]
+
+    def attend(r, qr, ckr):
+        qh = _mine(g, r, qr.reshape(b, 1, kv, rep, hd), grouped)
+        return L.einsum_f32("bckrh,bskh->bkrcs", qh, ckr)
+
+    scores = g.map(attend, q, ck, rank=True,
                    dim={None: None, 2: 1, 3: ann.SUM}[split])
     if split == 3:
         scores = annotate(scores, "batch")  # the head_dim partials summed
 
-    def out(sc, cv):
-        valid = torch.arange(w, device=sc.device) < written
-        probs = torch.softmax(torch.where(valid, sc / math.sqrt(hd),
-                                          _MASKED), dim=-1)
-        o = L.einsum_f32("bkrcs,bskh->bckrh", probs.to(dtype), cv)
+    def out(sc, cvr):
+        sc = sc / math.sqrt(hd)
+        if written is not None:
+            valid = torch.arange(w, device=sc.device) < written
+            sc = torch.where(valid, sc, _MASKED)
+        probs = torch.softmax(sc, dim=-1)
+        o = L.einsum_f32("bkrcs,bskh->bckrh", probs.to(dtype), cvr)
         return o.to(dtype)
-    o = g.map(out, scores, cache["v"], dim=grouped)
+    o = g.map(out, scores, cv, dim=grouped)
     if split == 3:
         o = annotate(o, "batch")           # the head_dim blocks gathered
-    o = g.map(lambda t: t.reshape(b, 1, t.shape[2] * rep * hd), o,
-              dim=None if o.dim is None else 2)
-    return L.project_out(p["wo"], o, dtype)
+    return g.map(lambda t: t.reshape(b, 1, t.shape[2] * rep * hd), o,
+                 dim=None if o.dim is None else 2)

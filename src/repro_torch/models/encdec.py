@@ -15,6 +15,15 @@ cross-attn + MLP).
 Layers are per-layer lists (``enc_blocks``, ``dec_blocks``); the stacks
 run through ``layers.scan``, which honours ``cfg.remat``.  Decode writes
 the self-attention caches in place.
+
+Under the sharded executor's model-axis group both stacks carry their
+sequence split over "model" (the reference's sequence-parallel carry,
+the encoder's over the frames), and each layer's products split as
+``attention`` and ``layers`` split them: cross attention by heads (or
+by frames), its keys and values from the encoder states gathered over
+"model".  In decode each rank reads its block of the self and the
+cross caches (``attention.read_split``); ``prime_cross`` makes each
+rank's block of the cross K/V on a group.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 from repro_torch._device import resolve
 from repro_torch.core import permute as P
 from repro_torch.core.sequence import shift_right
-from repro_torch.dist.annotate import annotate
+from repro_torch.dist.annotate import Parts, annotate
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -57,9 +66,11 @@ def encode(params, frames, cfg, *, frame_valid=None):
     """frames (B, F, D) precomputed embeddings -> encoder states (B, F, D);
     with ``frame_valid`` (B, F) the valid frames are front-packed first
     and the pad slots zeroed."""
-    x = frames.to(L.dtype_of(cfg.compute_dtype))
+    x = L.cast(frames, L.dtype_of(cfg.compute_dtype))
     if frame_valid is not None:
-        x = P.vcompress_batched(x, frame_valid, tail="zero", backend="auto")
+        x = L.each(lambda t, m: P.vcompress_batched(t, m, tail="zero",
+                                                    backend="auto"),
+                   x, frame_valid)
 
     def body(h, blk):
         h = annotate(h, "batch", "tp", None)  # sequence-parallel carry
@@ -115,7 +126,7 @@ def lm_init(gen, cfg, device=None):
 def decode_hidden(params, tokens, enc_out, cfg):
     """The teacher-forced decoder: targets (B, S) -> final hidden states
     (B, S, D), input token t being target t-1 (BOS = 0 at t = 0)."""
-    inp = shift_right(tokens, dim=-1, fill=0)
+    inp = L.each(lambda t: shift_right(t, dim=-1, fill=0), tokens)
     x = L.embed_lookup(params["embed"], inp, L.dtype_of(cfg.compute_dtype))
 
     def body(h, blk):
@@ -148,7 +159,14 @@ def init_caches(cfg, batch, max_seq, dtype=torch.bfloat16, device=None):
 
 def prime_cross(params, enc_out, cfg, dtype=torch.bfloat16):
     """Every decoder layer's cross-attention K/V from the encoder states:
-    {"k", "v"} of shape (L, B, F, KV, hd)."""
+    {"k", "v"} of shape (L, B, F, KV, hd).  On a model-axis group
+    (``enc_out`` ``Parts``), each rank's block of them, as
+    ``sharding.cache_shardings`` places the caches: its kv heads (wk's
+    and wv's column blocks) where they divide the axis, else its
+    head_dim block of every kv head (cut from the whole projection),
+    else all of it."""
+    if isinstance(enc_out, Parts):
+        return _prime_cross_split(params, enc_out, cfg, dtype)
     b, f, _ = enc_out.shape
     kv, hd = cfg.num_kv_heads, cfg.hd
     compute = L.dtype_of(cfg.compute_dtype)
@@ -160,9 +178,44 @@ def prime_cross(params, enc_out, cfg, dtype=torch.bfloat16):
     return {"k": torch.stack(ks).to(dtype), "v": torch.stack(vs).to(dtype)}
 
 
+def _prime_cross_split(params, enc_out, cfg, dtype):
+    g = enc_out.g
+    enc = annotate(enc_out, "batch")
+    b, f, _ = enc.shape
+    kv, hd = cfg.num_kv_heads, cfg.hd
+    compute = L.dtype_of(cfg.compute_dtype)
+    # the split dimension of a layer's (B, F, KV, hd) block: the caches'
+    # rule (``sharding.cache_shardings``)
+    split = 2 if kv % g.k == 0 else 3 if hd % g.k == 0 else None
+
+    def project(w):
+        if split == 2:
+            t = L.split_dense(w, enc, compute)
+            return g.map(lambda tr: tr.reshape(b, f, kv // g.k, hd), t,
+                         dim=2)
+        t = A._project(g, w, enc, compute, kv, hd)
+        return g.map(lambda r, tr: A._mine(g, r, tr, split), t, rank=True,
+                     dim=split)
+
+    def stacked(name):
+        layers = [project(blk["cross_attn"][name])
+                  for blk in params["dec_blocks"]]
+        return g.map(lambda *ts: torch.stack(ts).to(dtype), *layers,
+                     dim=None if split is None else split + 1)
+    return {"k": stacked("wk"), "v": stacked("wv")}
+
+
 def _cross_decode(p, x1, ck, cv, cfg):
     """One query token against a layer's primed cross K/V (B, F, KV, hd),
-    in the grouped (KV, rep) form."""
+    in the grouped (KV, rep) form; split over "model", each rank against
+    its block of them (``attention.read_split``)."""
+    if isinstance(x1, Parts):
+        g = x1.g
+        x1 = annotate(x1, "batch")
+        dtype = x1.first().dtype
+        q = A._project(g, p["wq"], x1, dtype, cfg.num_heads, cfg.hd)
+        return L.project_out(p["wo"], A.read_split(g, q, ck, cv, cfg, dtype),
+                             dtype)
     b = x1.shape[0]
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = L.dense(p["wq"], x1, x1.dtype).reshape(b, 1, h, hd)
@@ -195,4 +248,4 @@ def decode_step(params, tokens1, caches, pos, cfg, *, cross):
         x = x + hh
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     logits = L.logits_projection(params["lm_head"], x, x.dtype)
-    return logits, {"self": self_caches}
+    return L.gathered(logits), {"self": self_caches}

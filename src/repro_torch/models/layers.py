@@ -18,14 +18,14 @@ they do not reproduce the reference's ``jax.random`` bits (weights are
 carried across with ``models.params.params_from_numpy``).
 
 Under the sharded executor's model-axis group (``dist.annotate``) the
-dense and MoE families hold activations and parameter blocks as
-``Parts``; the functions here then compute each rank's share: a norm
-rank by rank, the MLP on its d_ff block (wi / wg by their column
+dense, MoE, vlm and encdec families hold activations and parameter
+blocks as ``Parts``; the functions here then compute each rank's share:
+a norm rank by rank, the MLP on its d_ff block (wi / wg by their column
 blocks, wo by its d_ff rows: float32 partial sums, reduce-scattered into
 the carry and rounded once; in a decode step by its columns on the
-gathered activation, every product one device's), the embedding and
-the head on the rank's
-vocabulary rows, and the cross-entropy reduced over the vocabulary
+gathered activation, every product one device's), the embedding (a
+frontend prefix joined to it) and the head on the rank's vocabulary
+rows, and the cross-entropy reduced over the vocabulary
 split (a max and a sum of exponentials across ranks, the label's logit
 from the rank that holds it).
 """
@@ -126,17 +126,23 @@ def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
     return y.to(x.dtype)
 
 
-def embed_lookup(p, tokens, compute_dtype=torch.bfloat16):
+def embed_lookup(p, tokens, compute_dtype=torch.bfloat16, *, prefix=None):
     """Table row gather (rows gathered, then cast: the same values as
-    casting the whole table first).  Split over "model": each rank
-    gathers the rows of its vocabulary block (zeros for the others'),
-    and the ranks' sum is placed as the layer stack's carry."""
+    casting the whole table first); ``prefix`` (B, F, D), a frontend's
+    embeddings, is joined ahead of the rows along the sequence.  Split
+    over "model": each rank gathers the rows of its vocabulary block
+    (zeros for the others'), the prefix joined to rank 0's part (zeros
+    to the others': the ranks' sum is the joined sequence), and the
+    ranks' sum is placed as the layer stack's carry."""
     if isinstance(tokens, Parts):
-        return _embed_split(p["table"], tokens, compute_dtype)
-    return p["table"][tokens.long()].to(compute_dtype)
+        return _embed_split(p["table"], tokens, compute_dtype, prefix)
+    x = p["table"][tokens.long()].to(compute_dtype)
+    if prefix is not None:
+        x = torch.cat([prefix.to(compute_dtype), x], dim=1)
+    return x
 
 
-def _embed_split(table, tokens, dtype):
+def _embed_split(table, tokens, dtype, prefix):
     g = tokens.g
     if table.dim is None:
         x = g.map(lambda t, tok: t[tok.long()].to(dtype), table, tokens)
@@ -147,6 +153,13 @@ def _embed_split(table, tokens, dtype):
             inside = ((local >= 0) & (local < n))[..., None]
             return t[local.clamp(0, n - 1)].to(dtype) * inside.to(dtype)
         x = g.map(part, table, tokens, dim=ann.SUM, rank=True)
+    if prefix is not None:
+        def join(r, pre, xr):
+            pre = pre.to(dtype)
+            if x.dim == ann.SUM and r != 0:
+                pre = torch.zeros_like(pre)
+            return torch.cat([pre, xr], dim=1)
+        x = g.map(join, prefix, x, rank=True, dim=x.dim)
     return annotate(x, "batch", "tp", None)
 
 
@@ -205,6 +218,16 @@ def _widen(t, r, k):
     out = t.new_zeros(t.shape[:-1] + (n * k,))
     out.narrow(-1, r * n, n).copy_(t)
     return out
+
+
+def each(fn, x, *args):
+    """``fn(x, *args)``; rank by rank where ``x`` is a replicated
+    ``Parts`` (a window's batch rows on every rank of its row)."""
+    if isinstance(x, Parts):
+        if x.dim is not None:
+            raise ValueError(f"{x} is not replicated")
+        return x.g.map(fn, x, *args)
+    return fn(x, *args)
 
 
 def gathered(x):

@@ -9,7 +9,10 @@ leading L axis for ``lax.scan``); the training stack runs through
 stacked caches in place.  Under the sharded executor's model-axis group
 the layer stack's carry is split on the sequence over "model" (the
 reference's sequence-parallel carry), and each layer's products as
-``attention`` and ``layers`` split them.
+``attention`` and ``layers`` split them; a frontend prefix (the vlm
+family's patches) joins the embeddings before the carry is placed
+(``layers.embed_lookup``), and the vocabulary-split logits are sliced
+rank by rank.
 """
 
 from __future__ import annotations
@@ -80,10 +83,8 @@ def _run_stack(blocks, x, cfg, *, positions=None):
 
 def lm_hidden(params, tokens, cfg, *, extra_embeds=None):
     """Token (and optional frontend) embeddings -> final hidden states."""
-    dtype = L.dtype_of(cfg.compute_dtype)
-    x = L.embed_lookup(params["embed"], tokens, dtype)
-    if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(dtype), x], dim=1)
+    x = L.embed_lookup(params["embed"], tokens,
+                       L.dtype_of(cfg.compute_dtype), prefix=extra_embeds)
     x = _run_stack(params["blocks"], x, cfg)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 

@@ -11,7 +11,10 @@ whole batch packs in ONE block-diagonal crossbar pass
 (``core.permute.vcompress_batched``).  On the card ``auto`` takes the
 tile-skipping crossbar kernel when the plan's tile density is at most
 ``AUTO_SPARSE_DENSITY`` (B >= 4 requests), else the batched contraction
-over the diagonal blocks, as the reference lowers it.
+over the diagonal blocks, as the reference lowers it.  Under the
+sharded executor's model-axis group every rank of a window's row packs
+the window's rows (the batch rows are replicated over "model"), and the
+stack splits as the dense family's.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ def pack_patches(patch_embeds: torch.Tensor,
 
     patch_embeds (B, F, D); patch_valid (B, F) bool.  Pad patch slots are
     compressed out to the tail and zeroed: fixed shapes, one crossbar
-    pass for all B rows.
+    pass for all B rows (a pass a rank for ``Parts``).
     """
-    return P.vcompress_batched(patch_embeds, patch_valid, tail="zero",
-                               backend="auto")
+    return L.each(lambda x, m: P.vcompress_batched(x, m, tail="zero",
+                                                   backend="auto"),
+                  patch_embeds, patch_valid)
 
 
 def lm_loss(params, batch, cfg):
@@ -55,8 +59,7 @@ def prefill(params, tokens, cfg, *, frontend_embeds=None, max_seq=None,
     if frontend_embeds is None:
         return T.prefill(params, tokens, cfg, max_seq=max_seq,
                          cache_dtype=cache_dtype)
-    dtype = L.dtype_of(cfg.compute_dtype)
-    x = torch.cat([frontend_embeds.to(dtype),
-                   L.embed_lookup(params["embed"], tokens, dtype)], dim=1)
+    x = L.embed_lookup(params["embed"], tokens,
+                       L.dtype_of(cfg.compute_dtype), prefix=frontend_embeds)
     return T.prefill_embeds(params, x, cfg, max_seq=max_seq,
                             cache_dtype=cache_dtype)
