@@ -111,9 +111,12 @@ set to 0 just before and read just after:
   InternVL2-26B's 1 of 48 layers training 2 steps split over the mesh
   against one device (its patch pack on the tile-skipping crossbar on
   every rank of a row), SeamlessM4T whole decoding 8 greedy steps on
-  its sharded self and primed cross caches against one device, and the
-  dry runs (``launch.dryrun``) of four production cells on 16 x 16
-  placeholders (each within 80 GB a device) and of the phase's own cell;
+  its sharded self and primed cross caches against one device,
+  Zamba2-2.7B's 12 of 54 layers training 2 steps (float32 compute) and
+  decoding 8 greedy steps (bf16) split over the mesh against one device,
+  and the dry runs (``launch.dryrun``) of five production cells on 16 x
+  16 placeholders (each within 80 GB a device) and of the phase's own
+  cell;
 * the configs phase (``configs_phase``, last): the four configurations
   no earlier phase runs, at published width, one at a time.
   Mixtral-8x22B, 4 of 56 layers: layer 0's routing (the cluster form at
@@ -157,6 +160,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -4200,12 +4204,16 @@ SHARD_DEC_LAYERS, SHARD_DEC_PROMPT, SHARD_DEC_STEPS = 2, 64, 8
 DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
                 ("minicpm-2b", "decode_32k"),
                 ("seamless-m4t-large-v2", "prefill_32k"),
-                ("internvl2-26b", "train_4k"))
+                ("internvl2-26b", "train_4k"),
+                ("zamba2-2.7b", "prefill_32k"))
 # The bar each cell's peak a device (GiB) meets: the CPU dry runs read
 # 7.705 (seamless prefill_32k) and 2.731 (internvl2 train_4k) once their
-# layers split over "model" (115.400 and 20.803 computed whole).
+# layers split over "model" (115.400 and 20.803 computed whole), and
+# 58.010 (zamba2 prefill_32k: 903.082 whole, its shared block's scores
+# of all 32 heads at once).
 DRYRUN_PEAK_GIB = {"phi3.5-moe-42b-a6.6b": 40.0, "minicpm-2b": 25.0,
-                   "seamless-m4t-large-v2": 10.0, "internvl2-26b": 5.0}
+                   "seamless-m4t-large-v2": 10.0, "internvl2-26b": 5.0,
+                   "zamba2-2.7b": 60.0}
 # (d) A model that only a layer-at-a-time executor can hold on the card.
 # Mixtral-8x22B at its published width, 5 of 56 layers (2.504 B
 # parameters a layer; 12.92 B, 48.1 GiB of float32 weights, one copy in
@@ -4229,6 +4237,26 @@ SHARD_VLM_LAYERS, SHARD_VLM_BATCH, SHARD_VLM_SEQ = 1, 8, 512
 # frames encoded and their cross K/V primed on one device, then 8 greedy
 # decode steps from BOS on one device and over (2, 2) of the card.
 SHARD_ENC_SLOTS, SHARD_ENC_FRAMES, SHARD_ENC_STEPS = 4, 256, 8
+# (g) Zamba2-2.7B at its published width, 12 of 54 layers (2 groups: two
+# applications of the shared block, 12 Mamba2 layers; ~0.77 B parameters,
+# 9.3 GB with both AdamW moments), remat "full" as published, trained 2
+# steps at 4 x 512 from ``make_batch`` over (2, 2) of the card from one
+# state and batches, in the published bf16 and in float32.  The float32
+# step on one device is the witness: the float32 split is held to it
+# (``held_to_single``), the bf16 split is held to it as far as one bf16
+# device is (``held_to_witness``): two bf16 runs round differently (a
+# data window's 1024 rows alone move the embedding's first moment 1.6e-2
+# in L2 from one device's 2048, past ``TOL_BF16``), so a bf16 split's
+# distance from the witness is held to ``SHARD_WITNESS_RATIO`` times one
+# bf16 device's, plus ``SHARD_WITNESS_FLOOR`` (``DENSE_RESUME_TOL``'s
+# rtol: a float32 agreement).  The ratio: on the H100 the split's first
+# moments lie at most 1.18x, its parameters 1.51x and its losses 0.72x
+# (of one device's largest) as far from the witness as one device's
+# (``tests/torch_hybrid_bf16_split.py``).  (h) The same 12 layers in bf16: 8 greedy
+# decode steps of 4 slots on one device and over (2, 2).
+SHARD_HYB_LAYERS, SHARD_HYB_BATCH, SHARD_HYB_SEQ = 12, 4, 512
+SHARD_HYB_SLOTS, SHARD_HYB_STEPS = 4, 8
+SHARD_WITNESS_RATIO, SHARD_WITNESS_FLOOR = 3.0, 1e-5
 ALLOC_GRANULE = 512        # the CUDA caching allocator rounds to 512 bytes
 
 
@@ -4396,13 +4424,16 @@ def sharding_phase(dev, compare):
     combine on the dense crossbar.  (e) ``sharded_internvl2``: the vlm
     family's training split, its patch pack on the tile-skipping
     crossbar on every rank.  (f) ``sharded_seamless``: the encdec
-    family's decode split, the cross caches primed on one device.  (c)
+    family's decode split, the cross caches primed on one device.  (g)
+    ``sharded_zamba2_train`` and (h) ``sharded_zamba2_decode``: the
+    hybrid family's training and decode split, no kernel.  (c)
     ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` (per_device, roofline,
     wall seconds), each within 80 GB and its ``DRYRUN_PEAK_GIB`` a device, and
     ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
     placeholders: its argument bytes over the mesh equal to (a)'s placed
     bytes, its temp bytes and step-time bound printed beside (a)'s peak
-    and step.  Returns (a)'s, (d)'s, (e)'s and (f)'s counted launches."""
+    and step.  Returns (a)'s, (d)'s, (e)'s, (f)'s, (g)'s and (h)'s
+    counted launches."""
     import dataclasses
 
     import torch
@@ -4592,6 +4623,10 @@ def sharding_phase(dev, compare):
     # --------------------- (f) SeamlessM4T decode split over (2, 2) ---
     add_counts(counts, sharded_seamless(dev))
 
+    # -------------- (g), (h) Zamba2-2.7B training and decode split ---
+    add_counts(counts, sharded_zamba2_train(dev))
+    add_counts(counts, sharded_zamba2_decode(dev))
+
     # -------------------------------------------------- (c) dry runs ---
     for arch, shape in DRYRUN_CELLS:
         secs, r = host_s(lambda: dryrun.run_cell(arch, shape, verbose=False))
@@ -4650,7 +4685,7 @@ def held_to_single(label, hist_1, hist_s, placed, state):
             f"{m1['loss']:.7f} (diff {ms['loss'] - m1['loss']:.3e}); grad "
             f"norm {ms['grad_norm']:.6f} / {m1['grad_norm']:.6f}; lr "
             f"{ms['lr']:.2e}; host ms sharded {ts * 1e3:.1f}, single "
-            f"{t1 * 1e3:.1f}")
+            f"{t1 * 1e3:.1f} ({card()})")
     worst_p = worst_mu = 0.0
     for got, want_p in zip(_tree.leaves(placed.params),
                            _tree.leaves(state.params)):
@@ -4673,20 +4708,25 @@ def held_to_single(label, hist_1, hist_s, placed, state):
 
 
 def decode_held_to_single(label, decode_fn, mesh, params, caches, pc, cc,
-                          dims, tok, pos0, steps) -> str:
+                          dims, tok, pos0, steps, tr=None,
+                          across_data=False) -> str:
     """``steps`` greedy decode steps from ``tok`` at position ``pos0``, on
     one device (``params``, ``caches``) and through
     ``spmd.sharded_decode_step`` (``pc``, ``cc``), both fed the single
     device's tokens: each logit row within ``TOL_BF16``'s rtol in L2,
     the sharded run's own greedy choice off those tokens only at
-    near-ties (``SHARD_TOKEN_NEAR_TIE``), no cache row moved.  Returns
-    the line to log: the choices, the rows, the medians of ms a step
-    (host clock), the peak and the transfer record a step."""
+    near-ties (``SHARD_TOKEN_NEAR_TIE``), no cache row moved (with
+    ``across_data``, none across "model": the hybrid's Mamba2 caches put
+    "data" on their period, reference quirk R8).  ``tr`` takes the
+    transfer record.  Returns the line to log: the choices, the rows,
+    the medians of ms a step (host clock), the peak and the transfer
+    record a step."""
     import torch
 
     from repro_torch.dist import spmd
 
-    ms_1, ms_s, rows_1, rows_s, tr = [], [], [], [], []
+    ms_1, ms_s, rows_1, rows_s = [], [], [], []
+    tr = [] if tr is None else tr
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
@@ -4707,8 +4747,11 @@ def decode_held_to_single(label, decode_fn, mesh, params, caches, pc, cc,
             rows_s.append(l2[:, -1].float())
             tok = l1[:, -1].argmax(-1).to(torch.int32)[:, None]
     torch.cuda.synchronize()
-    check(not [t for t in tr if t.kind == "cache"],
-          f"sharded {label} decode moved cache rows")
+    moved_rows = [t for t in tr if t.kind == "cache" and (
+        not across_data or len({mesh_coords(mesh, i)["model"]
+                                for i in t.group}) > 1)]
+    check(not moved_rows, f"sharded {label} decode moved cache rows"
+          + (' across "model"' if across_data else ""))
     tflips, tokens, tgap = token_flips(torch.stack(rows_s),
                                        torch.stack(rows_1))
     check(tflips <= MIXTRAL_MAX_FLIPS * tokens
@@ -4724,6 +4767,262 @@ def decode_held_to_single(label, decode_fn, mesh, params, caches, pc, cc,
             f"host clock); peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"{moved(tr, steps)}")
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def mesh_coords(mesh, mesh_id) -> dict:
+    """A mesh id's coordinates, by axis name."""
+    import numpy as np
+    p = list(mesh.ids.reshape(-1)).index(mesh_id)
+    return dict(zip(mesh.axis_names,
+                    (int(c) for c in np.unravel_index(p, mesh.ids.shape))))
+
+
+def sharded_zamba2_train(dev):
+    """Sharding phase (g): Zamba2-2.7B, ``SHARD_HYB_LAYERS`` of 54
+    layers, remat "full", trained ``SHARD_STEPS`` steps from one state
+    and batches (``TrainOptions(peak_lr=1e-3)``) on one device in
+    float32 compute (the witness), over (2, 2) of the card in float32
+    (``held_to_single``'s bars against the witness), on one device in
+    the published bf16 and over (2, 2) in bf16 (``held_to_witness``); no
+    kernel launched (the reference's hybrid reaches none).  Prints the
+    step ms of each, the bf16 split's peak, transfer record a step and
+    weight gathers across "model" (``in_proj``'s block: its heads'
+    columns of z, x and dt and B and C whole, several spans).  Returns
+    the sharded steps' counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import zamba2_2_7b
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.train import TrainOptions, make_train_step
+    from repro_torch.train.trainer import init_state
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(zamba2_2_7b.CONFIG,
+                              num_layers=SHARD_HYB_LAYERS)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    mesh = make_host_mesh(data=2, model=2)
+    api, api32 = (model_zoo.build(c, device=dev) for c in (cfg, f32))
+    state0 = init_state(api.init(torch.Generator(device=dev).manual_seed(0)))
+    n_params = sum(t.numel() for t in _tree.leaves(state0.params))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [api.make_batch(gen, SHARD_HYB_BATCH, SHARD_HYB_SEQ)
+               for _ in range(SHARD_STEPS)]
+    sh = (spmd.train_state_shardings(state0, mesh, cfg),
+          shd.batch_shardings(batches[0], mesh))
+    placed_batches = [shd.device_put(b, sh[1]) for b in batches]
+    copy = lambda: _tree.tree_map(lambda t: t.clone(), state0)
+    opts = TrainOptions(peak_lr=1e-3)
+    log(f"sharding phase (g): zamba2-2.7b, full width, "
+        f"{SHARD_HYB_LAYERS} of {zamba2_2_7b.CONFIG.num_layers} layers, "
+        f"remat {cfg.remat}, {n_params / 1e9:.4f} B float32 parameters; "
+        f"mesh {dict(mesh.shape)} of {dev}; batch {SHARD_HYB_BATCH} x "
+        f"{SHARD_HYB_SEQ}, {SHARD_STEPS} steps; one device and the split in "
+        f"float32 (the witness: one device) and in {cfg.compute_dtype}")
+
+    def one_device(loss_fn):
+        st, hist = copy(), []
+        step = make_train_step(loss_fn, opts)
+        for b in batches:
+            secs, (st, m) = host_s(lambda: step(st, b))
+            hist.append((secs, {k: float(v) for k, v in m.items()}))
+        return st, hist
+
+    def split(loss_fn, transfers):
+        placed, hist = shd.device_put(copy(), sh[0]), []
+        step = spmd.make_sharded_train_step(loss_fn, opts, mesh, *sh,
+                                            transfers=transfers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        for b in placed_batches:
+            secs, (placed, m) = host_s(lambda: step(placed, b))
+            hist.append((secs, {k: float(v) for k, v in m.items()}))
+        torch.cuda.synchronize()
+        counts = dict(launch_counts())
+        check(not any(counts.values()), f"sharded zamba2 launched "
+              f"{counts}: the hybrid's path reaches no kernel")
+        return placed, hist, counts, torch.cuda.max_memory_allocated()
+
+    witness, hist_w = one_device(api32.loss_fn)
+    placed, hist_s, counts, _ = split(api32.loss_fn, [])
+    worst_p, worst_mu = held_to_single("zamba2 (g) float32", hist_w, hist_s,
+                                       placed, witness)
+    log(f"  float32: parameters after {SHARD_STEPS} steps max |diff| "
+        f"{worst_p:.3e} ({SHARD_PARAM_TOL}); first moments worst L2 "
+        f"relative {worst_mu:.3e} (<= {TOL_BF16['rtol']}); step 1 sharded "
+        f"{hist_s[-1][0] * 1e3:.1f} ms, one device {hist_w[-1][0] * 1e3:.1f}"
+        f" ms (host clock ending in a synchronise; {card()})")
+    del placed
+    one, hist_1 = one_device(api.loss_fn)
+    transfers = []
+    placed, hist_b, bf_counts, peak = split(api.loss_fn, transfers)
+    add_counts(counts, bf_counts)
+    line = held_to_witness(f"zamba2 (g) {cfg.compute_dtype}", hist_w,
+                           hist_1, hist_b, witness, one, placed,
+                           state0.params)
+    cross = [t for t in transfers if t.kind == "weight" and len(
+        {mesh_coords(mesh, i)["model"] for i in t.group}) > 1]
+    check(cross, "sharded zamba2: no weight gather crossed \"model\" "
+          "(in_proj's block spans both model shards of its columns)")
+    log(f"  {cfg.compute_dtype}: {line}; step 1 sharded "
+        f"{hist_b[-1][0] * 1e3:.1f} ms, one device {hist_1[-1][0] * 1e3:.1f}"
+        f" ms (host clock ending in a synchronise; {card()}); "
+        f"max_memory_allocated over the sharded steps {peak / 2**30:.2f} GiB "
+        f"(the initial, witness and one-device states and the four shards "
+        f"on one card); launches {counts}; {moved(transfers, SHARD_STEPS)}; "
+        f"weight gathers across \"model\" {len(cross) / SHARD_STEPS:.0f} a "
+        f"step, {sum(t.nbytes for t in cross) / SHARD_STEPS / 1e9:.6f} GB "
+        f"received a step (largest {max(t.nbytes for t in cross):.0f} "
+        f"bytes)")
+    log(f"  (g) {time.perf_counter() - t_part:.1f} s ({card()})")
+    del placed, placed_batches, witness, one, state0, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def held_to_witness(label, hist_w, hist_1, hist_s, witness, one, placed,
+                    start) -> str:
+    """A sharded run in a low-precision compute (``placed``, ``hist_s``)
+    held to a float32 run on one device (``witness``, ``hist_w``) as far
+    as the same low-precision run on one device (``one``, ``hist_1``)
+    is, all from the parameters ``start``.  Its distance from the witness
+    is at most ``SHARD_WITNESS_RATIO`` times one device's plus
+    ``SHARD_WITNESS_FLOOR``, for every parameter (L2 of the difference
+    over the L2 of the witness's update from ``start``) and every first
+    moment (relative L2), and for each step's loss (relative) against
+    one device's largest over the steps: a loss is one number, and one
+    device's may fall near the witness's by chance (NVIDIA H100: 1.987e-5
+    at step 0, 1.309e-4 at step 1).  Returns the line to log: the
+    losses' distances, the largest and median ratios."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.dist import sharding as shd
+
+    def dist(a, w, base):
+        return float(torch.linalg.vector_norm((a - w).detach())) / max(
+            float(torch.linalg.vector_norm(base.detach())), 1e-30)
+
+    loss_1 = max(abs(m1["loss"] / mw["loss"] - 1)
+                 for (_, mw), (_, m1) in zip(hist_w, hist_1))
+    rows = [(f"loss step {s}", loss_1, abs(ms["loss"] / mw["loss"] - 1))
+            for s, ((_, mw), (_, ms)) in enumerate(zip(hist_w, hist_s))]
+    for kind, trees in (("", (witness.params, one.params, placed.params,
+                              start)),
+                        (" mu", (witness.opt.mu, one.opt.mu,
+                                 placed.opt.mu, None))):
+        w_leaves = _tree.leaves_with_path(trees[0])
+        starts = (_tree.leaves(trees[3]) if trees[3] is not None
+                  else [None] * len(w_leaves))
+        for (path, w), a1, a_s, p0 in zip(w_leaves, _tree.leaves(trees[1]),
+                                          _tree.leaves(trees[2]), starts):
+            base = w if p0 is None else w - p0
+            g = shd.gather(a_s)
+            rows.append(("/".join(map(str, path)) + kind, dist(a1, w, base),
+                         dist(g, w, base)))
+            del g
+    ratio, floor = SHARD_WITNESS_RATIO, SHARD_WITNESS_FLOOR
+    bad = [r for r in rows if r[2] > ratio * r[1] + floor]
+    check(not bad, f"{label}: further from the float32 witness than "
+          f"{ratio} x one device's + {floor}: " + ", ".join(
+              f"{n} {d_s:.3e} against {d_1:.3e}" for n, d_1, d_s in bad[:8]))
+    by = sorted(((d_s / d_1 if d_1 else math.inf if d_s else 1.0), n, d_1,
+                 d_s) for n, d_1, d_s in rows)
+    return (f"distances from the float32 witness, split against one "
+            f"device: " + ", ".join(
+                f"loss step {s} {abs(ms['loss'] / mw['loss'] - 1):.3e} / "
+                f"{abs(m1['loss'] / mw['loss'] - 1):.3e}"
+                for s, ((_, mw), (_, m1), (_, ms)) in enumerate(
+                    zip(hist_w, hist_1, hist_s)))
+            + f"; {len(rows)} held within {ratio} x + {floor}; the largest "
+            f"ratios " + ", ".join(f"{n} {r:.2f} ({d_s:.3e} / {d_1:.3e})"
+                                   for r, n, d_1, d_s in by[::-1][:3])
+            + f"; median ratio {by[len(by) // 2][0]:.3f}")
+
+
+def sharded_zamba2_decode(dev):
+    """Sharding phase (h): Zamba2-2.7B, ``SHARD_HYB_LAYERS`` of 54
+    layers, ``SHARD_HYB_STEPS`` greedy decode steps of
+    ``SHARD_HYB_SLOTS`` slots from seeded tokens on one device and over
+    (2, 2) of the card, the sharded run fed the single device's tokens
+    (``decode_held_to_single``): each logit row within ``TOL_BF16``'s
+    rtol in L2, its own greedy choice off those tokens only at near-ties;
+    no cache row crosses "model" (the Mamba2 rows cross "data": R8); no
+    kernel.  Prints the ms a step of both and the Mamba2 states'
+    all-to-all bytes a step (the cache's P block to the heads' and
+    back).  Returns the sharded run's counted launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.configs import zamba2_2_7b
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(zamba2_2_7b.CONFIG,
+                              num_layers=SHARD_HYB_LAYERS)
+    mesh = make_host_mesh(data=2, model=2)
+    api = model_zoo.build(cfg, device=dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    b, steps = SHARD_HYB_SLOTS, SHARD_HYB_STEPS
+    with torch.inference_mode():
+        caches = api.init_caches(b, steps)
+        meta = model_zoo.build(cfg, device="meta")
+        dims = spmd.cache_batch_dims(lambda n: meta.init_caches(n, steps))
+        pc = shd.device_put(params, shd.param_shardings(params, mesh))
+        cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
+    specs = {"/".join(map(str, path)): tuple(leaf.sharding.spec)
+             for path, leaf in _tree.leaves_with_path(cc)}
+    log(f"sharding phase (h): zamba2-2.7b, full width, "
+        f"{SHARD_HYB_LAYERS} of {zamba2_2_7b.CONFIG.num_layers} layers; "
+        f"{b} slots, {steps} greedy steps; caches {specs} on "
+        f"{dict(mesh.shape)}")
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+                        generator=torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    tr = []
+    reset_launch_counts()
+    line = decode_held_to_single("zamba2 (h)", api.decode_fn, mesh, params,
+                                 caches, pc, cc, dims, tok, 0, steps, tr=tr,
+                                 across_data=True)
+    counts = dict(launch_counts())
+    check(not any(counts.values()), f"sharded zamba2 decode launched "
+          f"{counts}: the hybrid's path reaches no kernel")
+    a2a = [t for t in tr if t.kind == "activation" and t.op == "all-to-all"]
+    check(a2a, "sharded zamba2 decode: no all-to-all of the Mamba2 states")
+    log(f"  {line}; the Mamba2 states' all-to-all {len(a2a) / steps:.0f} "
+        f"results a step, {sum(t.nbytes for t in a2a) / steps / 1e9:.6f} "
+        f"GB received, {sum(t.traffic for t in a2a) / steps / 1e9:.6f} GB "
+        f"moved a step; launches {counts}; "
+        f"{time.perf_counter() - t_part:.1f} s ({card()})")
+    del params, pc, cc, caches
+    torch.cuda.empty_cache()
+    return counts
 
 
 def sharded_internvl2(dev, compare):

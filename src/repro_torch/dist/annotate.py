@@ -13,10 +13,11 @@ The port has no compiler to hand a constraint to.  Off the sharded
 executor an annotation returns its input unchanged: a constraint never
 changes values.  The executor runs a batch window on its **model-axis
 group** (``ModelGroup``: the mesh indices along "model" that hold the
-window, ``dist.spmd``); the model code of the dense, MoE, vlm and
-encdec families then gets its parameters and inputs as ``Parts`` — one tensor a rank of
-the group, with where the global value lies (split on a dimension,
-replicated, or a partial sum) — and ``annotate`` moves such a value to
+window, ``dist.spmd``); the model code of the dense, MoE, vlm, encdec
+and hybrid families then gets its parameters and inputs as ``Parts`` —
+one tensor a rank of the group, with where the global value lies (split
+on a dimension, replicated, or a partial sum) — and ``annotate`` moves
+such a value to
 the placement its names resolve to (``spec`` on the global shape, "model" entries only: the
 batch axes are the executor's windows), through the collectives below,
 each recorded with its bytes:
@@ -28,7 +29,15 @@ each recorded with its bytes:
     replicated -> split d      each rank keeps its block (no move)
 
 Each collective's backward is its dual (all-gather <-> reduce-scatter,
-all-reduce <-> all-reduce, all-to-all reversed), recorded too.  A group
+all-reduce <-> all-reduce, all-to-all reversed), recorded too.  The
+hybrid's moves are these: its carry, the shared block's concat and each
+Mamba2 layer's input gathered over the sequence, the partial sums of
+wo and ``out_proj`` reduce-scattered into the carry, the gated norm's
+sums of squares all-reduced, and in decode each Mamba2 state moved from
+the cache's P block to the heads' and back (an all-to-all).  A parameter
+block of several spans (Mamba2's ``in_proj`` and conv,
+``sharding.compute_block``) is a ``Parts`` whose ``dim`` names the
+dimension of its spans; the model code reads it rank by rank.  A group
 that runs one rank alone (``only``: the dry run's one mesh index) takes
 zeros for the other ranks' contributions: the moves and the memory are
 a rank's, the values are not the step's.

@@ -239,28 +239,98 @@ def expert_block(shape, k, r, leaf="wi", one_token=False) -> dict:
 
 
 # the subtrees of an attention layer: the decoder-only families' "attn"
-# (the encoder's too), the encoder-decoder's "self_attn" and "cross_attn"
-_ATTENTION = ("attn", "self_attn", "cross_attn")
+# (the encoder's too), the encoder-decoder's "self_attn" and "cross_attn",
+# the hybrid's shared block
+_ATTENTION = ("attn", "self_attn", "cross_attn", "shared")
 
 
-def compute_block(path, shape, k, r, one_token=False) -> dict:
-    """{dim: (lo, hi)}: the block of a dense, MoE, vlm or encdec model's
-    parameter leaf (at ``path`` in its tree: ``blocks``, ``enc_blocks``
-    or ``dec_blocks``, or a table) that rank r of a model axis of k
-    computes with; {} is the whole leaf.
+def spans(rng) -> list:
+    """The (lo, hi) spans of one dimension's range in a block: a block
+    names a pair, or a list of pairs where it takes several spans of the
+    dimension (Mamba2's ``in_proj`` and conv, ``compute_block``)."""
+    return list(rng) if isinstance(rng, list) else [rng]
+
+
+def _joined(pairs) -> object:
+    """Sorted spans with adjacent ones merged: one pair, or a list."""
+    out = []
+    for lo, hi in sorted(pairs):
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out[0] if len(out) == 1 else out
+
+
+def ssm_geometry(params):
+    """(d_inner, heads, state size N) of a hybrid tree's Mamba2 layers,
+    read off its leaves' shapes (``A_log`` (H,), ``conv_w`` (W, d_inner +
+    2N), ``in_proj`` (D, 2 d_inner + 2N + H)); None for a tree without
+    them."""
+    shapes = {}
+    for path, leaf in _tree.leaves_with_path(params):
+        names = [p for p in path if isinstance(p, str)]
+        if "mamba" in names[:-1]:
+            shapes.setdefault(names[-1] if names[-1] != "w" else names[-2],
+                              tuple(leaf.shape))
+    if "A_log" not in shapes:
+        return None
+    h = shapes["A_log"][0]
+    conv = shapes["conv_w"][-1]
+    d_inner = shapes["in_proj"][-1] - conv - h
+    return d_inner, h, (conv - d_inner) // 2
+
+
+def _ssm_block(leaf, owner, shape, k, r, one_token, ssm) -> dict:
+    """A Mamba2 leaf's block: the rank's SSM heads.  ``in_proj``'s
+    columns [z | x | B | C | dt] give its heads' columns of z, x and dt
+    and B and C whole (several spans); the conv's channels [x | B | C]
+    its heads' x channels and B and C whole; ``out_proj`` its heads'
+    rows (d_inner is head-major), a decode step's its column block; the
+    vectors whole.  Where the heads do not divide the axis, every leaf
+    whole (the reference's ``annotate_heads`` then leaves the heads
+    replicated)."""
+    if ssm is None:
+        raise ValueError("a Mamba2 leaf's block needs the tree's SSM "
+                         "geometry (ssm_geometry)")
+    d_inner, h, n = ssm
+    if h % k:
+        return {}
+    lo, hi = r * d_inner // k, (r + 1) * d_inner // k
+    if owner == "in_proj":
+        dt = 2 * d_inner + 2 * n
+        return {1: _joined([(lo, hi), (d_inner + lo, d_inner + hi),
+                            (2 * d_inner, dt),
+                            (dt + r * h // k, dt + (r + 1) * h // k)])}
+    if leaf in ("conv_w", "conv_b"):
+        return {len(shape) - 1: _joined([(lo, hi),
+                                         (d_inner, d_inner + 2 * n)])}
+    if owner == "out_proj":
+        return column_block(shape, k, r) if one_token else {0: (lo, hi)}
+    return {}
+
+
+def compute_block(path, shape, k, r, one_token=False, ssm=None) -> dict:
+    """{dim: (lo, hi)}: the block of a model's parameter leaf (at
+    ``path`` in its tree: ``blocks``, ``enc_blocks`` or ``dec_blocks``,
+    the hybrid's ``mamba`` and ``shared``, or a table) that rank r of a
+    model axis of k computes with; {} is the whole leaf.  A dimension
+    the block takes in several spans names a list of pairs (``spans``).
 
     * wq / wk / wv (and their biases), wi and wg: the column block, the
       block ``_param_spec`` puts on 'model' (heads or kv heads, d_ff),
-      in self and cross attention alike;
+      in self, cross and the hybrid's shared attention alike;
     * the wo of attention and of the MLP: the row block (the rank's
       heads, its d_ff), whose products are partial sums over 'model';
       for a decode step (``one_token``), the column block, on the input
       gathered: a decode step's products then equal one device's
       (``layers.split_dense``), which partial sums cannot;
     * expert weights: ``expert_block``;
+    * Mamba2's leaves: the rank's SSM heads (``_ssm_block``; ``ssm`` is
+      the tree's ``ssm_geometry``);
     * the embedding table and the head: the vocabulary row block;
-    * the router, the norms and every other vector: whole (every rank
-      routes its window's groups and normalises its rows).
+    * the router, the norms, the LoRAs and every other vector: whole
+      (every rank routes its window's groups and normalises its rows).
 
     A dimension that does not divide the axis stays whole (the
     reference's fallback)."""
@@ -269,6 +339,8 @@ def compute_block(path, shape, k, r, one_token=False) -> dict:
     attn = any(n in names for n in _ATTENTION)
     if leaf == "table":
         return _split_block(shape, 0, k, r)
+    if "mamba" in names[:-1] and "ln" not in names:
+        return _ssm_block(leaf, owner, shape, k, r, one_token, ssm)
     if "moe" in names and owner == "moe" and leaf in ("wi", "wg", "wo"):
         return expert_block(shape, k, r, leaf, one_token)
     if owner == "wo" and (attn or "mlp" in names):

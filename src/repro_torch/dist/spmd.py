@@ -15,16 +15,17 @@ leading dimension (``batch_shardings``: one a batch shard) are the
 windows.  Batch leaves lead with the batch dimension.  A window runs on
 its **model row**: the mesh indices that hold it and differ from the
 first of them along "model" only, in model-axis order (rank r of the
-row).  The dense, MoE, vlm and encdec families (functions marked by
-``model_zoo.build``: ``fn.model_split``) run a window on every index of
-its row, split over "model" as the reference's annotations split each
-product: the model code gets ``annotate.Parts`` of the row's
+row).  The dense, MoE, vlm, encdec and hybrid families (functions
+marked by ``model_zoo.build``: ``fn.model_split``) run a window on every
+index of its row, split over "model" as the reference's annotations
+split each product: the model code gets ``annotate.Parts`` of the row's
 ``annotate.ModelGroup`` and each rank computes its share
 (``annotate``'s module docstring; the splits are the model code's, the
-blocks ``sharding.compute_block``).  The rwkv and hybrid families, and
-any function not so marked, run each window on the row's first index
-alone, each layer's matrices whole there (their recurrent state's split
-by heads is not ported yet).
+blocks ``sharding.compute_block``; the hybrid's Mamba2 layers by SSM
+heads, its shared block by heads).  The rwkv family, and any function
+not so marked, run each window on the row's first index alone, each
+layer's matrices whole there (its WKV state's split by heads is not
+ported yet).
 
 **What an index holds.**  Its shards, and what one layer gathers: as
 the reference's partitioned step holds them, not the whole model.  The
@@ -41,7 +42,9 @@ block of wq / wk / wv / wi / wg, which its own shard's column holds, so
 that it gathers over "data" alone; the row block of each wo, its heads'
 or its d_ff rows, which the model axis's column shards hold between
 them (a decode step's wo: its column block); its experts, or each
-expert's d_ff; its vocabulary rows of the tables; the router and the
+expert's d_ff; its SSM heads' spans of Mamba2's ``in_proj`` and conv,
+which cross the column shards of "model", gathered as one union
+(``_window``); its vocabulary rows of the tables; the router and the
 vectors whole), as a ``Parts`` leaf.  A
 rank's blocks are 1/k of each split matrix, so no index holds or
 gathers a whole layer's matrices.  Whole-layer compute gathers each
@@ -86,8 +89,16 @@ tokens' sharding on its row.  The caches are per-layer views too: the
 model's ``c[i]`` (the hybrid's ``c[g, i]``) gathers layer i's cache
 rows of the window when layer i runs — split over "model", each rank
 its own block of them (the kv heads or the head_dim block the cache's
-sharding gives its index), so cache rows never cross "model";
-whole-layer, the rows of every block, gathered over "model".
+sharding gives its index), so the K/V rows never cross "model";
+whole-layer, the rows of every block, gathered over "model".  The
+hybrid's Mamba2 caches are read the same way, each rank its block, but
+the cache's sharding (``_cache_spec``, the reference's rule) puts their
+P (the state) and their channels (the conv edge) on "model", not the
+heads the layer splits by: the model code moves the state to the heads'
+placement and back (an all-to-all over "model") and gathers the edge,
+recorded as activations.  With two layer axes, ``_cache_spec`` puts the
+data axes on the period, not on the batch (reference quirk R8), so a
+window's Mamba2 rows cross "data".
 ``decode_fn`` updates them in place, and they are written back to
 every shard that holds them before the next layer's rows or parameters
 are gathered, and after the step.  A cache leaf without a layer axis is
@@ -236,9 +247,26 @@ def _record(transfers, mesh, op, nbytes, k, dst, members, kind):
 def _window(leaf: shd.Sharded, ranges: dict, c: int,
             transfers=None, kind="weight") -> torch.Tensor:
     """A fresh tensor on mesh index c's device holding ``leaf`` over
-    ``ranges`` ({dim: (lo, hi)}; every other dimension whole), gathered
-    from the blocks that hold it (c's own where c holds one), each
-    block's part cut before it moves."""
+    ``ranges`` ({dim: (lo, hi)}, or a list of spans: their union in
+    order; every other dimension whole), gathered from the blocks that
+    hold it (c's own where c holds one), each block's part cut before it
+    moves: one gather, recorded with the union's bytes."""
+    out, src = _cut(leaf, ranges, c)
+    if any(p != c for p in src.values()):
+        _record(transfers, leaf.sharding.mesh, "all-gather",
+                out.numel() * out.element_size(), len(src), c,
+                list(src.values()) + [c], kind)
+    return out
+
+
+def _cut(leaf: shd.Sharded, ranges: dict, c: int):
+    """``_window``'s tensor and {block coordinates: the mesh index it
+    was cut from}."""
+    for d, rng in ranges.items():
+        if isinstance(rng, list):          # several spans: each, joined
+            cuts = [_cut(leaf, {**ranges, d: span}, c) for span in rng]
+            return (torch.cat([t for t, _ in cuts], dim=d),
+                    {b: p for _, src in cuts for b, p in src.items()})
     sh = leaf.sharding
     counts = list(sh.counts(leaf.ndim))
     size = sh.shard_shape(leaf.shape)
@@ -258,13 +286,8 @@ def _window(leaf: shd.Sharded, ranges: dict, c: int,
             lo, hi = max(r0, a), min(r1, a + size[d])
             if (lo, hi) != (a, a + size[d]):
                 part = part.narrow(d, lo - a, hi - lo)
-        src[rel], parts[rel] = p, part
-    out = shd.assemble(parts, counts, _device(sh.mesh, c))
-    if any(p != c for p in src.values()):
-        _record(transfers, sh.mesh, "all-gather",
-                out.numel() * out.element_size(), len(src), c,
-                list(src.values()) + [c], kind)
-    return out
+        src[blk], parts[rel] = p, part
+    return shd.assemble(parts, counts, _device(sh.mesh, c)), src
 
 
 def _write_window(leaf: shd.Sharded, starts: dict, block: torch.Tensor,
@@ -383,6 +406,7 @@ def _placed_params(params, row, transfers, *, group=None, anchor=None,
     in_stacks = {k for name in stacks for k in _tree.leaves(index[name])}
     split = group is not None
     ranks = group.run if split else (0,)
+    ssm = shd.ssm_geometry(params) if split else None
 
     def blocks(k):
         """[(rank, ranges)]: the gathers of leaf k."""
@@ -390,7 +414,7 @@ def _placed_params(params, row, transfers, *, group=None, anchor=None,
             return [(0, {})]
         path, leaf = with_path[k]
         return [(r, shd.compute_block(path, leaf.shape, len(row), r,
-                                      one_token))
+                                      one_token, ssm))
                 for r in ranks]
 
     def metas(ks):
@@ -522,8 +546,8 @@ def _off_model(mesh, p) -> tuple:
 
 def splits_over_model(fn, mesh) -> bool:
     """Whether ``fn``'s windows run split over "model": a function of the
-    dense, MoE, vlm or encdec family (``model_zoo.build`` marks them
-    ``model_split``) on a mesh whose "model" axis has more than one
+    dense, MoE, vlm, encdec or hybrid family (``model_zoo.build`` marks
+    them ``model_split``) on a mesh whose "model" axis has more than one
     index."""
     return (getattr(fn, "model_split", False)
             and mesh.shape.get("model", 1) > 1)
@@ -697,8 +721,17 @@ def _forward_windows(loss_fn, mesh, params, batch, *, n, grad, only,
 
 def _add_block(acc: dict, ranges: dict, g: torch.Tensor) -> None:
     """Add gradient ``g`` of a leaf's region ``ranges`` ({dim: (lo,
-    hi)}; the whole leaf along other dimensions) into every block
-    accumulator ({block coordinates: float32 tensor}) it overlaps."""
+    hi)} or a list of spans; the whole leaf along other dimensions) into
+    every block accumulator ({block coordinates: float32 tensor}) it
+    overlaps."""
+    for d, rng in ranges.items():
+        if isinstance(rng, list):          # several spans: each in turn
+            off = 0
+            for lo, hi in rng:
+                _add_block(acc, {**ranges, d: (lo, hi)},
+                           g.narrow(d, off, hi - lo))
+                off += hi - lo
+            return
     for blk, a in acc.items():
         src, dst = [], []
         for d, (b, n) in enumerate(zip(blk, a.shape)):
@@ -763,7 +796,9 @@ class ShardedTrainStep:
                                                 else positions[0]))
                 for blk, ps in groups.items() if blk in mine})
         # every rank's block of each leaf, for the reductions' records
-        computes = [[(p, shd.compute_block(path, leaf.shape, len(row), r)
+        ssm = shd.ssm_geometry(state.params)
+        computes = [[(p, shd.compute_block(path, leaf.shape, len(row), r,
+                                           ssm=ssm)
                       if len(row) > 1 else {})
                      for _, _, row in windows for r, p in enumerate(row)]
                     for path, leaf in zip(paths, params)]
@@ -834,8 +869,9 @@ def _overlaps(sh, p, shape, ranges) -> bool:
     """Whether mesh index p's shard of a ``shape`` leaf overlaps
     ``ranges`` ({dim: (lo, hi)})."""
     win = sh.index(p, shape)
-    return all(win[d].start < hi and lo < win[d].stop
-               for d, (lo, hi) in ranges.items())
+    return all(any(win[d].start < hi and lo < win[d].stop
+                   for lo, hi in shd.spans(rng))
+               for d, rng in ranges.items())
 
 
 def _reduce_records(tr, mesh, leaf, positions, computes) -> None:

@@ -19,16 +19,26 @@ K/V cache for each shared application.  ``init_caches(window=W)`` makes
 those caches rings of W slots (written at ``pos % W``; the Mamba2 states
 carry the longer range).  Caches are stacked, (G, period, ...) for the
 Mamba2 states and (G, ...) for the rings, and updated in place.
+
+The shared block's attention is the attention module's, on the block's
+own config (``_attn_cfg``: causal with no window, full rotary, one
+chunk).  Under the sharded executor's model-axis group
+(``dist.annotate``) the carry is placed sequence-parallel at each
+group's start, the shared block splits by heads (its concat gathered
+over the sequence; wq / wk / wv by columns, wo by rows, the LoRA on each
+rank's rows of the carry, the MLP by d_ff), each Mamba2 layer by SSM
+heads (``ssm``), and decode reads each rank's kv-head block of the
+rings and moves the Mamba2 states to the heads' placement and back.
 """
 
 from __future__ import annotations
 
-import math
+import dataclasses
 
 import torch
 
 from repro_torch._device import resolve
-from repro_torch.core.sequence import sliding_window_mask
+from repro_torch.dist.annotate import Parts, annotate
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -92,20 +102,31 @@ def lm_init(gen, cfg, device=None):
     return params
 
 
-def _shared_qkv(p, cat, cfg, positions, dtype):
-    b, s, _ = cat.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = L.dense(p["wq"], cat, dtype).reshape(b, s, h, hd)
-    k = L.dense(p["wk"], cat, dtype).reshape(b, s, kv, hd)
-    v = L.dense(p["wv"], cat, dtype).reshape(b, s, kv, hd)
-    q = L.apply_rope(q, positions, theta=cfg.rope_theta)
-    k = L.apply_rope(k, positions, theta=cfg.rope_theta)
-    return q, k, v
+def _attn_cfg(cfg, s):
+    """The shared block's attention as the attention module's on this
+    config: causal with no window, full rotary, the ``s`` positions in
+    one chunk (the reference's ``shared_attn_apply`` scores the whole
+    sequence at once)."""
+    return dataclasses.replace(cfg, sliding_window=0, rotary_pct=1.0,
+                               attn_chunk=s)
+
+
+def _concat(x, x0):
+    """concat(x, x0) on the last dimension; split over "model", both
+    gathered over the sequence first."""
+    def join(a, b):
+        return torch.cat([a, b.to(a.dtype)], dim=-1)
+    if isinstance(x, Parts):
+        return x.g.map(join, annotate(x, "batch"), annotate(x0, "batch"))
+    return join(x, x0)
 
 
 def _lora_out(o, lora_g):
     """The application's LoRA correction added to the output projection
-    (float32 products, cast back)."""
+    (float32 products, cast back); split over "model", on each rank's
+    rows of the carry (a per-position map)."""
+    if isinstance(o, Parts):
+        return o.g.map(_lora_out, o, lora_g, dim=o.dim)
     return o + L.einsum("bsd,dr,re->bse", o.to(torch.float32), lora_g["a"],
                         lora_g["b"]).to(o.dtype)
 
@@ -117,14 +138,10 @@ def _mlp_residual(p, x, cfg):
 
 def shared_attn_apply(p, lora_g, x, x0, cfg):
     """One application of the shared block.  x, x0 (B, S, D): causal
-    attention over the whole sequence in one chunk, as the reference's."""
-    s = x.shape[1]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    cat = torch.cat([x, x0.to(x.dtype)], dim=-1)
-    cat = L.apply_norm(p["ln1"], cat, cfg.norm)
-    q, k, v = _shared_qkv(p, cat, cfg, positions, x.dtype)
-    m = sliding_window_mask(s, s, 0, device=x.device)
-    o = L.dense(p["wo"], A._sdpa_chunk(q, k, v, m, cfg), x.dtype)
+    attention over the whole sequence in one chunk, as the reference's
+    (split over "model": by heads, ``attention._attn_split``)."""
+    cat = L.apply_norm(p["ln1"], _concat(x, x0), cfg.norm)
+    o = A.attn_apply(p, cat, _attn_cfg(cfg, x.shape[1]))
     return _mlp_residual(p, x + _lora_out(o, lora_g), cfg)
 
 
@@ -137,6 +154,7 @@ def lm_hidden(params, tokens, cfg):
         # the group's leaves are read here, inside the checkpointed body
         # (``layers.scan``)
         blocks_g, lora_g = params["mamba"][g], params["lora"][g]
+        h = annotate(h, "batch", "tp", None)     # sequence-parallel carry
         h = shared_attn_apply(params["shared"], lora_g, h, x0, cfg)
         for blk in blocks_g:
             y, _ = S.mamba2_apply(blk["mamba"],
@@ -190,27 +208,24 @@ def init_caches(cfg, batch, max_seq, dtype=torch.bfloat16, device=None, *,
 def _shared_attn_decode(p, lora_g, x1, x0, k_cache, v_cache, pos: int, cfg):
     """One application of the shared block on one token.  Writes its K/V
     at ring slot ``pos % w`` of ``k_cache`` / ``v_cache`` (B, w, KV, hd)
-    in place; the first min(pos + 1, w) slots are valid."""
-    b = x1.shape[0]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x1.device)
-    cat = torch.cat([x1, x0.to(x1.dtype)], dim=-1)
-    cat = L.apply_norm(p["ln1"], cat, cfg.norm)
-    q, k1, v1 = _shared_qkv(p, cat, cfg, positions, x1.dtype)
-
-    w = k_cache.shape[1]
-    slot = pos % w
-    k_cache[:, slot] = k1[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v1[:, 0].to(v_cache.dtype)
-
-    qh = A.annotate_grouped_q(q.reshape(b, 1, kv, h // kv, hd))
-    scores = L.einsum_f32("bckrh,bskh->bkrcs", qh, k_cache) / math.sqrt(hd)
-    valid = torch.arange(w, device=x1.device) < min(pos + 1, w)
-    scores = torch.where(valid, scores, A._MASKED)
-    probs = torch.softmax(scores, dim=-1)
-    o = L.einsum_f32("bkrcs,bskh->bckrh", probs.to(x1.dtype), v_cache)
-    o = L.dense(p["wo"], o.reshape(b, 1, h * hd).to(x1.dtype), x1.dtype)
+    in place; the first min(pos + 1, w) slots are valid.  Split over
+    "model", each rank writes and reads its block of the ring
+    (``attention.read_split``)."""
+    cat = L.apply_norm(p["ln1"], _concat(x1, x0), cfg.norm)
+    o, _ = A.decode_attn_apply(p, cat, {"k": k_cache, "v": v_cache}, pos,
+                               _attn_cfg(cfg, 1))
     return _mlp_residual(p, x1 + _lora_out(o, lora_g), cfg)
+
+
+def _assign(dst, src) -> None:
+    """``dst.copy_(src)``, rank by rank for ``Parts`` placed alike."""
+    if not isinstance(dst, Parts):
+        dst.copy_(src)
+        return
+    if src.dim != dst.dim:
+        raise ValueError(f"writing {src} into {dst}: place them alike")
+    for r, t in dst.t.items():
+        t.copy_(src.t[r])
 
 
 def decode_step(params, tokens1, caches, pos, cfg):
@@ -233,7 +248,7 @@ def decode_step(params, tokens1, caches, pos, cfg):
                                      L.apply_norm(blk["ln"], x, cfg.norm),
                                      state, cfg)
             for name, t in new.items():
-                state[name].copy_(t)
+                _assign(state[name], t)
             x = x + y
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    return lm_logits(params, x), caches
+    return L.gathered(lm_logits(params, x)), caches

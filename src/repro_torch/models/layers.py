@@ -18,9 +18,11 @@ they do not reproduce the reference's ``jax.random`` bits (weights are
 carried across with ``models.params.params_from_numpy``).
 
 Under the sharded executor's model-axis group (``dist.annotate``) the
-dense, MoE, vlm and encdec families hold activations and parameter
-blocks as ``Parts``; the functions here then compute each rank's share:
-a norm rank by rank, the MLP on its d_ff block (wi / wg by their column
+dense, MoE, vlm, encdec and hybrid families hold activations and
+parameter blocks as ``Parts``; the functions here then compute each
+rank's share: a norm rank by rank (an RMSNorm over a split last
+dimension, Mamba2's gated norm, from the ranks' float32 sums of squares
+all-reduced over "model"), the MLP on its d_ff block (wi / wg by their column
 blocks, wo by its d_ff rows: float32 partial sums, reduce-scattered into
 the carry and rounded once; in a decode step by its columns on the
 gathered activation, every product one device's), the embedding (a
@@ -111,8 +113,10 @@ def dense(p, x, compute_dtype=torch.bfloat16):
 
 def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
     if isinstance(x, Parts):
+        if x.dim == len(x.shape) - 1 and kind == "rmsnorm":
+            return _rms_norm_split(p, x, eps)
         if x.dim in (ann.SUM, len(x.shape) - 1):
-            raise ValueError(f"a norm over {x}")
+            raise ValueError(f"a {kind} over {x}")
         return x.g.map(lambda pr, xr: apply_norm(pr, xr, kind, eps), p, x,
                        dim=x.dim)
     xf = x.to(torch.float32)
@@ -124,6 +128,27 @@ def apply_norm(p, x, kind="rmsnorm", eps=1e-6):
         var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
         y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return y.to(x.dtype)
+
+
+def _rms_norm_split(p, x, eps):
+    """An RMSNorm over a last dimension split over "model" (Mamba2's
+    gated norm over its heads' blocks of d_inner): each rank's float32
+    sum of squares, summed over "model" (an all-reduce), then each rank
+    scales its block by its block of the scale (whole, or its block
+    already)."""
+    g = x.g
+    d = x.shape[-1]
+    f32 = torch.float32
+    ss = g.map(lambda t: torch.sum(torch.square(t.to(f32)), dim=-1,
+                                   keepdim=True), x, dim=ann.SUM)
+    ss = annotate(ss, "batch")
+
+    def scale(r, pr, xr, sr):
+        sc = pr["scale"]
+        if sc.shape[0] == d:
+            sc = sc[slice(*g.block(d, r))]
+        return (xr.to(f32) * torch.rsqrt(sr / d + eps) * sc).to(xr.dtype)
+    return g.map(scale, p, x, ss, rank=True, dim=x.dim)
 
 
 def embed_lookup(p, tokens, compute_dtype=torch.bfloat16, *, prefix=None):
@@ -179,10 +204,12 @@ def logits_projection(p, x, compute_dtype=torch.bfloat16):
                       p["table"].to(compute_dtype))
 
 
-def split_dense(w, x, dtype):
+def split_dense(w, x, dtype, *, cols=None):
     """``dense(w, x)`` for ``Parts`` ``x`` (replicated) and ``w`` (its
     column blocks, or whole): a ``Parts`` split on the last dimension
-    (replicated when ``w`` is whole).
+    (replicated when ``w`` is whole).  A block of several spans (Mamba2's
+    ``in_proj``) gives ``cols = (width, spans)``: the whole width and
+    ``spans(r)``, rank r's columns as (start, stop) spans.
 
     Where each row is one position (a decode step), a rank's block runs
     at the whole matrix's shape, in place among zeros, and its columns
@@ -204,19 +231,28 @@ def split_dense(w, x, dtype):
         if xr.shape[-2] != 1:
             return dense(wr, xr, dtype)
         n = wr["w"].shape[-1]
-        whole = {"w": _widen(wr["w"].to(dtype), r, g.k)}
-        if "b" in wr:
-            whole["b"] = _widen(wr["b"], r, g.k)
-        return dense(whole, xr, dtype).narrow(-1, r * n, n)
+        width, spans = cols or (n * g.k, lambda r: [(r * n, (r + 1) * n)])
+        idx = torch.cat([torch.arange(lo, hi, device=xr.device)
+                         for lo, hi in spans(r)])
+
+        def among_zeros(t):
+            out = t.new_zeros(t.shape[:-1] + (width,))
+            out[..., idx] = t
+            return out
+        whole = {k: among_zeros(v.to(dtype) if k == "w" else v)
+                 for k, v in wr.items()}
+        return dense(whole, xr, dtype).index_select(-1, idx)
     return g.map(part, w, x, rank=True, dim=len(x.shape) - 1)
 
 
-def _widen(t, r, k):
-    """``t``, rank r's block of k along its last dimension, in place
-    among zeros of the whole extent."""
-    n = t.shape[-1]
-    out = t.new_zeros(t.shape[:-1] + (n * k,))
-    out.narrow(-1, r * n, n).copy_(t)
+def _widen(t, r, k, dim=-1):
+    """``t``, rank r's block of k along ``dim`` (the last by default), in
+    place among zeros of the whole extent."""
+    shape = list(t.shape)
+    n = shape[dim]
+    shape[dim] = n * k
+    out = t.new_zeros(shape)
+    out.narrow(dim, r * n, n).copy_(t)
     return out
 
 
