@@ -112,11 +112,12 @@ set to 0 just before and read just after:
   against one device (its patch pack on the tile-skipping crossbar on
   every rank of a row), SeamlessM4T whole decoding 8 greedy steps on
   its sharded self and primed cross caches against one device,
-  Zamba2-2.7B's 12 of 54 layers training 2 steps (float32 compute) and
-  decoding 8 greedy steps (bf16) split over the mesh against one device,
-  and the dry runs (``launch.dryrun``) of five production cells on 16 x
-  16 placeholders (each within 80 GB a device) and of the phase's own
-  cell;
+  Zamba2-2.7B's 12 of 54 layers and RWKV6-7B's 4 of 32 training 2
+  steps (bf16 and float32 compute, against a float32 witness on one
+  device) and decoding 8 greedy steps (bf16) split over the mesh
+  against one device, and the dry runs (``launch.dryrun``) of five
+  production cells on 16 x 16 placeholders (each within 80 GB a device)
+  and of the phase's own cell;
 * the configs phase (``configs_phase``, last): the four configurations
   no earlier phase runs, at published width, one at a time.
   Mixtral-8x22B, 4 of 56 layers: layer 0's routing (the cluster form at
@@ -4210,7 +4211,9 @@ DRYRUN_CELLS = (("phi3.5-moe-42b-a6.6b", "train_4k"),
 # 7.705 (seamless prefill_32k) and 2.731 (internvl2 train_4k) once their
 # layers split over "model" (115.400 and 20.803 computed whole), and
 # 58.010 (zamba2 prefill_32k: 903.082 whole, its shared block's scores
-# of all 32 heads at once).
+# of all 32 heads at once).  RWKV6-7B's cells are not here: its WKV chunk
+# loop runs 256 chunks a layer at train_4k under ``FakeTensorMode``, 26
+# min on a CPU for the memory run alone (``launch.dryrun --skip-cost``).
 DRYRUN_PEAK_GIB = {"phi3.5-moe-42b-a6.6b": 40.0, "minicpm-2b": 25.0,
                    "seamless-m4t-large-v2": 10.0, "internvl2-26b": 5.0,
                    "zamba2-2.7b": 60.0}
@@ -4256,6 +4259,14 @@ SHARD_ENC_SLOTS, SHARD_ENC_FRAMES, SHARD_ENC_STEPS = 4, 256, 8
 # decode steps of 4 slots on one device and over (2, 2).
 SHARD_HYB_LAYERS, SHARD_HYB_BATCH, SHARD_HYB_SEQ = 12, 4, 512
 SHARD_HYB_SLOTS, SHARD_HYB_STEPS = 4, 8
+# (i) RWKV6-7B at its published width, 4 of 32 layers (~1.42 B
+# parameters, untied embedding and head: 5.7 GB float32, 17.0 GB with
+# both AdamW moments), remat "full" as published, trained 2 steps at 4 x
+# 512 over (2, 2) of the card as (g) trains Zamba2 (the float32 witness,
+# ``held_to_single`` and ``held_to_witness``).  (j) The same 4 layers in
+# bf16: 8 greedy decode steps of 4 slots on one device and over (2, 2).
+SHARD_RWKV_LAYERS, SHARD_RWKV_BATCH, SHARD_RWKV_SEQ = 4, 4, 512
+SHARD_RWKV_SLOTS, SHARD_RWKV_STEPS = 4, 8
 SHARD_WITNESS_RATIO, SHARD_WITNESS_FLOOR = 3.0, 1e-5
 ALLOC_GRANULE = 512        # the CUDA caching allocator rounds to 512 bytes
 
@@ -4425,21 +4436,23 @@ def sharding_phase(dev, compare):
     family's training split, its patch pack on the tile-skipping
     crossbar on every rank.  (f) ``sharded_seamless``: the encdec
     family's decode split, the cross caches primed on one device.  (g)
-    ``sharded_zamba2_train`` and (h) ``sharded_zamba2_decode``: the
-    hybrid family's training and decode split, no kernel.  (c)
+    and (h) ``sharded_recurrent_train`` and ``sharded_recurrent_decode``
+    on Zamba2-2.7B: the hybrid family's training and decode split, no
+    kernel; (i) and (j) the same on RWKV6-7B: the rwkv family's.  (c)
     ``launch.dryrun.run_cell`` for ``DRYRUN_CELLS`` (per_device, roofline,
     wall seconds), each within 80 GB and its ``DRYRUN_PEAK_GIB`` a device, and
     ``dryrun.analyse`` of (a)'s cell on (a)'s mesh of
     placeholders: its argument bytes over the mesh equal to (a)'s placed
     bytes, its temp bytes and step-time bound printed beside (a)'s peak
-    and step.  Returns (a)'s, (d)'s, (e)'s, (f)'s, (g)'s and (h)'s
-    counted launches."""
+    and step.  Returns (a)'s, (d)'s, (e)'s, (f)'s, (g)'s, (h)'s, (i)'s
+    and (j)'s counted launches."""
     import dataclasses
 
     import torch
 
     from repro_torch import _tree
-    from repro_torch.configs import minicpm_2b, phi3_5_moe
+    from repro_torch.configs import minicpm_2b, phi3_5_moe, rwkv6_7b
+    from repro_torch.configs import zamba2_2_7b
     from repro_torch.configs.base import ShapeCell
     from repro_torch.data import SyntheticLM
     from repro_torch.dist import sharding as shd
@@ -4624,8 +4637,20 @@ def sharding_phase(dev, compare):
     add_counts(counts, sharded_seamless(dev))
 
     # -------------- (g), (h) Zamba2-2.7B training and decode split ---
-    add_counts(counts, sharded_zamba2_train(dev))
-    add_counts(counts, sharded_zamba2_decode(dev))
+    add_counts(counts, sharded_recurrent_train(
+        dev, "g", zamba2_2_7b.CONFIG, SHARD_HYB_LAYERS, SHARD_HYB_BATCH,
+        SHARD_HYB_SEQ))
+    add_counts(counts, sharded_recurrent_decode(
+        dev, "h", zamba2_2_7b.CONFIG, SHARD_HYB_LAYERS, SHARD_HYB_SLOTS,
+        SHARD_HYB_STEPS))
+
+    # -------------- (i), (j) RWKV6-7B training and decode split ---
+    add_counts(counts, sharded_recurrent_train(
+        dev, "i", rwkv6_7b.CONFIG, SHARD_RWKV_LAYERS, SHARD_RWKV_BATCH,
+        SHARD_RWKV_SEQ))
+    add_counts(counts, sharded_recurrent_decode(
+        dev, "j", rwkv6_7b.CONFIG, SHARD_RWKV_LAYERS, SHARD_RWKV_SLOTS,
+        SHARD_RWKV_STEPS))
 
     # -------------------------------------------------- (c) dry runs ---
     for arch, shape in DRYRUN_CELLS:
@@ -4786,24 +4811,25 @@ def mesh_coords(mesh, mesh_id) -> dict:
                     (int(c) for c in np.unravel_index(p, mesh.ids.shape))))
 
 
-def sharded_zamba2_train(dev):
-    """Sharding phase (g): Zamba2-2.7B, ``SHARD_HYB_LAYERS`` of 54
-    layers, remat "full", trained ``SHARD_STEPS`` steps from one state
-    and batches (``TrainOptions(peak_lr=1e-3)``) on one device in
-    float32 compute (the witness), over (2, 2) of the card in float32
-    (``held_to_single``'s bars against the witness), on one device in
-    the published bf16 and over (2, 2) in bf16 (``held_to_witness``); no
-    kernel launched (the reference's hybrid reaches none).  Prints the
-    step ms of each, the bf16 split's peak, transfer record a step and
-    weight gathers across "model" (``in_proj``'s block: its heads'
-    columns of z, x and dt and B and C whole, several spans).  Returns
-    the sharded steps' counted launches."""
+def sharded_recurrent_train(dev, phase, config, layers, batch, seq):
+    """Sharding phase (g) or (i): a recurrent family's ``config`` (Zamba2-
+    2.7B, RWKV6-7B) at its published width, ``layers`` of its layers,
+    remat "full" as published, trained ``SHARD_STEPS`` steps of ``batch``
+    x ``seq`` from one state and batches (``TrainOptions(peak_lr=1e-3)``)
+    on one device in float32 compute (the witness), over (2, 2) of the
+    card in float32 (``held_to_single``'s bars against the witness), on
+    one device in the published bf16 and over (2, 2) in bf16
+    (``held_to_witness``); no kernel launched (the reference's hybrid and
+    rwkv reach none).  Prints the step ms of each, the bf16 split's peak,
+    transfer record a step and weight gathers across "model" (row blocks;
+    the hybrid's ``in_proj`` block: its heads' columns of z, x and dt and
+    B and C whole, several spans).  Returns the sharded steps' counted
+    launches."""
     import dataclasses
 
     import torch
 
     from repro_torch import _tree
-    from repro_torch.configs import zamba2_2_7b
     from repro_torch.dist import sharding as shd
     from repro_torch.dist import spmd
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -4815,27 +4841,30 @@ def sharded_zamba2_train(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t_part = time.perf_counter()
-    cfg = dataclasses.replace(zamba2_2_7b.CONFIG,
-                              num_layers=SHARD_HYB_LAYERS)
+    cfg = dataclasses.replace(config, num_layers=layers)
+    name = config.name
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     mesh = make_host_mesh(data=2, model=2)
     api, api32 = (model_zoo.build(c, device=dev) for c in (cfg, f32))
-    state0 = init_state(api.init(torch.Generator(device=dev).manual_seed(0)))
-    n_params = sum(t.numel() for t in _tree.leaves(state0.params))
+    # the starting parameters alone are kept: each run starts from a
+    # fresh state around a copy of them (zero moments, step 0)
+    params0 = api.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(t.numel() for t in _tree.leaves(params0))
     gen = torch.Generator(device=dev).manual_seed(1)
-    batches = [api.make_batch(gen, SHARD_HYB_BATCH, SHARD_HYB_SEQ)
-               for _ in range(SHARD_STEPS)]
-    sh = (spmd.train_state_shardings(state0, mesh, cfg),
+    batches = [api.make_batch(gen, batch, seq) for _ in range(SHARD_STEPS)]
+    copy = lambda: init_state(_tree.tree_map(lambda t: t.clone(), params0))
+    state = copy()
+    sh = (spmd.train_state_shardings(state, mesh, cfg),
           shd.batch_shardings(batches[0], mesh))
+    del state
     placed_batches = [shd.device_put(b, sh[1]) for b in batches]
-    copy = lambda: _tree.tree_map(lambda t: t.clone(), state0)
     opts = TrainOptions(peak_lr=1e-3)
-    log(f"sharding phase (g): zamba2-2.7b, full width, "
-        f"{SHARD_HYB_LAYERS} of {zamba2_2_7b.CONFIG.num_layers} layers, "
-        f"remat {cfg.remat}, {n_params / 1e9:.4f} B float32 parameters; "
-        f"mesh {dict(mesh.shape)} of {dev}; batch {SHARD_HYB_BATCH} x "
-        f"{SHARD_HYB_SEQ}, {SHARD_STEPS} steps; one device and the split in "
-        f"float32 (the witness: one device) and in {cfg.compute_dtype}")
+    log(f"sharding phase ({phase}): {name}, full width, {layers} of "
+        f"{config.num_layers} layers, remat {cfg.remat}, "
+        f"{n_params / 1e9:.4f} B float32 parameters; mesh "
+        f"{dict(mesh.shape)} of {dev}; batch {batch} x {seq}, "
+        f"{SHARD_STEPS} steps; one device and the split in float32 (the "
+        f"witness: one device) and in {cfg.compute_dtype}")
 
     def one_device(loss_fn):
         st, hist = copy(), []
@@ -4857,14 +4886,14 @@ def sharded_zamba2_train(dev):
             hist.append((secs, {k: float(v) for k, v in m.items()}))
         torch.cuda.synchronize()
         counts = dict(launch_counts())
-        check(not any(counts.values()), f"sharded zamba2 launched "
-              f"{counts}: the hybrid's path reaches no kernel")
+        check(not any(counts.values()), f"sharded {name} launched "
+              f"{counts}: the {cfg.family} family's path reaches no kernel")
         return placed, hist, counts, torch.cuda.max_memory_allocated()
 
     witness, hist_w = one_device(api32.loss_fn)
     placed, hist_s, counts, _ = split(api32.loss_fn, [])
-    worst_p, worst_mu = held_to_single("zamba2 (g) float32", hist_w, hist_s,
-                                       placed, witness)
+    worst_p, worst_mu = held_to_single(f"{name} ({phase}) float32", hist_w,
+                                       hist_s, placed, witness)
     log(f"  float32: parameters after {SHARD_STEPS} steps max |diff| "
         f"{worst_p:.3e} ({SHARD_PARAM_TOL}); first moments worst L2 "
         f"relative {worst_mu:.3e} (<= {TOL_BF16['rtol']}); step 1 sharded "
@@ -4875,25 +4904,25 @@ def sharded_zamba2_train(dev):
     transfers = []
     placed, hist_b, bf_counts, peak = split(api.loss_fn, transfers)
     add_counts(counts, bf_counts)
-    line = held_to_witness(f"zamba2 (g) {cfg.compute_dtype}", hist_w,
-                           hist_1, hist_b, witness, one, placed,
-                           state0.params)
+    line = held_to_witness(f"{name} ({phase}) {cfg.compute_dtype}", hist_w,
+                           hist_1, hist_b, witness, one, placed, params0)
     cross = [t for t in transfers if t.kind == "weight" and len(
         {mesh_coords(mesh, i)["model"] for i in t.group}) > 1]
-    check(cross, "sharded zamba2: no weight gather crossed \"model\" "
-          "(in_proj's block spans both model shards of its columns)")
+    check(cross, f"sharded {name}: no weight gather crossed \"model\" (a "
+          "row block spans both model shards of its columns)")
     log(f"  {cfg.compute_dtype}: {line}; step 1 sharded "
         f"{hist_b[-1][0] * 1e3:.1f} ms, one device {hist_1[-1][0] * 1e3:.1f}"
         f" ms (host clock ending in a synchronise; {card()}); "
         f"max_memory_allocated over the sharded steps {peak / 2**30:.2f} GiB "
-        f"(the initial, witness and one-device states and the four shards "
-        f"on one card); launches {counts}; {moved(transfers, SHARD_STEPS)}; "
+        f"(the initial parameters, the witness and one-device states and "
+        f"the four shards on one card); launches {counts}; "
+        f"{moved(transfers, SHARD_STEPS)}; "
         f"weight gathers across \"model\" {len(cross) / SHARD_STEPS:.0f} a "
         f"step, {sum(t.nbytes for t in cross) / SHARD_STEPS / 1e9:.6f} GB "
         f"received a step (largest {max(t.nbytes for t in cross):.0f} "
         f"bytes)")
-    log(f"  (g) {time.perf_counter() - t_part:.1f} s ({card()})")
-    del placed, placed_batches, witness, one, state0, batches
+    log(f"  ({phase}) {time.perf_counter() - t_part:.1f} s ({card()})")
+    del placed, placed_batches, witness, one, params0, batches
     torch.cuda.empty_cache()
     return counts
 
@@ -4958,23 +4987,23 @@ def held_to_witness(label, hist_w, hist_1, hist_s, witness, one, placed,
             + f"; median ratio {by[len(by) // 2][0]:.3f}")
 
 
-def sharded_zamba2_decode(dev):
-    """Sharding phase (h): Zamba2-2.7B, ``SHARD_HYB_LAYERS`` of 54
-    layers, ``SHARD_HYB_STEPS`` greedy decode steps of
-    ``SHARD_HYB_SLOTS`` slots from seeded tokens on one device and over
+def sharded_recurrent_decode(dev, phase, config, layers, slots, steps):
+    """Sharding phase (h) or (j): a recurrent family's ``config`` at its
+    published width, ``layers`` of its layers, ``steps`` greedy decode
+    steps of ``slots`` slots from seeded tokens on one device and over
     (2, 2) of the card, the sharded run fed the single device's tokens
     (``decode_held_to_single``): each logit row within ``TOL_BF16``'s
     rtol in L2, its own greedy choice off those tokens only at near-ties;
-    no cache row crosses "model" (the Mamba2 rows cross "data": R8); no
-    kernel.  Prints the ms a step of both and the Mamba2 states'
-    all-to-all bytes a step (the cache's P block to the heads' and
-    back).  Returns the sharded run's counted launches."""
+    no cache row crosses "model" (the hybrid's Mamba2 rows cross "data":
+    R8; the rwkv token-shift rows: R9); no kernel.  Prints the ms a step
+    of both and the states' all-to-all bytes a step (a Mamba2 state from
+    the cache's P block to the heads' and back, a WKV state from its key
+    rows).  Returns the sharded run's counted launches."""
     import dataclasses
 
     import torch
 
     from repro_torch import _tree
-    from repro_torch.configs import zamba2_2_7b
     from repro_torch.dist import sharding as shd
     from repro_torch.dist import spmd
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -4984,38 +5013,36 @@ def sharded_zamba2_decode(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t_part = time.perf_counter()
-    cfg = dataclasses.replace(zamba2_2_7b.CONFIG,
-                              num_layers=SHARD_HYB_LAYERS)
+    cfg = dataclasses.replace(config, num_layers=layers)
+    name = config.name
     mesh = make_host_mesh(data=2, model=2)
     api = model_zoo.build(cfg, device=dev)
     params = api.init(torch.Generator(device=dev).manual_seed(0))
-    b, steps = SHARD_HYB_SLOTS, SHARD_HYB_STEPS
     with torch.inference_mode():
-        caches = api.init_caches(b, steps)
+        caches = api.init_caches(slots, steps)
         meta = model_zoo.build(cfg, device="meta")
         dims = spmd.cache_batch_dims(lambda n: meta.init_caches(n, steps))
         pc = shd.device_put(params, shd.param_shardings(params, mesh))
         cc = shd.device_put(caches, shd.cache_shardings(caches, mesh))
     specs = {"/".join(map(str, path)): tuple(leaf.sharding.spec)
              for path, leaf in _tree.leaves_with_path(cc)}
-    log(f"sharding phase (h): zamba2-2.7b, full width, "
-        f"{SHARD_HYB_LAYERS} of {zamba2_2_7b.CONFIG.num_layers} layers; "
-        f"{b} slots, {steps} greedy steps; caches {specs} on "
-        f"{dict(mesh.shape)}")
-    tok = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+    log(f"sharding phase ({phase}): {name}, full width, {layers} of "
+        f"{config.num_layers} layers; {slots} slots, {steps} greedy steps; "
+        f"caches {specs} on {dict(mesh.shape)}")
+    tok = torch.randint(0, cfg.vocab_size, (slots, 1), dtype=torch.int32,
                         generator=torch.Generator(device=dev).manual_seed(2),
                         device=dev)
     tr = []
     reset_launch_counts()
-    line = decode_held_to_single("zamba2 (h)", api.decode_fn, mesh, params,
-                                 caches, pc, cc, dims, tok, 0, steps, tr=tr,
-                                 across_data=True)
+    line = decode_held_to_single(f"{name} ({phase})", api.decode_fn, mesh,
+                                 params, caches, pc, cc, dims, tok, 0, steps,
+                                 tr=tr, across_data=True)
     counts = dict(launch_counts())
-    check(not any(counts.values()), f"sharded zamba2 decode launched "
-          f"{counts}: the hybrid's path reaches no kernel")
+    check(not any(counts.values()), f"sharded {name} decode launched "
+          f"{counts}: the {cfg.family} family's path reaches no kernel")
     a2a = [t for t in tr if t.kind == "activation" and t.op == "all-to-all"]
-    check(a2a, "sharded zamba2 decode: no all-to-all of the Mamba2 states")
-    log(f"  {line}; the Mamba2 states' all-to-all {len(a2a) / steps:.0f} "
+    check(a2a, f"sharded {name} decode: no all-to-all of the states")
+    log(f"  {line}; the states' all-to-all {len(a2a) / steps:.0f} "
         f"results a step, {sum(t.nbytes for t in a2a) / steps / 1e9:.6f} "
         f"GB received, {sum(t.traffic for t in a2a) / steps / 1e9:.6f} GB "
         f"moved a step; launches {counts}; "

@@ -13,8 +13,8 @@ The port has no compiler to hand a constraint to.  Off the sharded
 executor an annotation returns its input unchanged: a constraint never
 changes values.  The executor runs a batch window on its **model-axis
 group** (``ModelGroup``: the mesh indices along "model" that hold the
-window, ``dist.spmd``); the model code of the dense, MoE, vlm, encdec
-and hybrid families then gets its parameters and inputs as ``Parts`` —
+window, ``dist.spmd``); every family's model code then gets its
+parameters and inputs as ``Parts`` —
 one tensor a rank of the group, with where the global value lies (split
 on a dimension, replicated, or a partial sum) — and ``annotate`` moves
 such a value to
@@ -34,7 +34,12 @@ hybrid's moves are these: its carry, the shared block's concat and each
 Mamba2 layer's input gathered over the sequence, the partial sums of
 wo and ``out_proj`` reduce-scattered into the carry, the gated norm's
 sums of squares all-reduced, and in decode each Mamba2 state moved from
-the cache's P block to the heads' and back (an all-to-all).  A parameter
+the cache's P block to the heads' and back (an all-to-all).  The rwkv
+family's: each time and channel mix's input gathered over the
+sequence, the partial sums of the time mix's wo and the channel mix's
+wv reduce-scattered into the carry, the receptance gate moved from its
+column block to the carry's rows (an all-to-all), and in decode each
+WKV state moved from the cache's key-row block to the heads' and back.  A parameter
 block of several spans (Mamba2's ``in_proj`` and conv,
 ``sharding.compute_block``) is a ``Parts`` whose ``dim`` names the
 dimension of its spans; the model code reads it rank by rank.  A group

@@ -310,12 +310,42 @@ def _ssm_block(leaf, owner, shape, k, r, one_token, ssm) -> dict:
     return {}
 
 
+def rwkv_heads(d_model: int) -> tuple:
+    """(H, N) of an RWKV6 time mix of width ``d_model``: the head size is
+    64, or in a reduced width the largest of 64, 32, ... that divides it
+    (the reference's ``rwkv._head_geometry``)."""
+    n = min(64, d_model)
+    while d_model % n:
+        n //= 2
+    return d_model // n, n
+
+
+def _rwkv_block(leaf, owner, mix, shape, k, r, one_token) -> dict:
+    """An RWKV6 leaf's block.  The time mix's wr / wk / wv / wg take the
+    column block (the rank's heads, N channels a head) and wo the row
+    block (a decode step's: the column block), each whole where the
+    heads do not divide the axis; the channel mix's wk (d_ff) and wr
+    the column block, its wv the row block (a decode step's: the column
+    block).  The LoRAs and the vectors whole."""
+    if leaf != "w":
+        return {}
+    if mix == "tmix" and rwkv_heads(shape[0])[0] % k:
+        return {}
+    if owner == ("wo" if mix == "tmix" else "wv"):
+        return (column_block if one_token else row_block)(shape, k, r)
+    if owner in (("wr", "wk", "wv", "wg") if mix == "tmix"
+                 else ("wk", "wr")):
+        return column_block(shape, k, r)
+    return {}
+
+
 def compute_block(path, shape, k, r, one_token=False, ssm=None) -> dict:
     """{dim: (lo, hi)}: the block of a model's parameter leaf (at
     ``path`` in its tree: ``blocks``, ``enc_blocks`` or ``dec_blocks``,
-    the hybrid's ``mamba`` and ``shared``, or a table) that rank r of a
-    model axis of k computes with; {} is the whole leaf.  A dimension
-    the block takes in several spans names a list of pairs (``spans``).
+    the hybrid's ``mamba`` and ``shared``, RWKV6's ``tmix`` and ``cmix``,
+    or a table) that rank r of a model axis of k computes with; {} is
+    the whole leaf.  A dimension the block takes in several spans names
+    a list of pairs (``spans``).
 
     * wq / wk / wv (and their biases), wi and wg: the column block, the
       block ``_param_spec`` puts on 'model' (heads or kv heads, d_ff),
@@ -328,6 +358,10 @@ def compute_block(path, shape, k, r, one_token=False, ssm=None) -> dict:
     * expert weights: ``expert_block``;
     * Mamba2's leaves: the rank's SSM heads (``_ssm_block``; ``ssm`` is
       the tree's ``ssm_geometry``);
+    * RWKV6's time mix by heads, its channel mix by d_ff (``_rwkv_block``:
+      wr / wk / wv / wg and the channel mix's wk / wr by columns, the
+      time mix's wo and the channel mix's wv by rows, a decode step's by
+      columns);
     * the embedding table and the head: the vocabulary row block;
     * the router, the norms, the LoRAs and every other vector: whole
       (every rank routes its window's groups and normalises its rows).
@@ -341,6 +375,9 @@ def compute_block(path, shape, k, r, one_token=False, ssm=None) -> dict:
         return _split_block(shape, 0, k, r)
     if "mamba" in names[:-1] and "ln" not in names:
         return _ssm_block(leaf, owner, shape, k, r, one_token, ssm)
+    mix = next((n for n in ("tmix", "cmix") if n in names[:-1]), None)
+    if mix is not None:
+        return _rwkv_block(leaf, owner, mix, shape, k, r, one_token)
     if "moe" in names and owner == "moe" and leaf in ("wi", "wg", "wo"):
         return expert_block(shape, k, r, leaf, one_token)
     if owner == "wo" and (attn or "mlp" in names):

@@ -15,17 +15,16 @@ leading dimension (``batch_shardings``: one a batch shard) are the
 windows.  Batch leaves lead with the batch dimension.  A window runs on
 its **model row**: the mesh indices that hold it and differ from the
 first of them along "model" only, in model-axis order (rank r of the
-row).  The dense, MoE, vlm, encdec and hybrid families (functions
-marked by ``model_zoo.build``: ``fn.model_split``) run a window on every
-index of its row, split over "model" as the reference's annotations
-split each product: the model code gets ``annotate.Parts`` of the row's
-``annotate.ModelGroup`` and each rank computes its share
-(``annotate``'s module docstring; the splits are the model code's, the
-blocks ``sharding.compute_block``; the hybrid's Mamba2 layers by SSM
-heads, its shared block by heads).  The rwkv family, and any function
-not so marked, run each window on the row's first index alone, each
-layer's matrices whole there (its WKV state's split by heads is not
-ported yet).
+row).  Every family's functions (marked by ``model_zoo.build``:
+``fn.model_split``) run a window on every index of its row, split over
+"model" as the reference's annotations split each product: the model
+code gets ``annotate.Parts`` of the row's ``annotate.ModelGroup`` and
+each rank computes its share (``annotate``'s module docstring; the
+splits are the model code's, the blocks ``sharding.compute_block``; the
+hybrid's Mamba2 layers by SSM heads, its shared block by heads; the
+rwkv time mix and its WKV state by heads, its channel mix by d_ff).  A
+function not so marked runs each window on the row's first index
+alone, each layer's matrices whole there.
 
 **What an index holds.**  Its shards, and what one layer gathers: as
 the reference's partitioned step holds them, not the whole model.  The
@@ -38,17 +37,19 @@ as they walk the stack), and freed when the model is done with it.  The
 other leaves (embeddings, head, final norms, the hybrid's shared block)
 are gathered once a window.  Split over "model", a rank gathers its
 compute block of each leaf only (``sharding.compute_block``: the column
-block of wq / wk / wv / wi / wg, which its own shard's column holds, so
-that it gathers over "data" alone; the row block of each wo, its heads'
-or its d_ff rows, which the model axis's column shards hold between
-them (a decode step's wo: its column block); its experts, or each
-expert's d_ff; its SSM heads' spans of Mamba2's ``in_proj`` and conv,
-which cross the column shards of "model", gathered as one union
-(``_window``); its vocabulary rows of the tables; the router and the
-vectors whole), as a ``Parts`` leaf.  A
+block of wq / wk / wv / wi / wg (and of RWKV6's wr / wk / wv / wg, its
+channel mix's wk / wr), which its own shard's column holds, so that it
+gathers over "data" alone; the row block of each wo (and of the channel
+mix's wv), its heads' or its d_ff rows, which the model axis's column
+shards hold between them (a decode step's: its column block); its
+experts, or each expert's d_ff; its SSM heads' spans of Mamba2's
+``in_proj`` and conv, which cross the column shards of "model", gathered
+as one union (``_window``); its vocabulary rows of the tables; the
+router, the LoRAs and the vectors whole), as a ``Parts`` leaf.  A
 rank's blocks are 1/k of each split matrix, so no index holds or
-gathers a whole layer's matrices.  Whole-layer compute gathers each
-leaf whole.
+gathers a whole layer's matrices (RWKV6's time mix, where its heads do
+not divide the axis, whole).  Whole-layer compute gathers each leaf
+whole.
 
 **The train step** (``make_sharded_train_step``).  For each window in
 turn, ``loss_fn`` runs forward and backward on the window's rows,
@@ -96,9 +97,13 @@ the cache's sharding (``_cache_spec``, the reference's rule) puts their
 P (the state) and their channels (the conv edge) on "model", not the
 heads the layer splits by: the model code moves the state to the heads'
 placement and back (an all-to-all over "model") and gathers the edge,
-recorded as activations.  With two layer axes, ``_cache_spec`` puts the
-data axes on the period, not on the batch (reference quirk R8), so a
-window's Mamba2 rows cross "data".
+recorded as activations; rwkv's WKV state, which it places by key rows
+(the first N), the same way.  With two layer axes, ``_cache_spec`` puts
+the data axes on the period, not on the batch (reference quirk R8), so a
+window's Mamba2 rows cross "data"; rwkv's 4-d token-shift inputs (L, B,
+1, D) it takes for unstacked caches, the data axes on the layers and
+"model" on d_model (R9): a window's rows cross "data" where the layers
+divide it, and the model code gathers d_model.
 ``decode_fn`` updates them in place, and they are written back to
 every shard that holds them before the next layer's rows or parameters
 are gathered, and after the step.  A cache leaf without a layer axis is
@@ -545,10 +550,9 @@ def _off_model(mesh, p) -> tuple:
 
 
 def splits_over_model(fn, mesh) -> bool:
-    """Whether ``fn``'s windows run split over "model": a function of the
-    dense, MoE, vlm, encdec or hybrid family (``model_zoo.build`` marks
-    them ``model_split``) on a mesh whose "model" axis has more than one
-    index."""
+    """Whether ``fn``'s windows run split over "model": a family's
+    function (``model_zoo.build`` marks them ``model_split``) on a mesh
+    whose "model" axis has more than one index."""
     return (getattr(fn, "model_split", False)
             and mesh.shape.get("model", 1) > 1)
 

@@ -15,7 +15,7 @@ the port runs the step itself, abstractly, and counts; each result's
   devices, one a shard.  One mesh index's share of the step — a
   device's share: every index does the same work — runs through the
   sharded executor (``dist.spmd``, ``only=0``: window 0's first index;
-  for the dense and MoE families its model rank's share of the window,
+  on a mesh with a "model" axis, its model rank's share of the window,
   the other ranks' contributions to its collectives zeros) under
   ``FakeTensorMode``:
   shapes and dtypes, no data.  A fake tensor never launches a kernel, so

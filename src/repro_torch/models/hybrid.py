@@ -217,17 +217,6 @@ def _shared_attn_decode(p, lora_g, x1, x0, k_cache, v_cache, pos: int, cfg):
     return _mlp_residual(p, x1 + _lora_out(o, lora_g), cfg)
 
 
-def _assign(dst, src) -> None:
-    """``dst.copy_(src)``, rank by rank for ``Parts`` placed alike."""
-    if not isinstance(dst, Parts):
-        dst.copy_(src)
-        return
-    if src.dim != dst.dim:
-        raise ValueError(f"writing {src} into {dst}: place them alike")
-    for r, t in dst.t.items():
-        t.copy_(src.t[r])
-
-
 def decode_step(params, tokens1, caches, pos, cfg):
     """One token for every slot.  tokens1 (B, 1); caches from
     ``init_caches`` (updated in place).  The shared block reads the
@@ -248,7 +237,7 @@ def decode_step(params, tokens1, caches, pos, cfg):
                                      L.apply_norm(blk["ln"], x, cfg.norm),
                                      state, cfg)
             for name, t in new.items():
-                _assign(state[name], t)
+                L.assign(state[name], t)
             x = x + y
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     return L.gathered(lm_logits(params, x)), caches

@@ -17,19 +17,18 @@ caller resolved (``moe.lm_init``), which every one of them requires;
 they do not reproduce the reference's ``jax.random`` bits (weights are
 carried across with ``models.params.params_from_numpy``).
 
-Under the sharded executor's model-axis group (``dist.annotate``) the
-dense, MoE, vlm, encdec and hybrid families hold activations and
-parameter blocks as ``Parts``; the functions here then compute each
-rank's share: a norm rank by rank (an RMSNorm over a split last
-dimension, Mamba2's gated norm, from the ranks' float32 sums of squares
-all-reduced over "model"), the MLP on its d_ff block (wi / wg by their column
-blocks, wo by its d_ff rows: float32 partial sums, reduce-scattered into
-the carry and rounded once; in a decode step by its columns on the
-gathered activation, every product one device's), the embedding (a
-frontend prefix joined to it) and the head on the rank's vocabulary
-rows, and the cross-entropy reduced over the vocabulary
-split (a max and a sum of exponentials across ranks, the label's logit
-from the rank that holds it).
+Under the sharded executor's model-axis group (``dist.annotate``) every
+family holds activations and parameter blocks as ``Parts``; the
+functions here then compute each rank's share: a norm rank by rank (an
+RMSNorm over a split last dimension, Mamba2's gated norm, from the
+ranks' float32 sums of squares all-reduced over "model"), the MLP on
+its d_ff block (wi / wg by their column blocks, wo by its d_ff rows:
+float32 partial sums, reduce-scattered into the carry and rounded once;
+in a decode step by its columns on the gathered activation, every
+product one device's), the embedding (a frontend prefix joined to it)
+and the head on the rank's vocabulary rows, and the cross-entropy
+reduced over the vocabulary split (a max and a sum of exponentials
+across ranks, the label's logit from the rank that holds it).
 """
 
 from __future__ import annotations
@@ -272,6 +271,17 @@ def gathered(x):
     if isinstance(x, Parts):
         return x.g.one(annotate(x, "batch"))
     return x
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)``, rank by rank for ``Parts`` placed alike."""
+    if not isinstance(dst, Parts):
+        dst.copy_(src)
+        return
+    if src.dim != dst.dim:
+        raise ValueError(f"writing {src} into {dst}: place them alike")
+    for r, t in dst.t.items():
+        t.copy_(src.t[r])
 
 
 def cast(x, dtype):

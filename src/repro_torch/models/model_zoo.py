@@ -44,7 +44,7 @@ VLM_PATCHES = 256  # InternVL2 patch prefix (stub frontend output length)
 # The families whose loss and decode functions split each layer's
 # products over "model" in the sharded executor (``dist.spmd``): they
 # carry ``model_split = True``.
-MODEL_SPLIT_FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
+MODEL_SPLIT_FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "rwkv")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -168,16 +168,17 @@ def _split_step(name, params, batch, transfers=None):
 
 def test_the_families_split_and_the_recurrent_ones_do_not():
     mesh = _mesh(MESH)
-    for family in ("dense", "moe", "vlm", "encdec", "hybrid"):
+    # every family splits now (rwkv the last); none on a mesh whose
+    # "model" axis has one index
+    assert model_zoo.MODEL_SPLIT_FAMILIES == (
+        "dense", "moe", "vlm", "encdec", "hybrid", "rwkv")
+    for family in model_zoo.MODEL_SPLIT_FAMILIES:
         api = model_zoo.build(ModelConfig(**dict(TINY_ENCDEC, family=family)),
                               device="meta")
         assert spmd.splits_over_model(api.loss_fn, mesh), family
         assert spmd.splits_over_model(api.decode_fn, mesh), family
         assert not spmd.splits_over_model(api.loss_fn, _mesh((8, 1)))
-    for family in ("rwkv",):
-        fn = model_zoo.build(ModelConfig(**dict(TINY, family=family)),
-                             device="meta").loss_fn
-        assert not spmd.splits_over_model(fn, mesh), family
+        assert not spmd.splits_over_model(api.decode_fn, _mesh((8, 1)))
 
 
 @pytest.mark.parametrize("name", list(CASES))
