@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--parent CHECKOUT]
+    python3 chip_smoke.py [--parent CHECKOUT] [--phases chacha,gcm]
 
 Builds the five CUDA kernels of ``src/repro_torch/kernels/csrc`` with
 nvcc (into ``build/repro_torch_kernels/``) and holds each kernel against
@@ -34,11 +34,14 @@ set to 0 just before and read just after:
   1024 records of 64 B with 16 B AAD, (b) 256 of 1 KiB with 16 B AAD,
   (c) 64 of 1500 B with 13 B AAD — each batch one word-layout
   megakernel launch, (a) and (b) with the register file in shared
-  memory, (c) in global memory: the kernel against the plain VM on a
-  prefix of each program, seal under the fixed-latency contract against
+  memory, (c) in global memory: the row walk's counts a lane, the
+  kernel against the plain VM on a prefix of each program and on the
+  whole program, and against the row walk's plain version on a few
+  lanes, seal under the fixed-latency contract against
   a host oracle and the chained path, open, tamper, NIST CAVP vectors on
   every backend, GHASH's wide lift on both crossbars; each launch's
-  device ms, its bound and the global placement's cost a step, the host
+  device ms beside PR 17's padded walk and its other geometries, its
+  bound, the host
   clock of a seal call (records/s, ms per MiB) and a profiled call; the
   chained path's host clock at (a) for 16 records;
 * the obs phase (``obs_phase``): with tracing on, one SHA-3 call and one
@@ -146,7 +149,11 @@ decoding, and one forward on each crossbar under ``torch.profiler``
 routing kernel is also timed at the prompt, decode, long-group and
 E = 1024 shapes beside an empty kernel on the same geometry, with its
 cluster-form alternatives (``route_timing``); ``--parent CHECKOUT``
-builds another checkout's routing kernel and times it there in turns.
+builds another checkout's routing kernel and its padded word-layout
+megakernel (``parent_word``) and times them there in turns (ChaCha20,
+GCM's three geometries).
+``--phases chacha,gcm`` runs only the named word-layout phases after the
+build (their checks and times; no contract line).
 
 Each late phase logs its wall seconds.
 
@@ -669,6 +676,85 @@ def parent_route(parent: Path):
     return call
 
 
+def parent_word(parent: Path):
+    """The word-layout megakernel of another checkout (``--parent``; its C
+    entry ``pp_megakernel`` walks the padded plan table: state, out, the
+    renamed steps, n_steps, period, plan_tbl, koff, kcnt, folds, w_flat,
+    woff, consts, n, d, n_phys, rounds, const_stride, lanes_log2, threads,
+    out_reg, file, stream), built alone with nvcc from that checkout's
+    source, as a callable (state, ctl) -> out at that checkout's default
+    geometry (``parent_geometry``) on this tree's control tables (the
+    padded ones are unchanged).  Not counted: it is timed beside this
+    tree's kernel, never on a path."""
+    import ctypes
+
+    import torch
+
+    from repro_torch._device import find_nvcc
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import plan_program_kernel as ppk
+    out = _build.build_root() / "parent_plan_program"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libparent_plan_program.so"
+    subprocess.run([find_nvcc(), *_build.NVCC_FLAGS, "-shared",
+                    str(parent / "src/repro_torch/kernels/csrc/"
+                        "plan_program.cu"), "-o", str(lib)],
+                   check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(lib)).pp_megakernel
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P_, P_, P_, I_, I_] + [P_] * 7 + [I_] * 8 + [P_, P_]
+
+    def call(state, ctl):
+        n, d = state.shape
+        place, lanes, threads = parent_geometry(
+            n, ctl["n_regs"], d, ppk.smem_optin(state.device),
+            ppk.sm_count(state.device))
+        res = torch.empty_like(state)
+        file = None
+        if place == "global":
+            file = torch.empty(-(-d // lanes) * ctl["n_phys"] * n * lanes,
+                               dtype=torch.int32, device=state.device)
+        w_flat = ctl["w_flat"]
+        err = fn(state.data_ptr(), res.data_ptr(),
+                 ctl["phys_steps"].data_ptr(), ctl["n_steps"],
+                 ctl["period"], ctl["plan_tbl"].data_ptr(),
+                 ctl["koff"].data_ptr(), ctl["kcnt"].data_ptr(),
+                 ctl["folds"].data_ptr(),
+                 None if w_flat is None else w_flat.data_ptr(),
+                 ctl["woff"].data_ptr(), ctl["consts"].data_ptr(), n, d,
+                 ctl["n_phys"], ctl["rounds"], ctl["const_stride"],
+                 lanes.bit_length() - 1, threads, ctl["out_reg"],
+                 None if file is None else file.data_ptr(),
+                 _build.stream_handle(state.device))
+        check(err == 0, f"parent plan_program launch failed: cudaError {err}")
+        return res
+    return call
+
+
+def parent_geometry(n, n_regs, d, smem, sms):
+    """The padded word kernel's default geometry (PR 32's
+    ``register_file``, ``lanes_per_cta`` and ``word_threads``): (placement,
+    lanes a CTA, threads a CTA)."""
+    words = (n_regs + 1) * n
+    place = "shared" if words * 4 <= smem else "global"
+    fit = smem // (words * 4) if place == "shared" else (2**31 - 1) // words
+    lanes = 1
+    while lanes * 2 <= fit and lanes < d and -(-d // (lanes * 2)) >= sms:
+        lanes *= 2
+    groups = n * lanes // min(lanes, 4)
+    return place, lanes, min(1024, 32 * -(-max(groups, 1) // 32))
+
+
+def in_turns(parent_fn, fn, iters):
+    """Device ms of the parent's launch and this tree's, by graph replay
+    in turns (parent, change, change, parent)."""
+    p1 = graph_ms(parent_fn, iters)
+    c1 = graph_ms(fn, iters)
+    c2 = graph_ms(fn, iters)
+    p2 = graph_ms(parent_fn, iters)
+    return (p1, p2), (c1, c2)
+
+
 def route_timing(dev, rng, parent):
     """moe_route at ROUTE_SHAPES on uniform ids: device ms by graph
     replay; an empty kernel's on the same grid, block and cluster (the
@@ -1176,7 +1262,7 @@ def chacha_block_oracle(key: bytes, counter: int, nonce: bytes) -> bytes:
                                  for a, b in zip(w, s)])
 
 
-def chacha_phase(dev, compare):
+def chacha_phase(dev, compare, parent=None):
     """ChaCha20 over 1 MiB of keystream through the megakernel's word
     layout: the kernel against the plain VM on the program's control (at
     the default lanes a CTA and the alternatives timed), then the counted
@@ -1266,6 +1352,16 @@ def chacha_phase(dev, compare):
         f"1-3, {n}, {n + 1}) and the per-round einsum path (payload and "
         f"block_diag, {CC.PASSES_PER_BLOCK} passes); launches {counts}")
 
+    if parent is not None:
+        compare("plan_program", f"chacha20 program, the parent's padded "
+                f"walk, {n} lanes", parent(words, ctl).view(torch.int32),
+                want)
+        (p1, p2), (c1, c2) = in_turns(
+            lambda: parent(words, ctl),
+            lambda: ppk.plan_program_cuda(words, ctl), 20)
+        log(f"  megakernel, chacha20 x {n} lanes, in turns by graph replay:"
+            f" parent {p1:.4f}, {p2:.4f} ms; this tree {c1:.4f}, {c2:.4f} "
+            f"ms ({(c1 + c2) / (p1 + p2):.3f}x)")
     ms = graph_ms(lambda: ppk.plan_program_cuda(words, ctl), 20)
     alt = {(l_, t_): graph_ms(lambda: ppk.plan_program_cuda(
         words, ctl, lanes=l_, threads=t_), 20)
@@ -1477,6 +1573,12 @@ GCM_GEOMETRIES = (("a", 64, 16, 1024), ("b", 1024, 16, 256),
                   ("c", 1500, 13, 64))
 GCM_CHAINED_RECORDS = 16
 GCM_PREFIX_STEPS = 130       # d1, d2, trip 0 and half of trip 1
+GCM_ROWS_LANES = 2           # lanes the row walk's plain version runs
+GCM_LANES = (1, 2, 4, 8)     # lanes a CTA timed beside the default
+GCM_THREADS = (None, 512)    # threads a CTA (None: word_threads')
+# each geometry's launch with the padded walk (PR 17 run 3, graph replay,
+# NVIDIA H100 80GB HBM3, 700.00 W)
+GCM_PR17_MS = {"a": 3.1657, "b": 97.2257, "c": 100.6790}
 
 
 def _xtime(a: int) -> int:
@@ -1566,20 +1668,23 @@ def gcm_oracle(key: bytes, iv: bytes, pt: bytes, aad: bytes) -> bytes:
     return ct + tag
 
 
-def gcm_phase(dev, compare):
+def gcm_phase(dev, compare, parent=None):
     """AES-128-GCM seal/open on the card at the three geometries.
 
-    Per geometry: the program's placement and size; the megakernel
-    against the plain VM on a prefix of the program (both placements
-    where the file fits shared memory); the counted path —
+    Per geometry: the program's placement and size; the row walk's
+    counts a lane (select slots walked beside the live selects, row
+    visits beside n x steps); the megakernel against the plain VM on a
+    prefix of the program (both placements where the file fits shared
+    memory) and on the whole program, and against the row walk's plain
+    version on a few lanes; the counted path —
     ``aes128_gcm_seal_batch`` twice under the fixed-latency contract (1
     launch and 0 crossbar passes a call, in the geometry's placement),
     against the host oracle and the chained path on the dense crossbar,
     open round-tripping and naming a tampered tag and ciphertext; then
-    the launch's device ms by graph replay (eager beside it), the global
-    placement's cost a step against the shared one, the bound, the host
-    clock of a seal call (records/s, ms per MiB sealed) and a profiled
-    call.  Then the chained path at (a) for 16 records, the CAVP vectors
+    the launch's device ms by graph replay (eager beside it) beside PR
+    17's padded walk, the other geometries (placement, lanes a CTA,
+    threads), the bound, the host clock of a seal call (records/s, ms
+    per MiB sealed) and a profiled call.  Then the chained path at (a) for 16 records, the CAVP vectors
     on every backend and GHASH on both crossbars."""
     import numpy as np
     import torch
@@ -1589,7 +1694,6 @@ def gcm_phase(dev, compare):
     from repro_torch.crypto import gcm as G
     from repro_torch.kernels import launch_counts, ref, reset_launch_counts
     from repro_torch.kernels import plan_program_kernel as ppk
-    from repro_torch.kernels.plan_program_kernel import PLACEMENTS
 
     rng = np.random.default_rng(17)
     smem = ppk.smem_optin(dev)
@@ -1616,8 +1720,8 @@ def gcm_phase(dev, compare):
         ctl = pp.control_for(prog, dev)
         build_s = time.perf_counter() - t
         n = prog.n
-        placement = ppk.register_file(n, prog.n_regs, smem)
         lanes = ppk.lanes_per_cta(n, prog.n_regs, b, smem, sms=sms)
+        placement = ppk.register_file(n, prog.n_regs, smem, lanes)
         n_perm = sum(1 for s in prog.steps if s.op == "permute")
         selects = [int(((p.idx >= 0) & (p.idx < n)).sum())
                    for p in prog.plans]
@@ -1629,16 +1733,30 @@ def gcm_phase(dev, compare):
                         ("plan_tbl", "consts", "phys_steps", "koff", "kcnt",
                          "folds", "woff") + (("w_flat",) if ctl["w_flat"]
                                              is not None else ()))
+        walk_bytes = sum(ctl[k].numel() * 4 for k in pp.WORD_TABLES
+                         if ctl[k] is not None)
         log(f"aes-128-gcm ({name}): {b} records of {pt_len} B, {aad_len} B "
             f"AAD: n = {n} rows, {prog.n_regs} registers (+1), "
             f"{len(prog.steps)} steps ({n_perm} PERMUTE), {len(prog.plans)} "
             f"plans ({ctl['plan_tbl'].shape[0]} select columns, "
-            f"{ctl_bytes / 2**20:.1f} MiB of control); register file "
+            f"{ctl_bytes / 2**20:.1f} MiB of the VM's control; the row "
+            f"walk's tables {walk_bytes / 2**20:.2f} MiB); register file "
             f"{ctl['n_phys'] * n * 4} B a lane -> {placement} placement, "
             f"{lanes} lanes a CTA, {-(-b // lanes)} CTAs of "
             f"{ppk.word_threads(n, lanes)} threads; program built and "
             f"encoded in {build_s:.2f} s")
         check(ctl["layout"] == "word", f"gcm ({name}) takes {ctl['layout']}")
+        check(ctl["w_slots"] <= ctl["w_live"] == live,
+              f"gcm ({name}) walks {ctl['w_slots']} select slots a lane "
+              f"for {live} live selects")
+        n_ranges = ctl["w_steps"].shape[0] + ctl["w_ranges"].shape[0]
+        log(f"  row walk a lane: {ctl['w_slots']} select slots walked "
+            f"(live selects {live}; the padded table {slots}, "
+            f"{slots / ctl['w_slots']:.1f}x), {ctl['w_visits']} row visits "
+            f"(n x steps {n * len(prog.steps)}, "
+            f"{n * len(prog.steps) / ctl['w_visits']:.1f}x), {n_ranges} "
+            f"row ranges, {int((ctl['w_steps'][:, 0] >> 8 & 1).sum())} "
+            "barriers")
         ivs, pts, aads = records(b, pt_len, aad_len)
         bits = torch.as_tensor(G._pack_records(lay, ivs, pts, aads, pt_len,
                                                aad_len), device=dev)
@@ -1646,12 +1764,29 @@ def gcm_phase(dev, compare):
         pre = prog.prefix(min(GCM_PREFIX_STEPS, len(prog.steps)))
         ctl_pre = pp.control_for(pre, dev)
         want = vm(bits, ctl_pre)
-        for place in ((placement,) if placement == "global"
-                      else ("shared", "global")):
+        # both placements where one lane's file fits shared memory, the
+        # shared one at the most lanes that fit
+        l_sh = lanes
+        while l_sh > 1 and ctl["n_phys"] * n * 4 * l_sh > smem:
+            l_sh //= 2
+        for place, l_ in (("global", lanes), ("shared", l_sh)):
+            if place == "shared" and ctl["n_phys"] * n * 4 * l_ > smem:
+                continue
             compare("plan_program", f"gcm ({name}) program's first "
-                    f"{len(pre.steps)} steps, {place} placement, {b} lanes",
-                    ppk.plan_program_cuda(bits, ctl_pre, placement=place),
-                    want)
+                    f"{len(pre.steps)} steps, {place} placement, {l_} lanes "
+                    f"a CTA, {b} lanes",
+                    ppk.plan_program_cuda(bits, ctl_pre, lanes=l_,
+                                          placement=place), want)
+        want = vm(bits, ctl)
+        got = ppk.plan_program_cuda(bits, ctl)
+        compare("plan_program", f"gcm ({name}) whole program, {placement} "
+                f"placement, {b} lanes, against the plain VM", got, want)
+        few = bits[:, :GCM_ROWS_LANES].contiguous()
+        compare("plan_program", f"gcm ({name}) whole program, its first "
+                f"{GCM_ROWS_LANES} lanes, against the row walk's plain "
+                "version", got[:, :GCM_ROWS_LANES],
+                ref.plan_program_rows(few, ctl))
+        del got
 
         log("  counted path (launch counters from 0)")
         reset_launch_counts()
@@ -1703,33 +1838,47 @@ def gcm_phase(dev, compare):
             f"bit and ciphertext bit name records (1, {b - 1}); launches "
             f"{dict(launch_counts())}")
 
-        iters = 20 if n < 4000 else 3
+        iters = 20 if n < 4000 else 10
         ms, eager = timed(lambda: ppk.plan_program_cuda(bits, ctl), iters)
+        old = GCM_PR17_MS[name]
         line = (f"  megakernel, gcm ({name}) x {b} lanes: {ms:.4f} ms by "
                 f"graph replay [{eager:.4f} eager], "
-                f"{ms / len(prog.steps) * 1e3:.3f} us a step")
-        ms_glob = None
-        if placement == "shared":
-            ms_glob = graph_ms(lambda: ppk.plan_program_cuda(
-                bits, ctl, placement="global"), iters)
-            line += (f"; the same launch with its file in global memory "
-                     f"{ms_glob:.4f} ms ({ms_glob / len(prog.steps) * 1e3:.3f}"
-                     f" us a step, {ms_glob / ms:.2f}x)")
-            # one wave in both placements (128 CTAs on the card's SMs), so
-            # the ratio is the cost of the file's accesses alone
-            one = bits[:, :128 * lanes].contiguous()
-            wave = [graph_ms(lambda: ppk.plan_program_cuda(
-                one, ctl, placement=p_), iters) for p_ in PLACEMENTS]
-            line += (f"; one wave of 128 CTAs ({one.shape[1]} lanes): shared "
-                     f"{wave[0]:.4f}, global {wave[1]:.4f} ms "
-                     f"({wave[1] / wave[0]:.2f}x)")
+                f"{ms / len(prog.steps) * 1e3:.3f} us a step; PR 17's "
+                f"padded walk {old} ms ({old / ms:.1f}x)")
+        if parent is not None:
+            compare("plan_program", f"gcm ({name}) whole program, the "
+                    f"parent's padded walk, {b} lanes", parent(bits, ctl),
+                    want)
+            (p1, p2), (c1, c2) = in_turns(
+                lambda: parent(bits, ctl),
+                lambda: ppk.plan_program_cuda(bits, ctl), 3)
+            line += (f"; in turns: parent {p1:.4f}, {p2:.4f} ms, this tree "
+                     f"{c1:.4f}, {c2:.4f} ms ({(p1 + p2) / (c1 + c2):.2f}x)")
+        # the geometries beside the default: each placement the file fits,
+        # lanes a CTA (V = min(lanes, 4) words a thread), threads a CTA
+        # (fewer threads, more CTAs an SM)
+        alt = {}
+        for place in ("shared", "global"):
+            room = smem if place == "shared" else 4 * ppk.GLOBAL_FILE_WORDS
+            for l_ in GCM_LANES:
+                if ctl["n_phys"] * n * 4 * l_ > room or l_ > b:
+                    continue
+                for t_ in GCM_THREADS:
+                    alt[(place, l_, t_)] = graph_ms(
+                        lambda: ppk.plan_program_cuda(
+                            bits, ctl, lanes=l_, placement=place,
+                            threads=t_), iters)
+        line += ("; geometries (placement, lanes a CTA, threads): " + ", ".join(
+            f"{p_} {l_} {t_ or ppk.word_threads(n, l_)}: {v:.4f}"
+            for (p_, l_, t_), v in alt.items()) + " ms")
         nb = 2 * n * b * 4 + ctl_bytes
         ops_ = b * (live + n * (len(prog.steps) - n_perm))
         bms, by = bound(nb, ops_)
         log(line + f"; bound {bms:.5f} ms ({by}: {nb} B, {ops_} operations:"
             f" {live} live selects and {len(prog.steps) - n_perm} "
             f"elementwise steps of {n} rows a lane; the kernel walks "
-            f"{slots} select slots a lane, DROP padding included)")
+            f"{ctl['w_slots']} select slots and {ctl['w_visits']} rows a "
+            "lane)")
 
         def seal():
             return G.aes128_gcm_seal_batch(GCM_KEY, ivs, pts, aads,
@@ -1747,7 +1896,7 @@ def gcm_phase(dev, compare):
             f"{k} x{c} {t_:.3f} ms" for k, (c, t_) in copies.items()))
         stats[name] = dict(ms=ms, eager=eager, bound=bms, by=by,
                            placement=placement, lanes=lanes, steps=len(
-                               prog.steps), global_ms=ms_glob,
+                               prog.steps), geometries=alt,
                            records_s=b / best,
                            ms_per_mib=best * 1e3 / mib)
         del bits, want
@@ -2070,10 +2219,17 @@ def serving_phase(dev):
         op, shape, backend, live = eng.batch_log[-1]
         if op == "gcm_seal":
             name = "a" if shape[1] == geos["a"][1] else "c"
-            key_l = "word" if name == "a" else "word_global"
+            # the placement the wrapper picks for the batch's lanes
+            m_, _, a_ = G._geometry(shape[1], shape[2])
+            n_ = G._layout(m_, a_)["n"]
+            smem_ = ppk.smem_optin(dev)
+            key_l = ("word" if ppk.register_file(
+                n_, 4, smem_, ppk.lanes_per_cta(
+                    n_, 4, shape[0], smem_, sms=ppk.sm_count(dev)))
+                == "shared" else "word_global")
             check(lay[key_l] == 1 and sum(lay.values()) == 1,
                   f"gcm batch {shape}: launches by layout {lay}")
-            per_gcm[name] = (secs, live, shape)
+            per_gcm[name] = (secs, live, shape, key_l)
     d = moved(before, counters())
     add_clean()
     check_clean("interleaved SHA-3 + GCM", d, list(eng.batch_log))
@@ -2094,9 +2250,9 @@ def serving_phase(dev):
         for i in pick:
             check(got[i] == gcm_oracle(GCM_KEY, *recs[name][i]),
                   f"gcm ({name}) served record {i} differs from the oracle")
-        secs, live, shape = per_gcm[name]
+        secs, live, shape, key_l = per_gcm[name]
         log(f"  gcm ({name}) {b} x {pt_len} B, {aad_len} B AAD: one batch "
-            f"{shape}, one {'word' if name == 'a' else 'word_global'} "
+            f"{shape}, one {key_l} "
             f"launch, {secs * 1e3:.2f} ms run_once: {live / secs:.1f} "
             f"records/s, {secs * 1e3 / (live * pt_len / 2**20):.2f} ms per "
             f"MiB; equal to the direct fused seal, {len(pick)} to the host "
@@ -6019,12 +6175,14 @@ def configs_phase(dev, compare, smi):
 
 def main(argv) -> int:
     import torch
-    parent = None
-    if argv[:1] == ["--parent"] and len(argv) == 2:
-        parent = Path(argv[1]).resolve()
-    elif argv:
-        print("usage: chip_smoke.py [--parent CHECKOUT]", file=sys.stderr)
+    opts = dict(zip(argv[::2], argv[1::2]))
+    if len(argv) % 2 or set(opts) - {"--parent", "--phases"}:
+        print("usage: chip_smoke.py [--parent CHECKOUT] [--phases "
+              "chacha,gcm]", file=sys.stderr)
         return 2
+    parent = Path(opts["--parent"]).resolve() if "--parent" in opts \
+        else None
+    phases = opts["--phases"].split(",") if "--phases" in opts else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -6086,6 +6244,15 @@ def main(argv) -> int:
         err[kernel] = max(err[kernel], diff)
         log(f"  {name}: max |diff| {diff} "
             f"({'bit-exact' if tol is None else tol})")
+
+    word_parent = None if parent is None else parent_word(parent)
+    if phases is not None:
+        # the megakernel's word-layout phases alone (for timing them)
+        for ph in phases:
+            {"chacha": chacha_phase, "gcm": gcm_phase}[ph](
+                dev, compare, word_parent)
+        log(f"phases {phases}: done in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # ----------------------------------------------------------- dense ---
     log("dense crossbar vs plain version")
@@ -6439,9 +6606,9 @@ def main(argv) -> int:
 
     moe = moe_phases(dev, rng, compare)
     add_counts(launches, moe["launches"])
-    add_counts(launches, chacha_phase(dev, compare))
+    add_counts(launches, chacha_phase(dev, compare, word_parent))
     add_counts(launches, aes_phase(dev, compare))
-    gcm_counts, gcm_stats = gcm_phase(dev, compare)
+    gcm_counts, gcm_stats = gcm_phase(dev, compare, word_parent)
     add_counts(launches, gcm_counts)
     obs_phase(dev, msgs)
     log(f"  launches over every counted path: {launches}")

@@ -16,8 +16,9 @@ Two executors share the IR:
   (``kernels/plan_program_kernel.py``) on a CUDA state, or its plain
   version (``kernels.ref.plan_program_vm``) on a CPU state, over control
   tables encoded once per (program, device) and cached under a digest
-  guard.  The tables are not padded: the CUDA kernel masks nothing and
-  needs n rows of control per plan exactly.  The cache entry also holds
+  guard: the VM's plan table (n rows a select column), and the word
+  layout's row walk (``word_tables``: the rows each step may change, a
+  CSR of the live selects).  The cache entry also holds
   the kernel's layout, decided once per program on the host
   (``bit_sliceable``): ``packed`` (32 lanes a word) for GF(2) programs
   whose output provably depends on bit 0 only, such as Keccak-f[1600],
@@ -321,12 +322,15 @@ def encode_steps(program: PlanProgram) -> np.ndarray:
     return np.asarray(rows, np.int32).reshape(-1, 6)
 
 
-def _control_digest(program: PlanProgram) -> str:
+def _control_digest(program: PlanProgram, ctl: dict) -> str:
+    """The program's control content and the word layout's tables built
+    from it: a change to either breaks the seal."""
     from repro_torch.kernels import plan_program_kernel as ppk
     parts = []
     for plan in program.plans:
         parts.append(plan.idx)
         parts.append(plan.weights)
+    parts += [ctl[k] for k in WORD_TABLES]
     return ppk.control_digest(encode_steps(program), program.consts, parts)
 
 
@@ -574,6 +578,285 @@ def _packed_control(program: PlanProgram, rows: np.ndarray, idx_rows,
     return np.ascontiguousarray(steps, np.int32), blob.contiguous(), off_cbits
 
 
+# The word layout's row walk (``word_tables``).  A row with more selects
+# than HEAVY_SELECTS is shared by a group of lanes of a warp, each taking
+# about SELECTS_A_LANE of them; a stretch of at least UNIFORM_ROWS rows
+# with the same count needs no row pointers; gaps of fewer than GAP_ROWS
+# rows between visited rows are visited too (fewer ranges); a program
+# whose rounds x steps exceed UNROLL_STEPS keeps the renaming's period and
+# visits every row.
+HEAVY_SELECTS = 32
+SELECTS_A_LANE = 8
+UNIFORM_ROWS = 32
+GAP_ROWS = 16
+UNROLL_STEPS = 1 << 16
+# Bits of a step's first word and of a range's flags (csrc/plan_program.cu).
+WS_BARRIER, WS_XOR_FOLD, WS_WEIGHTED = 1 << 8, 1 << 9, 1 << 10
+WR_RAGGED = 1 << 8
+# The word layout's device tables, in ``build_control``'s dict.
+WORD_TABLES = ("w_steps", "w_ranges", "w_rp", "w_cols", "w_wts")
+
+
+def plan_csr(plan: xb.PermutePlan, n: int) -> tuple:
+    """One plan's live selects in row order: (row pointer (n + 1,),
+    sources, weights or None), DROP and out-of-range selects left out;
+    weights as the VM reads them (int32)."""
+    idx = plan.idx.cpu().numpy()
+    valid = (idx >= 0) & (idx < n)
+    rp = np.zeros(n + 1, np.int64)
+    np.cumsum(valid.sum(1), out=rp[1:])
+    w = (None if plan.weights is None else
+         plan.weights.to(torch.int32).cpu().numpy()[valid])
+    return rp, idx[valid].astype(np.int32), w
+
+
+def _runs(mask: np.ndarray, gap: int = 0) -> list:
+    """[lo, hi) runs of a bool row mask, runs fewer than ``gap`` rows
+    apart joined."""
+    m = np.zeros(mask.size + 2, bool)
+    m[1:-1] = mask
+    edges = np.flatnonzero(m[1:] != m[:-1])
+    lo, hi = edges[::2], edges[1::2]
+    if gap and lo.size > 1:
+        keep = np.concatenate([[True], lo[1:] - hi[:-1] >= gap])
+        lo, hi = lo[keep], np.concatenate([hi[:-1][keep[1:]], hi[-1:]])
+    return list(zip(lo.tolist(), hi.tolist()))
+
+
+def _split_run(cnt: np.ndarray, lo: int, hi: int) -> list:
+    """One visited run of a PERMUTE's rows as ranges (lo, hi, G, uniform
+    count or -1 for rows read through the row pointer): heavy rows (more
+    than HEAVY_SELECTS selects) in runs of their own, shared by G lanes;
+    light rows one a lane, a light run of one count, or a stretch of
+    UNIFORM_ROWS or more rows of one count in it, without row
+    pointers."""
+    out = []
+    c = cnt[lo:hi]
+    heavy = c > HEAVY_SELECTS
+    for u, v in _runs(heavy):
+        g = -(-int(c[u:v].max()) // SELECTS_A_LANE)
+        out.append((lo + u, lo + v, min(32, 1 << (g - 1).bit_length()), -1))
+    for u, v in _runs(~heavy):
+        cu = c[u:v]
+        edges = np.flatnonzero(np.diff(cu)) + 1
+        starts = np.concatenate([[0], edges])
+        ends = np.concatenate([edges, [v - u]])
+        at = 0
+        for s, e in zip(starts.tolist(), ends.tolist()):
+            if e - s < UNIFORM_ROWS and e - s < v - u:
+                continue
+            if s > at:
+                out.append((lo + u + at, lo + u + s, 1, -1))
+            out.append((lo + u + s, lo + u + e, 1, int(cu[s])))
+            at = e
+        if at < v - u:
+            out.append((lo + u + at, lo + v, 1, -1))
+    return sorted(out)
+
+
+def _may_change(code: int, dst: int, a: int, b: int, k, nz) -> tuple:
+    """An elementwise step's (rows whose result may be nonzero, rows it
+    may change) from which rows of each register may be nonzero (``nz``)
+    and its constant row ``k``: a row whose result is zero where the
+    destination is zero, or that the step leaves as it is (in place, the
+    other operand or the constant zero there), does not change."""
+    op = OPS[code]
+    if op in (XOR, ADD):
+        res = nz[a] | nz[b]
+    elif op == AND:
+        res = nz[a] & nz[b]
+    elif op == ANDN:
+        res = nz[b].copy()
+    elif op == ROTLV:
+        res = nz[a].copy()
+    elif op == XOR_CONST:
+        res = nz[a] | (k != 0)
+    else:  # EQ_CONST: a zero row equals a zero constant
+        res = nz[a] | (k == 0)
+    change = res | nz[dst]
+    if dst == a and op in (XOR, ADD):
+        change &= nz[b]
+    elif dst == b and op in (XOR, ADD, ANDN):
+        change &= nz[a]
+    elif dst == a and op in (XOR_CONST, ROTLV):
+        change &= k != 0
+    return res, change
+
+
+def word_tables(program: PlanProgram, rows: np.ndarray,
+                period: int) -> dict:
+    """The word layout's control, host numpy: each step walks only the
+    rows it may change, each row only its live selects.
+
+    Every plan's live selects go to one CSR (``plan_csr``: row pointer,
+    sources, weights).  A forward pass over the renamed physical steps
+    (``rename_registers``; every physical register starts zero but the
+    input's) keeps, per physical register, the rows that may be nonzero,
+    and gives each step the rows it must visit: for a PERMUTE, rows with a
+    select of a possibly nonzero source row and rows of its destination
+    not proven zero; for an elementwise step, the rows ``_may_change``
+    names.  A row off the list already holds the step's result, so every
+    register holds the program's values at every row after every step.
+    The steps are unrolled over the rounds (each round's row lists its
+    own, from that round's constant rows) up to UNROLL_STEPS and cut to
+    warm-up rounds and one cycle (``_table_cycle``); past UNROLL_STEPS the
+    table keeps the renaming's period and every step visits every row.
+    The kernel adds a round's constant stride to each step's const row.
+
+    A step is 3 int4: (opcode | flags, dst, a, b), (const row, offset and
+    count of its ranges after the first, 0), its first range; a range is
+    (lo, hi, G log2 | WR_RAGGED | lane offset << 16, base): rows [lo, hi),
+    G lanes a row (a heavy run: each lane takes every G-th select, a warp
+    shuffle reduces), read through the row pointer at ``base`` (ragged)
+    or, for a uniform count c (bits 16 up), at sources ``base + (row -
+    lo) * c``.  Barrier flags follow ``rename_registers``' rules, and a
+    step with heavy rows (written by another lane than the row's owner)
+    has a barrier before it and before the next step.  Returns the tables
+    and the walk's counts a lane (row visits, select slots, live
+    selects).  Host data only; the same for every state."""
+    n, n_steps = program.n, rows.shape[0] // period
+    unrolled = program.rounds * n_steps <= UNROLL_STEPS
+    t_rounds = program.rounds if unrolled else period
+    rps, cols, wts, cnts, rp_off, col_off = [], [], [], [], [], []
+    at_rp = at_col = 0
+    for plan in program.plans:
+        rp, c, w = plan_csr(plan, n)
+        rp_off.append(at_rp)
+        col_off.append(at_col)
+        rps.append(rp + at_col)
+        cols.append(c)
+        wts.append(np.ones_like(c) if w is None else w)
+        cnts.append(np.diff(rp))
+        at_rp += n + 1
+        at_col += c.size
+    weighted = [p.weights is not None for p in program.plans]
+    consts = program.consts
+    nz = np.zeros((program.n_regs + 1, n), bool)
+    nz[0] = True
+    every = np.ones(n, bool)
+    splits: dict = {}
+    table = []          # per table round: its steps, each with its ranges
+    visits = slots = live = 0
+    heavy_prev = False
+    written, perm_reads = set(), set()
+    for rnd in range(t_rounds):
+        # the rounds this table round stands for
+        times = 1 if unrolled else (program.rounds // period
+                                    + (rnd < program.rounds % period))
+        table.append([])
+        for s in range(n_steps):
+            code, dst, a, b, p, c, _ = rows[(rnd % period) * n_steps + s]
+            permute = code == _OPCODE[PERMUTE]
+            kc = c + rnd * program.const_stride   # this round's row
+            if permute:
+                rp_p = rps[p] - col_off[p]
+                if unrolled:
+                    hit = np.concatenate([[0], np.cumsum(nz[a][cols[p]])])
+                    res = hit[rp_p[1:]] > hit[rp_p[:-1]]
+                    change = res | nz[dst]
+                else:
+                    change = every
+            elif unrolled:
+                res, change = _may_change(
+                    code, dst, a, b,
+                    None if consts is None else consts[kc], nz)
+            else:
+                change = every
+            runs = _runs(change, GAP_ROWS)
+            if unrolled:
+                walk = np.zeros(n, bool)
+                for lo, hi in runs:
+                    walk[lo:hi] = True
+                nz[dst] = np.where(walk, res, nz[dst])
+            out = []
+            if permute:
+                for lo, hi in runs:
+                    key = (p, lo, hi)
+                    if key not in splits:
+                        splits[key] = _split_run(cnts[p], lo, hi)
+                    out += splits[key]
+                live += cols[p].size * times
+            else:
+                out = [(lo, hi, 1, 0) for lo, hi in runs]
+            heavy = any(g > 1 for _, _, g, _ in out)
+            enc, off = [], 0
+            for lo, hi, g, cu in out:
+                visits += (hi - lo) * times
+                if not permute:
+                    enc.append((lo, hi, 0, 0))
+                    continue
+                slots += int(rps[p][hi] - rps[p][lo]) * times
+                if g > 1:
+                    enc.append((lo, hi, (g.bit_length() - 1) | WR_RAGGED
+                                | (off % 1024) << 16, rp_off[p]))
+                    off += -(-(hi - lo) * g // 32) * 32
+                elif cu < 0:
+                    enc.append((lo, hi, WR_RAGGED, rp_off[p]))
+                else:
+                    enc.append((lo, hi, cu << 16, int(rps[p][lo])))
+            need = (s == 0 or heavy or heavy_prev
+                    or (permute and a in written) or dst in perm_reads)
+            if need:
+                written, perm_reads = set(), set()
+            written.add(dst)
+            if permute:
+                perm_reads.add(a)
+            heavy_prev = heavy
+            flags = code | (WS_BARRIER if need else 0)
+            if permute:
+                flags |= ((WS_XOR_FOLD if program.plans[p].semiring is GF2
+                           else 0) | (WS_WEIGHTED if weighted[p] else 0))
+            table[-1].append(((flags, dst, a, b, c), tuple(enc)))
+    # a period table repeats whole; an unrolled one may settle into a
+    # cycle after a few rounds (ChaCha20: after its first)
+    pre, cycle = _table_cycle(table) if unrolled else (0, t_rounds)
+    steps, ranges = [], []
+    for head, enc in (st for rnd in table[:pre + cycle] for st in rnd):
+        steps.append(head + (len(ranges), max(len(enc) - 1, 0), 0)
+                     + (enc[0] if enc else (0, 0, 0, 0)))
+        ranges.extend(enc[1:])
+    return {
+        "w_steps": np.asarray(steps, np.int32).reshape(-1, 12),
+        "w_ranges": np.asarray(ranges or [(0, 0, 0, 0)],
+                               np.int32).reshape(-1, 4),
+        "w_rp": np.concatenate(rps or [np.zeros(1, np.int64)]).astype(
+            np.int32),
+        "w_cols": np.concatenate(cols + [np.zeros(1, np.int32)]),
+        "w_wts": (np.concatenate(wts + [np.zeros(1, np.int32)])
+                  if any(weighted) else None),
+        "w_rounds": pre + cycle, "w_cycle": cycle,
+        "w_visits": visits, "w_slots": slots, "w_live": live,
+    }
+
+
+# Table rounds ``_table_cycle`` lets run before the repeating part.
+_MAX_PRE_ROUNDS = 8
+
+
+def _table_cycle(table: list) -> tuple:
+    """(pre, cycle): the fewest table rounds such that round r >= pre +
+    cycle equals round r - cycle (warm-up rounds, then a cycle; the
+    kernel runs rounds pre + cycle on as rounds pre, pre + 1, ...), found
+    from each round's content by the prefix function."""
+    keys: dict = {}
+    seq = [keys.setdefault(tuple(rnd), len(keys)) for rnd in table]
+    best = (0, len(seq))
+    for pre in range(min(_MAX_PRE_ROUNDS, len(seq)) + 1):
+        tail = seq[pre:]
+        if not tail:
+            break
+        fail = [0] * len(tail)
+        for i in range(1, len(tail)):
+            k = fail[i - 1]
+            while k and tail[i] != tail[k]:
+                k = fail[k - 1]
+            fail[i] = k + (tail[i] == tail[k])
+        cycle = len(tail) - fail[-1]
+        if pre + cycle < sum(best):
+            best = (pre, cycle)
+    return best
+
+
 def build_control(program: PlanProgram, device) -> dict:
     """The megakernel's operands for one program on one device.
 
@@ -582,9 +865,10 @@ def build_control(program: PlanProgram, device) -> dict:
     column) with per-plan offset/count/fold, the ragged weight rows
     (offset -1 = unweighted) and the constants table.  For the kernel:
     the renamed step table (``rename_registers``), the layout
-    (``"packed"`` where ``bit_sliceable``, else ``"word"``) and, for a
-    bit-sliceable program, the packed layout's step table (host int32)
-    and control blob.
+    (``"packed"`` where ``bit_sliceable``, else ``"word"``), the word
+    layout's row walk (``word_tables``, on the device: steps, ranges,
+    CSR; and its counts a lane) and, for a bit-sliceable program, the
+    packed layout's step table (host int32) and control blob.
     """
     from repro_torch.kernels import plan_program_kernel as ppk
     # The step-stream opcodes index the kernel's dispatch; the two
@@ -617,7 +901,11 @@ def build_control(program: PlanProgram, device) -> dict:
     psteps, blob, off_cbits = (
         _packed_control(program, rows, idx_rows, koff, kcnt, device)
         if packed else (None, None, 0))
-    return {
+    word = word_tables(program, rows, period)
+    for k in WORD_TABLES:
+        if word[k] is not None:
+            word[k] = torch.as_tensor(word[k], device=device).contiguous()
+    return word | {
         "steps": torch.as_tensor(encode_steps(program), device=device),
         "plan_tbl": (torch.stack(idx_rows).contiguous() if idx_rows else
                      torch.zeros((1, program.n), dtype=torch.int32,
@@ -646,14 +934,14 @@ def control_for(program: PlanProgram, device) -> dict:
     hit = _EXEC_CACHE.get(key)
     if hit is not None and hit[0] is program:
         _integrity.PROGRAM_GUARD.verify(
-            key, digest_fn=lambda: _control_digest(program),
+            key, digest_fn=lambda: _control_digest(program, hit[1]),
             evict=lambda: _EXEC_CACHE.pop(key, None))
         _EXEC_STATS["hits"] += 1
         _EXEC_CACHE.move_to_end(key)
         return hit[1]
     _EXEC_STATS["misses"] += 1
     ctl = build_control(program, device)
-    _integrity.PROGRAM_GUARD.seal(key, digest=_control_digest(program))
+    _integrity.PROGRAM_GUARD.seal(key, digest=_control_digest(program, ctl))
     _EXEC_CACHE[key] = (program, ctl)
     while len(_EXEC_CACHE) > _EXEC_CACHE_CAPACITY:
         evicted_key, _ = _EXEC_CACHE.popitem(last=False)

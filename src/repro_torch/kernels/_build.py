@@ -40,8 +40,8 @@ SIGNATURES = {
     "xb_sparse": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                   _P, _IP],
     "pp_smem_optin": [_I, _P],
-    "pp_megakernel": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _P, _P],
+    "pp_megakernel": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]
+                     + [_I] * 8 + [_P, _P],
     "pp_packed": [_P, _P, _P, _I, _P] + [_I] * 13 + [_P],
     "moe_route": [_P, _P, _P] + [_I] * 12 + [_P],
     "moe_route_floor": [_I, _I, _I, _P],

@@ -13,10 +13,11 @@
 // with block-wide barriers between dependent steps.  At 1024 lanes the
 // bytes take ~4 us; what the kernel takes beyond that is the latency of
 // 24 rounds of dependent steps and the shared-memory instructions in
-// them.  AES-128-GCM's programs (word layout, 424 to ~8000 steps) are
-// set by the select slots the PERMUTE loop walks: every row at its
-// plan's widest row (k = 142 for GHASH's absorb plan), one control load
-// a slot, 26x the live selects at 1500-byte records.
+// them.  AES-128-GCM's programs (word layout, 424 to ~8000 steps) walk
+// only the rows a step may change and each row's live selects (the word
+// layout below), a few rows and selects a thread a step: a step then
+// costs its chain of dependent loads (step words, row pointer, source,
+// register file) and its barrier.
 //
 // Both layouts:
 //   * The step stream comes from the host already renamed: a PERMUTE
@@ -32,8 +33,9 @@
 //     since the last barrier, a write to a register a PERMUTE read since
 //     then) and renames writes away from registers a PERMUTE is reading.
 //     Keccak-f[1600] needs 2 barriers a round, not 6.
-//   * No divide: lanes per CTA are a power of two, and a thread's row and
-//     lane come from shifts.
+//   * No divide in a loop: lanes per CTA are a power of two, and a
+//     thread's row and lane come from shifts (the word walk takes one
+//     modulo a range, for a thread's first row group in it).
 //
 // The packed layout (GF(2) programs, 32 lanes a word).  For a program the
 // host has proved bit-sliceable — unweighted XOR-fold or single-select
@@ -78,28 +80,49 @@
 // laid out (register, row, lane), row r's lanes contiguous, in one of two
 // places:
 //   * shared: dynamic shared memory (above 48 KB after
-//     cudaFuncSetAttribute), where one lane's file, n_phys x n x 4 bytes,
-//     fits the 232448-byte opt-in (n <= 11622 at 5 physical registers);
+//     cudaFuncSetAttribute), where the CTA's files, n_phys x n x 4 bytes
+//     a lane, fit the 232448-byte opt-in (n <= 11622 at 5 physical
+//     registers, one lane);
 //   * global: a scratch tensor the wrapper allocates for the launch, one
 //     slab a CTA, for larger programs (AES-128-GCM over a 1500-byte
 //     record: n = 12640, 253 KB a lane).  The same VM over the same
 //     layout: a warp's neighbouring threads still read neighbouring
 //     words, the block barrier still orders the steps (it orders global
 //     as well as shared accesses within the block), and the files of the
-//     lanes in flight stay in the 50 MB L2 (64 lanes of GCM's 253 KB:
-//     16 MB).  Each register access is then an L1/L2 access, not a
-//     shared-memory one.  A thread takes up to 4 lanes of one row as one
-// 16-byte shared-memory vector, so each select's control (plan row,
-// weight) is read from global memory once per 4 lanes, not once a lane.
-// A program's steps are a chain of dependent latencies (a control load,
-// a plan-row load, a shared-memory gather, a barrier), so the host gives
-// a CTA no more lanes than keep the grid as large as the card's SM count
-// and one thread a 4-lane group of a row (lanes_per_cta, word_threads):
-// ChaCha20 at 16384 lanes runs 256 CTAs of 256 threads, not 16 of 1024.
+//     lanes in flight stay in the 50 MB L2.  Each register access is then
+//     an L1/L2 access, not a shared-memory one.
+// A thread takes up to 4 lanes of one row as one 16-byte vector (V
+// words), so each select's control is read once per V lanes.  The host
+// gives a CTA the fewest lanes that run the whole batch in one wave, one
+// CTA an SM (lanes_per_cta), and puts the files in shared memory where
+// they fit, else in global memory: a step costs a CTA about the same
+// whatever its lanes, so a second wave costs more than global memory does
+// (GCM over 1024 records of 64 B: 8 lanes a CTA, files in global memory).
+// The walk (core.plan_program.word_tables, on the host, once a program):
+//   * each step visits only the rows it may change — the host follows,
+//     per physical register, the rows that may be nonzero, so a PERMUTE
+//     visits its rows with a select of a possibly nonzero source and the
+//     rows of its destination not proven zero, an elementwise step the
+//     rows whose result may differ from what the destination holds; a
+//     row off the list already holds its value.  The rows come as ranges
+//     [lo, hi) in the step's 3 int4 (the first range inline, the rest in
+//     the range table), the step stream unrolled over the rounds (each
+//     round's rows and constant rows its own);
+//   * each row folds only its live selects, from one CSR of every plan's
+//     selects (DROP and out-of-range selects left out): through the row
+//     pointer, or with none where a range's rows all hold c selects
+//     (source base + (row - lo) x c);
+//   * a V-word group of a row belongs to thread (row x groups + q) mod
+//     threads in every step, as in the packed layout, so only a PERMUTE
+//     crosses threads and the host's barrier flags stand; heavy rows
+//     (GHASH's Y rows: up to 142 selects beside rows of one) are shared
+//     by G lanes of a warp, lane g taking every G-th select and a
+//     shuffle reducing, and their steps are fenced by barriers on both
+//     sides (another lane than the owner writes the row).
 // Everything computes in uint32: ADD wraps without signed-overflow UB and
 // ROTLV's right shift is logical.  int32 states are bit-cast through the
-// launch.  Invalid sources (< 0 or >= n) contribute 0; the XOR fold
-// accumulates g & 1, the ADD fold g * w with wrap-around.
+// launch.  The XOR fold accumulates g XOR'd (bit 0 kept at the end), the
+// ADD fold g * w with wrap-around.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() after its launch.
@@ -127,20 +150,229 @@ constexpr int kMaxPackedSteps = 120;  // PackedSteps: 3840 bytes of params
 
 // ------------------------------------------------------------ word layout
 
+// Bits of a step's first word and of a range's flags; must match WS_* and
+// WR_RAGGED in core/plan_program.py.
+constexpr int kStepBarrier = 1 << 8;
+constexpr int kStepXorFold = 1 << 9;
+constexpr int kStepWeighted = 1 << 10;
+constexpr int kRangeRagged = 1 << 8;
+
 template <int V>
 struct alignas(4 * V) Words {
   uint32_t w[V];
 };
 
+// One select folded into a row's accumulator: the XOR fold keeps g * w
+// (bit 0 read at the end), the ADD fold adds it with wrap-around.
+template <int V, bool kXor>
+__device__ __forceinline__ void fold_in(uint32_t (&acc)[V], const Words<V>& g,
+                                        bool weighted,
+                                        const int* __restrict__ wts, int j) {
+  const uint32_t w = weighted ? (uint32_t)__ldg(wts + j) : 1u;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const uint32_t gi = g.w[i] * w;
+    acc[i] = kXor ? acc[i] ^ gi : acc[i] + gi;
+  }
+}
+
+template <int V, bool kXor>
+__device__ __forceinline__ Words<V> folded(const uint32_t (&acc)[V]) {
+  Words<V> res;
+#pragma unroll
+  for (int i = 0; i < V; ++i) res.w[i] = kXor ? acc[i] & 1u : acc[i];
+  return res;
+}
+
+// A light row's select range [j, j1): through the row pointer (ragged) or
+// from the range's uniform count c.
+__device__ __forceinline__ void row_selects(int4 rg, bool ragged, int c,
+                                            const int* __restrict__ rp,
+                                            int r, int& j, int& j1) {
+  if (ragged) {
+    j = __ldg(rp + rg.w + r);
+    j1 = __ldg(rp + rg.w + r + 1);
+  } else {
+    j = rg.w + (r - rg.x) * c;
+    j1 = j + c;
+  }
+}
+
+// One range of a PERMUTE: rows [lo, hi) of D from their live selects in A.
+// Light rows (G = 1) go one V-word group to the group's owner thread, as
+// in every other step (one-word groups, where a row group is a row, two
+// of a thread at a time, their loads in flight together); a heavy row's
+// group is shared by G lanes of a warp, lane g taking selects g, g + G,
+// ..., a shuffle reducing.
+template <int V, bool kXor>
+__device__ __forceinline__ void permute_range(
+    const Words<V>* __restrict__ A, Words<V>* __restrict__ D, int4 rg,
+    bool weighted, const int* __restrict__ rp, const int* __restrict__ cols,
+    const int* __restrict__ wts, int glog2) {
+  const int nthr = blockDim.x;
+  const int gl = rg.z & 31;
+  const bool ragged = (rg.z & kRangeRagged) != 0;
+  const int lo_el = rg.x << glog2, hi_el = rg.y << glog2;
+  const int qmask = (1 << glog2) - 1;
+  const int first = lo_el + (((int)threadIdx.x - lo_el) & (nthr - 1));
+  if (gl == 0 && V == 1) {
+    const int c = rg.z >> 16;  // a uniform range's selects a row
+    for (int el = first; el < hi_el; el += 2 * nthr) {
+      const bool two = el + nthr < hi_el;
+      int j, j1, k = 0, k1 = 0;
+      row_selects(rg, ragged, c, rp, el, j, j1);
+      if (two) row_selects(rg, ragged, c, rp, el + nthr, k, k1);
+      uint32_t acc[V] = {}, acc2[V] = {};
+      for (; j < j1 && k < k1; ++j, ++k) {
+        const Words<V> g1 = A[__ldg(cols + j)], g2 = A[__ldg(cols + k)];
+        fold_in<V, kXor>(acc, g1, weighted, wts, j);
+        fold_in<V, kXor>(acc2, g2, weighted, wts, k);
+      }
+      for (; j < j1; ++j)
+        fold_in<V, kXor>(acc, A[__ldg(cols + j)], weighted, wts, j);
+      for (; k < k1; ++k)
+        fold_in<V, kXor>(acc2, A[__ldg(cols + k)], weighted, wts, k);
+      D[el] = folded<V, kXor>(acc);
+      if (two) D[el + nthr] = folded<V, kXor>(acc2);
+    }
+    return;
+  }
+  if (gl == 0) {
+    const int c = rg.z >> 16;
+    for (int el = first; el < hi_el; el += nthr) {
+      const Words<V>* Aq = A + (el & qmask);
+      int j, j1;
+      row_selects(rg, ragged, c, rp, el >> glog2, j, j1);
+      uint32_t acc[V] = {};
+      // not unrolled: ChaCha20's rows hold one select or none
+#pragma unroll 1
+      for (; j < j1; ++j)
+        fold_in<V, kXor>(acc, Aq[__ldg(cols + j) << glog2], weighted, wts, j);
+      D[el] = folded<V, kXor>(acc);
+    }
+    return;
+  }
+  // heavy: items (row group, lane g); item i runs on a thread of lane
+  // i mod 32 (nthr and the range's lane offset are multiples of 32), so a
+  // row's G lanes are one aligned segment of a warp, in or out together
+  const int G = 1 << gl;
+  const int lane = threadIdx.x & 31;
+  const unsigned seg =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int items = (hi_el - lo_el) << gl;
+  for (int i = ((int)threadIdx.x - (rg.z >> 16)) & (nthr - 1); i < items;
+       i += nthr) {
+    const int el = lo_el + (i >> gl), g = i & (G - 1);
+    const int r = el >> glog2;
+    const Words<V>* Aq = A + (el & qmask);
+    const int j1 = __ldg(rp + rg.w + r + 1);
+    uint32_t acc[V] = {};
+    for (int j = __ldg(rp + rg.w + r) + g; j < j1; j += G)
+      fold_in<V, kXor>(acc, Aq[__ldg(cols + j) << glog2], weighted, wts, j);
+    for (int o = G >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i2 = 0; i2 < V; ++i2) {
+        const uint32_t other = __shfl_xor_sync(seg, acc[i2], o);
+        acc[i2] = kXor ? acc[i2] ^ other : acc[i2] + other;
+      }
+    }
+    if (g == 0) D[el] = folded<V, kXor>(acc);
+  }
+}
+
+// One range of an elementwise step: rows [lo, hi), each V-word group on
+// its owner thread; one instantiation an opcode (a switch inside the loop
+// slowed ChaCha20's short steps).
+template <int V, int kOp>
+__device__ __forceinline__ void elementwise_range(
+    const Words<V>* A, const Words<V>* B, Words<V>* D, int4 rg,
+    const int* __restrict__ crow, int glog2) {
+  const int nthr = blockDim.x;
+  const int lo_el = rg.x << glog2, hi_el = rg.y << glog2;
+  constexpr bool konst = kOp == kRotlv || kOp == kXorConst || kOp == kEqConst;
+  for (int el = lo_el + (((int)threadIdx.x - lo_el) & (nthr - 1));
+       el < hi_el; el += nthr) {
+    const Words<V> av = A[el];
+    Words<V> bv;
+    uint32_t k = 0u;
+    if (konst)
+      k = (uint32_t)__ldg(crow + (el >> glog2));
+    else
+      bv = B[el];
+    Words<V> res;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const uint32_t x = av.w[i];
+      if (kOp == kXor) res.w[i] = x ^ bv.w[i];
+      else if (kOp == kAnd) res.w[i] = x & bv.w[i];
+      else if (kOp == kAndn) res.w[i] = ~x & bv.w[i];
+      else if (kOp == kAdd) res.w[i] = x + bv.w[i];
+      else if (kOp == kRotlv)
+        res.w[i] = (k < 32u ? (x << k) : 0u) | (x >> ((32u - k) & 31u));
+      else if (kOp == kXorConst) res.w[i] = x ^ k;
+      else res.w[i] = x == k ? 1u : 0u;  // kEqConst
+    }
+    D[el] = res;
+  }
+}
+
+// One range of a step, dispatched on its opcode.
+template <int V>
+__device__ __forceinline__ void run_range(int op, int flags, const Words<V>* A,
+                                          const Words<V>* B, Words<V>* D,
+                                          int4 rg, const int* __restrict__ crow,
+                                          const int* __restrict__ rp,
+                                          const int* __restrict__ cols,
+                                          const int* __restrict__ wts,
+                                          int glog2) {
+  const bool weighted = (flags & kStepWeighted) != 0;
+  switch (op) {
+    case kPermute:  // the host guarantees dst != a
+      if (flags & kStepXorFold)
+        permute_range<V, true>(A, D, rg, weighted, rp, cols, wts, glog2);
+      else
+        permute_range<V, false>(A, D, rg, weighted, rp, cols, wts, glog2);
+      break;
+    case kXor: elementwise_range<V, kXor>(A, B, D, rg, crow, glog2); break;
+    case kAnd: elementwise_range<V, kAnd>(A, B, D, rg, crow, glog2); break;
+    case kAndn: elementwise_range<V, kAndn>(A, B, D, rg, crow, glog2); break;
+    case kAdd: elementwise_range<V, kAdd>(A, B, D, rg, crow, glog2); break;
+    case kRotlv: elementwise_range<V, kRotlv>(A, B, D, rg, crow, glog2); break;
+    case kXorConst:
+      elementwise_range<V, kXorConst>(A, B, D, rg, crow, glog2);
+      break;
+    default: elementwise_range<V, kEqConst>(A, B, D, rg, crow, glog2); break;
+  }
+}
+
+// A step's ranges after its first, from the range table.
+template <int V>
+__device__ __forceinline__ void run_ranges(int op, int flags,
+                                           const Words<V>* A,
+                                           const Words<V>* B, Words<V>* D,
+                                           const int4* __restrict__ rgs,
+                                           int cnt,
+                                           const int* __restrict__ crow,
+                                           const int* __restrict__ rp,
+                                           const int* __restrict__ cols,
+                                           const int* __restrict__ wts,
+                                           int glog2) {
+  for (int k = 0; k < cnt; ++k)
+    run_range<V>(op, flags, A, B, D, __ldg(rgs + k), crow, rp, cols, wts,
+                 glog2);
+}
+
+// (launch bounds of one CTA of 1024 threads an SM: ptxas may use 64
+// registers a thread; with the thread count alone it kept two
+// instantiations to 32 registers and spilled in the step loop)
 template <int V, bool kGlobal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     pp_word_kernel(const uint32_t* __restrict__ state,
-                   uint32_t* __restrict__ out, const int* __restrict__ steps,
-                   int n_steps, int period, const int* __restrict__ plan_tbl,
-                   const int* __restrict__ koff, const int* __restrict__ kcnt,
-                   const int* __restrict__ folds,
-                   const int* __restrict__ w_flat,
-                   const int* __restrict__ woff,
+                   uint32_t* __restrict__ out, const int4* __restrict__ steps,
+                   int n_steps, int t_rounds, int t_cycle,
+                   const int4* __restrict__ ranges,
+                   const int* __restrict__ rp, const int* __restrict__ cols,
+                   const int* __restrict__ wts,
                    const int* __restrict__ consts, int n, int d, int n_phys,
                    int rounds, int const_stride, int lanes_log2,
                    int out_reg, uint32_t* file) {
@@ -156,7 +388,6 @@ __global__ void __launch_bounds__(kThreads)
               : reinterpret_cast<uint32_t*>(smem_w);
   constexpr int kVlog2 = V == 4 ? 2 : (V == 2 ? 1 : 0);
   const int glog2 = lanes_log2 - kVlog2;  // V-word groups a row, log2
-  const int n_el = n << glog2;            // V-word groups a register
 
   for (int e = threadIdx.x; e < per; e += nthr) {
     const int r = e >> lanes_log2;
@@ -166,84 +397,40 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  for (int rnd = 0; rnd < rounds; ++rnd) {
-    const int* st_round = steps + (size_t)(rnd % period) * n_steps * 7;
-    for (int s = 0; s < n_steps; ++s) {
-      const int* st = st_round + 7 * s;
-      const int op = st[0], dst = st[1], a = st[2], b = st[3], p = st[4],
-                c = st[5];
-      if (st[6]) __syncthreads();  // the host's barrier flag
-      const Words<V>* A =
-          reinterpret_cast<const Words<V>*>(regs + (size_t)a * per);
-      const Words<V>* B =
-          reinterpret_cast<const Words<V>*>(regs + (size_t)b * per);
-      Words<V>* D = reinterpret_cast<Words<V>*>(regs + (size_t)dst * per);
-      if (op == kPermute) {  // the host guarantees dst != a
-        const int base = koff[p], cnt = kcnt[p], wb = woff[p];
-        const bool xor_fold = folds[p] != 0;
-        for (int el = threadIdx.x; el < n_el; el += nthr) {
-          const int r = el >> glog2;
-          const int q = el & ((1 << glog2) - 1);
-          uint32_t acc_add[V] = {}, acc_xor[V] = {};
-#pragma unroll 4
-          for (int j = 0; j < cnt; ++j) {
-            const int src = __ldg(plan_tbl + (size_t)(base + j) * n + r);
-            if ((unsigned)src < (unsigned)n) {
-              const Words<V> g = A[((size_t)src << glog2) + q];
-              const uint32_t w =
-                  wb >= 0 ? (uint32_t)__ldg(w_flat + (size_t)(wb + j) * n + r)
-                          : 1u;
-#pragma unroll
-              for (int i = 0; i < V; ++i) {
-                const uint32_t gi = g.w[i] * w;
-                acc_add[i] += gi;
-                acc_xor[i] ^= gi & 1u;
-              }
-            }
-          }
-          Words<V> res;
-#pragma unroll
-          for (int i = 0; i < V; ++i)
-            res.w[i] = xor_fold ? acc_xor[i] : acc_add[i];
-          D[el] = res;
-        }
-      } else if (op == kRotlv || op == kXorConst || op == kEqConst) {
-        const int* crow = consts + (size_t)(c + rnd * const_stride) * n;
-        for (int el = threadIdx.x; el < n_el; el += nthr) {
-          const uint32_t k = (uint32_t)__ldg(crow + (el >> glog2));
-          const Words<V> v = A[el];
-          Words<V> res;
-#pragma unroll
-          for (int i = 0; i < V; ++i) {
-            const uint32_t x = v.w[i];
-            if (op == kRotlv) {
-              const uint32_t left = k < 32u ? (x << k) : 0u;
-              res.w[i] = left | (x >> ((32u - k) & 31u));
-            } else if (op == kXorConst) {
-              res.w[i] = x ^ k;
-            } else {
-              res.w[i] = x == k ? 1u : 0u;
-            }
-          }
-          D[el] = res;
-        }
-      } else {
-        for (int el = threadIdx.x; el < n_el; el += nthr) {
-          const Words<V> av = A[el], bv = B[el];
-          Words<V> res;
-#pragma unroll
-          for (int i = 0; i < V; ++i) {
-            switch (op) {
-              case kXor: res.w[i] = av.w[i] ^ bv.w[i]; break;
-              case kAnd: res.w[i] = av.w[i] & bv.w[i]; break;
-              case kAndn: res.w[i] = ~av.w[i] & bv.w[i]; break;
-              default: res.w[i] = av.w[i] + bv.w[i]; break;  // kAdd
-            }
-          }
-          D[el] = res;
-        }
-      }
+  // the step stream, 3 int4 a step: table rounds 0 .. t_rounds - 1, then
+  // the last t_cycle of them again and again; the next step's words are
+  // loaded while this one runs
+  const int total = rounds * n_steps;
+  const int table = t_rounds * n_steps;
+  const int restart = (t_rounds - t_cycle) * n_steps;
+  int4 h0 = make_int4(0, 0, 0, 0), h1 = h0, h2 = h0;
+  if (total > 0) {
+    h0 = __ldg(steps);
+    h1 = __ldg(steps + 1);
+    h2 = __ldg(steps + 2);
+  }
+  for (int t = 0, ti = 0, rnd = 0, si = 0; t < total; ++t) {
+    const int4 s0 = h0, s1 = h1, s2 = h2;
+    if (t + 1 < total) {
+      ti = ti + 1 == table ? restart : ti + 1;
+      h0 = __ldg(steps + 3 * ti);
+      h1 = __ldg(steps + 3 * ti + 1);
+      h2 = __ldg(steps + 3 * ti + 2);
     }
+    const int op = s0.x & 0xFF;
+    if (s0.x & kStepBarrier) __syncthreads();  // the host's barrier flag
+    const Words<V>* A =
+        reinterpret_cast<const Words<V>*>(regs + (size_t)s0.z * per);
+    const Words<V>* B =
+        reinterpret_cast<const Words<V>*>(regs + (size_t)s0.w * per);
+    Words<V>* D = reinterpret_cast<Words<V>*>(regs + (size_t)s0.y * per);
+    const int* crow = consts + (size_t)(s1.x + rnd * const_stride) * n;
+    // the first range is the step's third word, the others in the table
+    run_range<V>(op, s0.x, A, B, D, s2, crow, rp, cols, wts, glog2);
+    if (s1.z > 0)
+      run_ranges<V>(op, s0.x, A, B, D, ranges + s1.y, s1.z, crow, rp, cols,
+                    wts, glog2);
+    if (++si == n_steps) si = 0, ++rnd;
   }
   __syncthreads();
 
@@ -255,45 +442,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+struct WordArgs {
+  const void* state;
+  void* out;
+  const int* steps;
+  int n_steps, t_rounds, t_cycle;
+  const int* ranges;
+  const int *rp, *cols, *wts, *consts;
+  int n, d, n_phys, rounds, const_stride, lanes_log2, threads, out_reg;
+  void* file;
+};
+
 template <int V, bool kGlobal>
-int launch_word_at(const void* state, void* out, const int* steps,
-                   int n_steps, int period, const int* plan_tbl,
-                   const int* koff, const int* kcnt, const int* folds,
-                   const int* w_flat, const int* woff, const int* consts,
-                   int n, int d, int n_phys, int rounds, int const_stride,
-                   int lanes_log2, int threads, int out_reg, void* file,
-                   cudaStream_t s) {
+int launch_word_at(const WordArgs& a, cudaStream_t s) {
   const size_t smem =
-      kGlobal ? 0 : ((size_t)n_phys * n * sizeof(uint32_t)) << lanes_log2;
+      kGlobal ? 0 : ((size_t)a.n_phys * a.n * sizeof(uint32_t)) << a.lanes_log2;
   cudaError_t err = cudaFuncSetAttribute(
       pp_word_kernel<V, kGlobal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (d + (1 << lanes_log2) - 1) >> lanes_log2;
-  pp_word_kernel<V, kGlobal><<<grid, threads, smem, s>>>(
-      static_cast<const uint32_t*>(state), static_cast<uint32_t*>(out), steps,
-      n_steps, period, plan_tbl, koff, kcnt, folds, w_flat, woff, consts, n,
-      d, n_phys, rounds, const_stride, lanes_log2, out_reg,
-      static_cast<uint32_t*>(file));
+  const int grid = (a.d + (1 << a.lanes_log2) - 1) >> a.lanes_log2;
+  pp_word_kernel<V, kGlobal><<<grid, a.threads, smem, s>>>(
+      static_cast<const uint32_t*>(a.state), static_cast<uint32_t*>(a.out),
+      reinterpret_cast<const int4*>(a.steps), a.n_steps, a.t_rounds,
+      a.t_cycle, reinterpret_cast<const int4*>(a.ranges), a.rp, a.cols, a.wts, a.consts,
+      a.n, a.d, a.n_phys, a.rounds, a.const_stride, a.lanes_log2, a.out_reg,
+      static_cast<uint32_t*>(a.file));
   return (int)cudaGetLastError();
 }
 
 template <int V>
-int launch_word(const void* state, void* out, const int* steps, int n_steps,
-                int period, const int* plan_tbl, const int* koff,
-                const int* kcnt, const int* folds, const int* w_flat,
-                const int* woff, const int* consts, int n, int d, int n_phys,
-                int rounds, int const_stride, int lanes_log2, int threads,
-                int out_reg, void* file, cudaStream_t s) {
-  if (file != nullptr)
-    return launch_word_at<V, true>(state, out, steps, n_steps, period,
-                                   plan_tbl, koff, kcnt, folds, w_flat, woff,
-                                   consts, n, d, n_phys, rounds, const_stride,
-                                   lanes_log2, threads, out_reg, file, s);
-  return launch_word_at<V, false>(state, out, steps, n_steps, period,
-                                  plan_tbl, koff, kcnt, folds, w_flat, woff,
-                                  consts, n, d, n_phys, rounds, const_stride,
-                                  lanes_log2, threads, out_reg, file, s);
+int launch_word(const WordArgs& a, cudaStream_t s) {
+  return a.file != nullptr ? launch_word_at<V, true>(a, s)
+                           : launch_word_at<V, false>(a, s);
 }
 
 // ---------------------------------------------------------- packed layout
@@ -469,39 +650,38 @@ int pp_smem_optin(int device, int* bytes) {
       bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
 
-// Word layout.  state/out: (n, d) 32-bit words; steps: (period x n_steps,
-// 7) int32 rows of (opcode, dst, a, b, plan, const, barrier) over n_phys
-// physical registers, renamed by the host; plan_tbl: (K_total, n); koff/kcnt/
-// folds/woff: (n_plans,); w_flat: (KW_total, n) or null; consts:
-// (n_consts, n).  1 << lanes_log2 payload columns per CTA of `threads`
-// threads (a multiple of 32, at most 1024); register 0 is physical
-// register out_reg at the end.  file: null for the register file in
-// shared memory, else global scratch of grid x n_phys x (n << lanes_log2)
-// words (grid = ceil(d / lanes)), one slab a CTA.
+// Word layout.  state/out: (n, d) 32-bit words; steps: (t_rounds x
+// n_steps, 12) int32, 3 int4 a step over n_phys physical registers
+// (core.plan_program.word_tables: (opcode | flags, dst, a, b), (const
+// row, offset and count of further ranges, 0), the first range); ranges:
+// (R, 4) int32 (lo, hi, flags, base); rp / cols / wts: the plans' CSR
+// (row pointers as absolute source offsets, live sources, weights or null
+// when no plan is weighted); consts: (n_consts, n).  Round r runs table
+// round r while r < t_rounds, then the last t_cycle table rounds in
+// turn, with const row + r x const_stride.  1 << lanes_log2 payload
+// columns per CTA of `threads` threads (a power of two from 32 to 1024:
+// a row group's owner is its index mod threads); register 0 is physical
+// register out_reg
+// at the end.  file: null for the register file in shared memory, else
+// global scratch of grid x n_phys x (n << lanes_log2) words (grid =
+// ceil(d / lanes)), one slab a CTA.
 int pp_megakernel(const void* state, void* out, const int* steps,
-                  int n_steps, int period, const int* plan_tbl,
-                  const int* koff, const int* kcnt, const int* folds,
-                  const int* w_flat, const int* woff, const int* consts,
-                  int n, int d, int n_phys, int rounds, int const_stride,
-                  int lanes_log2, int threads, int out_reg, void* file,
-                  void* stream) {
+                  int n_steps, int t_rounds, int t_cycle, const int* ranges,
+                  const int* rp, const int* cols, const int* wts,
+                  const int* consts, int n, int d, int n_phys, int rounds,
+                  int const_stride, int lanes_log2, int threads, int out_reg,
+                  void* file, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads < 32 || threads > kThreads || threads % 32)
+  if (threads < 32 || threads > kThreads || (threads & (threads - 1)) ||
+      t_cycle < 1 || t_cycle > t_rounds)
     return (int)cudaErrorInvalidValue;
-  if (lanes_log2 >= 2)
-    return launch_word<4>(state, out, steps, n_steps, period, plan_tbl, koff,
-                          kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                          rounds, const_stride, lanes_log2, threads, out_reg,
-                          file, s);
-  if (lanes_log2 == 1)
-    return launch_word<2>(state, out, steps, n_steps, period, plan_tbl, koff,
-                          kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                          rounds, const_stride, lanes_log2, threads, out_reg,
-                          file, s);
-  return launch_word<1>(state, out, steps, n_steps, period, plan_tbl, koff,
-                        kcnt, folds, w_flat, woff, consts, n, d, n_phys,
-                        rounds, const_stride, lanes_log2, threads, out_reg,
-                        file, s);
+  const WordArgs a = {state,  out,        steps,   n_steps, t_rounds,
+                      t_cycle, ranges,    rp,      cols,    wts,
+                      consts, n,          d,       n_phys,  rounds,
+                      const_stride, lanes_log2, threads, out_reg, file};
+  if (lanes_log2 >= 2) return launch_word<4>(a, s);
+  if (lanes_log2 == 1) return launch_word<2>(a, s);
+  return launch_word<1>(a, s);
 }
 
 // Packed layout.  state/out: (n, d) 32-bit words (bit 0 read, 0/1

@@ -8,11 +8,16 @@ program) and ``packed`` (32 lanes a word, for the programs
 its file in shared memory; the word layout keeps it there where one
 lane's file fits the opt-in and in a global scratch tensor otherwise
 (``register_file``), which the TPU kernel, with its file in VMEM, never
-needed to choose.  Its plain versions are ``kernels.ref.plan_program_vm``
-(the program's semantics) and ``kernels.ref.plan_program_packed`` (the
-packed layout's arithmetic on the same tables).  ``OPCODES`` numbers the step stream in the same
-order as the reference, and ``control_digest`` salts the digest of a
-program's control state with that numbering.
+needed to choose.  The word layout walks, in each step, only the rows
+the step may change and, in each row, only its live selects
+(``core.plan_program.word_tables``), where the TPU kernel walks every
+row at its plan's widest.  Its plain versions are
+``kernels.ref.plan_program_vm`` (the program's semantics),
+``kernels.ref.plan_program_rows`` (the word layout's walk on its own
+tables) and ``kernels.ref.plan_program_packed`` (the packed layout's
+arithmetic on its tables).  ``OPCODES`` numbers the step stream in the
+same order as the reference, and ``control_digest`` salts the digest of
+a program's control state with that numbering.
 """
 
 from __future__ import annotations
@@ -51,15 +56,16 @@ def control_digest(steps, consts, plan_parts=()) -> str:
         ("|".join(OPCODES), steps, consts) + tuple(plan_parts))
 
 
-def register_file(n: int, n_regs: int, smem_bytes: int) -> str:
-    """Where the word layout keeps a program's register file — n_regs
+def register_file(n: int, n_regs: int, smem_bytes: int,
+                  lanes: int = 1) -> str:
+    """Where the word layout keeps a CTA's register files — n_regs
     registers plus one scratch register, n uint32 rows each, a lane:
-    ``"shared"`` when one lane's file fits the shared memory a block may
-    opt in to, else ``"global"`` (a scratch tensor allocated for the
+    ``"shared"`` when ``lanes`` lanes' files fit the shared memory a block
+    may opt in to, else ``"global"`` (a scratch tensor allocated for the
     launch, one slab a CTA) while one lane's file stays within the
     kernel's 32-bit word offsets.  Raises ``ValueError`` past both."""
     words = (n_regs + 1) * n
-    if words * 4 <= smem_bytes:
+    if words * 4 * lanes <= smem_bytes:
         return "shared"
     if words <= GLOBAL_FILE_WORDS:
         return "global"
@@ -73,20 +79,23 @@ def register_file(n: int, n_regs: int, smem_bytes: int) -> str:
 def lanes_per_cta(n: int, n_regs: int, d: int, smem_bytes: int, *,
                   sms: int = 1) -> int:
     """Lanes each CTA owns in the word layout: a power of two (the kernel
-    finds a thread's lane by shifts), the largest whose files fit the
-    placement ``register_file`` picks (the shared memory a block may opt
-    in to, or the global file's word offsets), capped at the power of two
-    that covers ``d`` and at the most that still gives ``sms`` CTAs (the
-    card's SMs: a program's steps are a chain of dependent latencies, so
-    the grid should cover the card before a CTA takes more lanes).
-    Raises where ``register_file`` does."""
+    finds a thread's lane by shifts), the fewest that run all ``d`` lanes
+    in one wave of ``sms`` CTAs (the card's SMs), capped at the power of
+    two that covers ``d`` and at the global file's word offsets.  A step
+    costs a CTA a chain of dependent loads and a barrier whatever its
+    lanes (each thread takes V = 4 lanes of a row at once), so a second
+    wave costs more than wider CTAs: GCM's 1024 records of 64 B ran 1.65
+    ms at 8 lanes a CTA (128 CTAs, files in global memory) against 2.12
+    ms at the 4 whose files fit shared memory (256 CTAs, two waves), 256
+    of 1 KiB 10.36 against 18.00 ms (NVIDIA H100, ``chip_smoke.py``'s
+    ``gcm_phase``).  The placement follows the lanes
+    (``register_file(..., lanes)``).  Raises where ``register_file``
+    does."""
     words = (n_regs + 1) * n
-    if register_file(n, n_regs, smem_bytes) == "shared":
-        fit = smem_bytes // (words * 4)
-    else:
-        fit = GLOBAL_FILE_WORDS // words
+    register_file(n, n_regs, smem_bytes)
     lanes = 1
-    while lanes * 2 <= fit and lanes < d and -(-d // (lanes * 2)) >= sms:
+    while (lanes < d and -(-d // lanes) > sms
+           and 2 * lanes * words <= GLOBAL_FILE_WORDS):
         lanes *= 2
     return lanes
 
@@ -106,10 +115,10 @@ def sm_count(device: torch.device) -> int:
 
 def word_threads(n: int, lanes: int) -> int:
     """Threads of a word-layout CTA: one a V-word group of a row (V = 4
-    lanes, or fewer when the CTA has fewer), in whole warps, at most
-    1024."""
+    lanes, or fewer when the CTA has fewer), a power of two (a group's
+    owner thread is its index masked) from 32 to 1024."""
     groups = n * lanes // min(lanes, 4)
-    return min(1024, 32 * -(-max(groups, 1) // 32))
+    return min(1024, max(32, 1 << (max(groups, 1) - 1).bit_length()))
 
 
 def packed_threads(n: int) -> int:
@@ -162,12 +171,12 @@ def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None,
     (``core.plan_program.build_control``) on the state's device; layout:
     ``"packed"`` or ``"word"``, by default the one ``build_control``
     chose; lanes, threads: the word layout's lanes a CTA (a power of two
-    whose register file fits) and threads a CTA (a multiple of 32, at
-    most 1024), by default ``lanes_per_cta``'s and ``word_threads``'s
-    (for timing alternatives); placement: the word layout's register
-    file, ``"shared"`` or ``"global"``, by default ``register_file``'s
-    (``"global"`` runs any word program, for timing and tests).  Returns
-    (n, D) in state's dtype.
+    whose register files fit the placement) and threads a CTA (a power of
+    two from 32 to 1024), by default ``lanes_per_cta``'s and
+    ``word_threads``'s (for timing alternatives); placement: the word
+    layout's register file, ``"shared"`` or ``"global"``, by default
+    ``register_file``'s for those lanes (``"global"`` runs any word
+    program, for timing and tests).  Returns (n, D) in state's dtype.
     """
     if not state.is_cuda:
         raise ValueError(f"megakernel needs a CUDA state, got {state.device}")
@@ -183,8 +192,8 @@ def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None,
         raise ValueError("this program is not bit-sliceable: it runs in "
                          "the word layout only")
     n, d = state.shape
-    tables = [ctl[k] for k in ("phys_steps", "plan_tbl", "koff", "kcnt",
-                               "folds", "woff", "consts", "w_flat", "blob")
+    tables = [ctl[k] for k in ("consts", "blob", "w_steps", "w_ranges",
+                               "w_rp", "w_cols", "w_wts")
               if ctl[k] is not None]
     for t in tables:
         if (t.device != state.device or t.dtype != torch.int32
@@ -213,39 +222,39 @@ def plan_program_cuda(state, ctl, *, layout=None, lanes=None, threads=None,
     else:
         smem = smem_optin(state.device)
         n_phys = ctl["n_phys"]
+        if lanes is None:
+            lanes = lanes_per_cta(n, n_phys - 1, d, smem,
+                                  sms=sm_count(state.device))
         if placement is None:
-            placement = register_file(n, n_phys - 1, smem)
+            placement = register_file(n, n_phys - 1, smem, lanes)
         elif placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, got "
                              f"{placement!r}")
         room = smem // 4 if placement == "shared" else GLOBAL_FILE_WORDS
-        if lanes is None:
-            lanes = lanes_per_cta(n, n_phys - 1, d, smem,
-                                  sms=sm_count(state.device))
         if lanes < 1 or lanes & (lanes - 1) or n_phys * n * lanes > room:
             raise ValueError(f"lanes={lanes}: need a power of two whose "
                              f"register files fit the {placement} "
                              f"placement ({room} words)")
         if threads is None:
             threads = word_threads(n, lanes)
-        elif not (32 <= threads <= 1024 and threads % 32 == 0):
-            raise ValueError(f"threads={threads}: need a multiple of 32 "
-                             "up to 1024")
+        elif not (32 <= threads <= 1024 and threads & (threads - 1) == 0):
+            raise ValueError(f"threads={threads}: need a power of two from "
+                             "32 to 1024")
         file = None
         if placement == "global":
             file = torch.empty(-(-d // lanes) * n_phys * n * lanes,
                                dtype=torch.int32, device=state.device)
-        w_flat = ctl["w_flat"]
+        wts = ctl["w_wts"]
         err = lib.pp_megakernel(
-            state.data_ptr(), out.data_ptr(), ctl["phys_steps"].data_ptr(),
-            ctl["n_steps"], ctl["period"], ctl["plan_tbl"].data_ptr(),
-            ctl["koff"].data_ptr(), ctl["kcnt"].data_ptr(),
-            ctl["folds"].data_ptr(),
-            None if w_flat is None else w_flat.data_ptr(),
-            ctl["woff"].data_ptr(), ctl["consts"].data_ptr(), n, d,
-            n_phys, ctl["rounds"], ctl["const_stride"],
-            lanes.bit_length() - 1, threads, ctl["out_reg"],
-            None if file is None else file.data_ptr(), stream)
+            state.data_ptr(), out.data_ptr(), ctl["w_steps"].data_ptr(),
+            ctl["n_steps"], ctl["w_rounds"], ctl["w_cycle"],
+            ctl["w_ranges"].data_ptr(),
+            ctl["w_rp"].data_ptr(), ctl["w_cols"].data_ptr(),
+            None if wts is None else wts.data_ptr(),
+            ctl["consts"].data_ptr(), n, d, n_phys, ctl["rounds"],
+            ctl["const_stride"], lanes.bit_length() - 1, threads,
+            ctl["out_reg"], None if file is None else file.data_ptr(),
+            stream)
         if placement == "global":
             layout = "word_global"
     with _LOCK:

@@ -8,7 +8,8 @@ select) order), bf16 payloads against bf16-rounded weights, merge by
 coverage and the GF(2) parity fold; the sparse crossbar over the same
 schedule, leaving unvisited output tiles unwritten; the plan-program
 VM as a Python loop over rounds and steps in wrapping 32-bit
-arithmetic, and its packed layout bit-sliced on the kernel's tables;
+arithmetic, its packed layout bit-sliced on the kernel's tables and its
+word layout's row walk on that layout's tables;
 the MoE routing transform as a one-hot exclusive cumsum per group; the
 fused vcompress as prefix sums and a row copy.  The kernel
 wrappers use them for CPU tensors; the tests and ``chip_smoke.py`` hold
@@ -238,6 +239,87 @@ def plan_program_vm(state, steps, plan_tbl, koff, kcnt, folds, w_flat, woff,
                     val = (av == k).to(torch.int64)
             regs[dst] = val
     return _from_u32(regs[0], state.dtype)
+
+
+def plan_program_rows(state, ctl):
+    """Plain version of the word layout's row walk, on the kernel's own
+    tables (``core.plan_program.word_tables``): the step table of
+    ``w_rounds`` rounds, the last ``w_cycle`` of them repeating (3 int4 a
+    step: opcode and flags, registers; const row and further ranges; the
+    first range), the constant rows advancing by the program's stride a
+    round, each step computing only
+    the rows of its ranges and leaving every other row of its destination
+    as it is, a PERMUTE row folding its live selects from the CSR (row
+    pointer, or a uniform count from the range's base), wrapping 32-bit
+    arithmetic on int64 carriers.  For tests and ``chip_smoke.py``: the
+    port runs the plain VM (``plan_program_vm``) on CPU states."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.kernels.plan_program_kernel import OPCODES
+
+    n, d = state.shape
+    steps = ctl["w_steps"].cpu().tolist()
+    ranges = ctl["w_ranges"].cpu().tolist()
+    rp = ctl["w_rp"].cpu().to(torch.int64)
+    cols = ctl["w_cols"].cpu().to(torch.int64)
+    wts = None if ctl["w_wts"] is None else _to_u32(ctl["w_wts"].cpu())
+    cst = _to_u32(ctl["consts"].cpu())
+    t_rounds, cycle = ctl["w_rounds"], ctl["w_cycle"]
+    n_steps = len(steps) // t_rounds
+    regs = torch.zeros((ctl["n_phys"], n, d), dtype=torch.int64)
+    regs[0] = _to_u32(state.cpu())
+    for rnd in range(ctl["rounds"]):
+        t_rnd = (rnd if rnd < t_rounds else t_rounds - cycle
+                 + (rnd - t_rounds + cycle) % cycle)
+        base_s = t_rnd * n_steps
+        for row in steps[base_s:base_s + n_steps]:
+            flags, dst, a, b, c, roff, rcnt = row[:7]
+            op = OPCODES[flags & 0xFF]
+            for lo, hi, rflags, base in [row[8:12]] + ranges[roff:roff
+                                                             + rcnt]:
+                if hi <= lo:
+                    continue
+                av = regs[a, lo:hi]
+                if op == "permute":
+                    r = torch.arange(lo, hi)
+                    if rflags & pp.WR_RAGGED:
+                        j0, j1 = rp[base + r], rp[base + r + 1]
+                    else:
+                        j0 = base + (r - lo) * (rflags >> 16)
+                        j1 = j0 + (rflags >> 16)
+                    cnt = j1 - j0
+                    row_of = torch.repeat_interleave(torch.arange(hi - lo),
+                                                     cnt)
+                    j = (torch.arange(int(cnt.sum()))
+                         - torch.repeat_interleave(torch.cumsum(cnt, 0)
+                                                   - cnt, cnt)
+                         + torch.repeat_interleave(j0, cnt))
+                    g = regs[a][cols[j]]                        # (s, d)
+                    if flags & pp.WS_WEIGHTED:
+                        g = (g * wts[j][:, None]) & _MASK32
+                    acc = torch.zeros((hi - lo, d), dtype=torch.int64)
+                    acc.index_add_(0, row_of, g if not flags
+                                   & pp.WS_XOR_FOLD else g & 1)
+                    val = acc & (1 if flags & pp.WS_XOR_FOLD else _MASK32)
+                elif op == "xor":
+                    val = av ^ regs[b, lo:hi]
+                elif op == "and":
+                    val = av & regs[b, lo:hi]
+                elif op == "andn":
+                    val = (av ^ _MASK32) & regs[b, lo:hi]
+                elif op == "add":
+                    val = (av + regs[b, lo:hi]) & _MASK32
+                else:
+                    k = cst[c + rnd * ctl["const_stride"], lo:hi][:, None]
+                    if op == "rotlv":
+                        left = torch.where(k < 32, (av << k.clamp(max=32)) &
+                                           _MASK32, torch.zeros_like(av))
+                        val = left | (av >> ((32 - k) & 31))
+                    elif op == "xor_const":
+                        val = av ^ k
+                    else:  # eq_const
+                        val = (av == k).to(torch.int64)
+                regs[dst, lo:hi] = val
+    return _from_u32(regs[ctl["out_reg"]], state.dtype).to(state.device)
 
 
 def plan_program_packed(state, ctl):

@@ -493,6 +493,85 @@ def test_word_layout_global_file_matches_plain_vm(dev, case):
         ppk.plan_program_cuda(s, ctl, layout="word", placement="l2")
 
 
+# (program, placement) of the row walk's card cases: GCM at the three
+# record geometries of chip_smoke.py (a few records each), in every
+# placement its register file fits
+ROW_WALK_CASES = [("all_opcodes", "shared"), ("all_opcodes", "global"),
+                  ("chacha20", "shared"), ("chacha20", "global"),
+                  ("gcm_a", "shared"), ("gcm_a", "global"),
+                  ("gcm_b", "shared"), ("gcm_b", "global"),
+                  ("gcm_c", "global")]
+GCM_ROW_GEOMETRIES = {"gcm_a": (64, 16), "gcm_b": (1024, 16),
+                      "gcm_c": (1500, 13)}
+
+
+@pytest.mark.parametrize("case,placement", ROW_WALK_CASES,
+                         ids=[f"{c}-{p}" for c, p in ROW_WALK_CASES])
+def test_word_row_walk_matches_plain_versions(dev, case, placement):
+    """The word kernel's row walk (each step over the rows it may
+    change, each row over its live selects) against its plain version on
+    the same tables and the plain VM, bit-exact, at the default lanes a
+    CTA and at 4 (V = 4 words a thread)."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import chacha, gcm
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(13)
+    if case == "all_opcodes":
+        prog = _all_opcode_program(dev)
+        s = torch.as_tensor(rng.integers(0, 2**32, (256, 77), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32),
+                            device=dev).view(torch.uint32)
+    elif case == "chacha20":
+        prog = chacha.megakernel_program(dev)
+        host = chacha._setup_states(bytes(range(32)), 1, bytes(12), 999)
+        s = torch.as_tensor(np.ascontiguousarray(host.view(np.int32).T),
+                            device=dev).view(torch.uint32)
+    else:
+        from test_torch_gcm import KEY, vecs
+        pt_len, aad_len = GCM_ROW_GEOMETRIES[case]
+        _, prog, lay = gcm.gcm_program(KEY, pt_len, aad_len, device=dev)
+        s = torch.as_tensor(gcm._pack_records(lay, *vecs(pt_len, aad_len, 6),
+                                              pt_len, aad_len), device=dev)
+    ctl = pp.control_for(prog, dev)
+    want = _vm(s, ctl).view(torch.int32)
+    assert_bitexact(ref.plan_program_rows(s, ctl).view(torch.int32), want)
+    fits = ctl["n_phys"] * prog.n * 4 * 4 <= ppk.smem_optin(dev)
+    for lanes in (None, 4) if placement == "global" or fits else (None,):
+        got = ppk.plan_program_cuda(s, ctl, layout="word", lanes=lanes,
+                                    placement=placement)
+        assert_bitexact(got.view(torch.int32), want)
+
+
+@pytest.mark.parametrize("case", ["all_opcodes", "chacha20"])
+def test_word_row_walk_past_the_unroll_limit(dev, monkeypatch, case):
+    """Tables that keep the renaming's period (every row a step, the
+    kernel adding the constant stride) against the plain VM."""
+    from repro_torch.core import plan_program as pp
+    from repro_torch.crypto import chacha
+    from repro_torch.kernels import plan_program_kernel as ppk
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(15)
+    if case == "all_opcodes":
+        prog = _all_opcode_program(dev)
+        s = torch.as_tensor(rng.integers(0, 2**32, (256, 77), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32),
+                            device=dev).view(torch.uint32)
+    else:
+        prog = chacha.megakernel_program(dev)
+        host = chacha._setup_states(bytes(range(32)), 5, bytes(12), 500)
+        s = torch.as_tensor(np.ascontiguousarray(host.view(np.int32).T),
+                            device=dev).view(torch.uint32)
+    monkeypatch.setattr(pp, "UNROLL_STEPS", 8)
+    ctl = pp.build_control(prog, dev)
+    assert ctl["w_rounds"] == ctl["period"] < prog.rounds
+    want = _vm(s, ctl).view(torch.int32)
+    assert_bitexact(ref.plan_program_rows(s, ctl).view(torch.int32), want)
+    for placement in ("shared", "global"):
+        assert_bitexact(ppk.plan_program_cuda(s, ctl, placement=placement)
+                        .view(torch.int32), want)
+
+
 @pytest.mark.parametrize("geometry", [(64, 16, 37), (1024, 16, 5),
                                       (1500, 13, 3)],
                          ids=["64B-shared", "1KiB-shared", "1500B-global"])
@@ -508,8 +587,11 @@ def test_gcm_fused_seal_open_on_card(dev, geometry):
     pt_len, aad_len, b = geometry
     ivs, pts, aads = vecs(pt_len, aad_len, b)
     _, prog, lay = gcm.gcm_program(KEY, pt_len, aad_len, device=dev)
-    placement = ppk.register_file(lay["n"], prog.n_regs,
-                                  ppk.smem_optin(dev))
+    smem = ppk.smem_optin(dev)
+    placement = ppk.register_file(lay["n"], prog.n_regs, smem,
+                                  ppk.lanes_per_cta(lay["n"], prog.n_regs, b,
+                                                    smem,
+                                                    sms=ppk.sm_count(dev)))
     reset_launch_counts()
     with telemetry.delta() as d:
         sealed = gcm.aes128_gcm_seal_batch(KEY, ivs, pts, aads,

@@ -517,25 +517,30 @@ def test_fixed_latency_contract():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("pt_len,aad_len,b,n,placement,lanes", [
-    (64, 16, 1024, 2688, "shared", 4),       # BENCH_aes_gcm's geometry
-    (1024, 16, 256, 8800, "shared", 1),      # 1 KiB records
+    (64, 16, 1024, 2688, "global", 8),       # BENCH_aes_gcm's geometry
+    (1024, 16, 256, 8800, "global", 2),      # 1 KiB records
     (1500, 13, 64, 12640, "global", 1),      # one Ethernet MTU, TLS AAD
+    (64, 16, 37, 2688, "shared", 1),         # fewer records than SMs
 ])
 def test_register_file_placement_at_gcm_geometries(pt_len, aad_len, b, n,
                                                    placement, lanes):
+    """One wave of 132 CTAs: the lanes a CTA that takes, and the file's
+    placement for those lanes."""
     m, _, a = TG._geometry(pt_len, aad_len)
     assert TG._layout(m, a)["n"] == n
-    assert ppk.register_file(n, 4, SMEM) == placement
     assert ppk.lanes_per_cta(n, 4, b, SMEM, sms=132) == lanes
+    assert ppk.register_file(n, 4, SMEM, lanes) == placement
 
 
 def test_register_file_boundary_and_refusal():
     # 5 physical registers x n rows x 4 B: 232440 B fit, 232460 do not
     assert ppk.register_file(11622, 4, SMEM) == "shared"
     assert ppk.register_file(11623, 4, SMEM) == "global"
-    assert ppk.lanes_per_cta(11622, 4, 8, SMEM) == 1
-    # the global file takes as many lanes a CTA as the other caps allow
-    assert ppk.lanes_per_cta(11623, 4, 1024, SMEM, sms=132) == 4
+    assert ppk.register_file(11622, 4, SMEM, 2) == "global"
+    # as many lanes a CTA as one wave needs, whatever the placement
+    assert ppk.lanes_per_cta(11622, 4, 8, SMEM) == 8
+    assert ppk.lanes_per_cta(11622, 4, 8, SMEM, sms=132) == 1
+    assert ppk.lanes_per_cta(11623, 4, 1024, SMEM, sms=132) == 8
     assert ppk.lanes_per_cta(11623, 4, 8, SMEM) == 8
     with pytest.raises(ValueError, match="register file"):
         ppk.register_file(2**29, 4, SMEM)

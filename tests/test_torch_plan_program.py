@@ -136,11 +136,15 @@ def test_program_validation():
 def test_lanes_per_cta_derivation():
     # Keccak: 3 registers + scratch x 1600 rows x 4 B = 25.6 KB a lane.
     # Lanes are a power of two (the word kernel finds a lane by shifts):
-    # 3 lanes of payload take a CTA of 4, one of them idle.
-    assert ppk.lanes_per_cta(1600, 3, 1024, 232448) == 8
+    # 3 lanes of payload take a CTA of 4, one of them idle.  On one SM
+    # (sms=1) every lane goes to the one CTA of the wave; the files then
+    # go to global memory where they overflow the shared memory.
+    assert ppk.lanes_per_cta(1600, 3, 1024, 232448) == 1024
+    assert ppk.register_file(1600, 3, 232448, 8) == "shared"
+    assert ppk.register_file(1600, 3, 232448, 16) == "global"
     assert ppk.lanes_per_cta(1600, 3, 3, 232448) == 4
     assert ppk.lanes_per_cta(1600, 3, 1, 232448) == 1
-    assert ppk.lanes_per_cta(64, 3, 1000, 232448) == 128
+    assert ppk.lanes_per_cta(64, 3, 1000, 232448) == 1024
     # a file over the shared memory goes to global memory; past the global
     # file's 32-bit word offsets too, the program is refused
     assert ppk.lanes_per_cta(100_000, 4, 8, 232448) == 8
@@ -149,17 +153,20 @@ def test_lanes_per_cta_derivation():
 
 
 def test_word_geometry_covers_the_card():
-    # ChaCha20 (n = 16, 2 registers + scratch): 1210 lanes fit a CTA, but
-    # 16384 lanes over 132 SMs take 64 a CTA (256 CTAs), each CTA a
-    # thread per 4-lane group of a row.
-    assert ppk.lanes_per_cta(16, 2, 16384, 232448) == 1024
-    assert ppk.lanes_per_cta(16, 2, 16384, 232448, sms=132) == 64
+    # ChaCha20 (n = 16, 2 registers + scratch): 16384 lanes over 132 SMs
+    # take 128 a CTA (128 CTAs, one wave), each CTA a thread per 4-lane
+    # group of a row.
+    assert ppk.lanes_per_cta(16, 2, 16384, 232448) == 16384
+    assert ppk.lanes_per_cta(16, 2, 16384, 232448, sms=132) == 128
+    assert ppk.word_threads(16, 128) == 512
     assert ppk.word_threads(16, 64) == 256
     assert ppk.word_threads(16, 1024) == 1024
     assert ppk.word_threads(16, 2) == 32 and ppk.word_threads(16, 1) == 32
-    # Keccak (25.6 KB a lane): 1024 lanes take 4 a CTA, not the 8 that fit.
-    assert ppk.lanes_per_cta(1600, 3, 1024, 232448, sms=132) == 4
-    assert ppk.word_threads(1600, 4) == 1024
+    # threads are a power of two: 80 rows of one lane take 128
+    assert ppk.word_threads(80, 1) == 128
+    # Keccak (25.6 KB a lane): 1024 lanes take 8 a CTA, in shared memory
+    assert ppk.lanes_per_cta(1600, 3, 1024, 232448, sms=132) == 8
+    assert ppk.word_threads(1600, 8) == 1024
     # fewer lanes than SMs: one lane a CTA
     assert ppk.lanes_per_cta(256, 4, 77, 232448, sms=132) == 1
     assert ppk.word_threads(256, 1) == 256
